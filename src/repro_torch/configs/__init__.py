@@ -1,0 +1,30 @@
+"""Architecture registry — PyTorch port of ``repro.configs``.  One module
+per arch, each exposing ``full()`` (the exact published config) and
+``smoke()`` (a reduced same-family config for CPU tests).
+
+This slice of the port carries the dense family's serving model,
+internlm2-1.8b; the other archs come with their families.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+ARCH_IDS = ("internlm2_1_8b",)
+
+# accept hyphenated public names too
+ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def get_arch_module(name: str):
+    name = ALIASES.get(name, name)
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown arch {name!r}; options: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str, *, smoke: bool = False, **overrides) -> ModelConfig:
+    mod = get_arch_module(name)
+    cfg = mod.smoke() if smoke else mod.full()
+    return cfg.with_(**overrides) if overrides else cfg

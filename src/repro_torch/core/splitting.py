@@ -1,0 +1,336 @@
+"""Slice extraction ("splitting") for the Ozaki scheme — PyTorch port of
+``repro.core.splitting``.
+
+This slice ports the per-row geometric strategies the main path needs:
+
+  * ``split_bitmask``  — Alg. 3: truncate consecutive beta-bit groups.
+  * ``split_rn_const`` — Alg. 8 (the "H" splitting): round-to-nearest with
+    a fixed base scale and constant grid ratio 2^-beta per slice, so slice
+    scales form the geometric sequence group-wise error-free accumulation
+    (Alg. 6/7) needs.
+  * ``split_sm``       — sign-magnitude digits (the ``ozimmu_sm_*``
+    family): the sign lives in the leading slice only, trailing digits are
+    unsigned magnitudes stored mod 2^8 (decode with :func:`sm_decode`).
+
+The adaptive RN splitter and the Ozaki-II constant-grid splitters come
+with later slices of the port.
+
+Every split returns a :class:`Split` with the reference's convention
+
+    A  ~  sum_s diag(scale[s]) @ digits[s]      (axis=0, row scales)
+    A  ~  sum_s digits[s] @ diag(scale[s])      (axis=1, column scales)
+
+with ``scale[s] = base * 2^(-beta*(s+1))`` (0-indexed s).  All arithmetic is
+power-of-two scaling, rounding to representable grids and exact residual
+subtraction, so the digits are bit-identical to the reference's.  Exponents
+come from ``torch.frexp``, never ``log2``; powers of two are built from their
+bit pattern (:func:`_exp2i`), which is exact for normal and subnormal
+results on every device.
+
+Float-to-int8 conversion saturates and maps NaN to 0 (:func:`to_int8`), as
+XLA's conversion does: a row whose maximum is subnormal has an infinite
+reciprocal grid, and the reference's digits for it are the saturated values.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+__all__ = [
+    "Split",
+    "compute_beta",
+    "compute_beta_sm",
+    "beta_for",
+    "compute_r",
+    "digit_bits",
+    "split_bitmask",
+    "split_rn_const",
+    "split_sm",
+    "sm_decode",
+    "sm_decode_slice",
+    "reconstruct",
+    "to_int8",
+]
+
+
+class Split(NamedTuple):
+    """k int8 slices of a (possibly batched) matrix plus per-slice scales.
+
+    Attributes:
+      digits: ``(k, *batch, m, n)`` int8 slice matrices.
+      scale:  ``(k, *batch, r)`` per-slice power-of-two scales (r = rows for
+              ``axis=0``, columns for ``axis=1``).
+      base:   ``(*batch, r)`` geometric base, ``scale[s] = base *
+              2^(-beta*(s+1))``.
+      beta:   bits per slice.
+      axis:   0 if ``scale`` indexes rows, 1 for columns.
+      gbase:  scalar base of the constant-grid (oz2) strategies; None here.
+      signmag: sign-magnitude storage (``split_sm``): slices 1..k-1 are
+              unsigned magnitudes stored mod 2^8 — widen through
+              :func:`sm_decode` before any arithmetic.
+    """
+
+    digits: torch.Tensor
+    scale: torch.Tensor
+    base: Optional[torch.Tensor]
+    beta: int
+    axis: int
+    gbase: Optional[torch.Tensor] = None
+    signmag: bool = False
+
+
+def compute_beta(n: int) -> int:
+    """beta = min(7, floor((31 - ceil(log2 n)) / 2)) — eq. (4) of the paper,
+    with the exact integer ceil(log2 n) so ``n * (2^beta - 1)^2 < 2^31``."""
+    if n <= 0:
+        raise ValueError(f"contraction length must be positive, got {n}")
+    clog2 = max(1, (n - 1).bit_length())
+    beta = min(7, (31 - clog2) // 2)
+    if beta < 1:
+        raise ValueError(f"n={n} too large for int8 Ozaki scheme (beta < 1)")
+    return beta
+
+
+def compute_beta_sm(n: int) -> int:
+    """beta for the sign-magnitude strategy: min(8, floor((31-log2 n)/2))."""
+    if n <= 0:
+        raise ValueError(f"contraction length must be positive, got {n}")
+    clog2 = max(1, (n - 1).bit_length())
+    beta = min(8, (31 - clog2) // 2)
+    if beta < 1:
+        raise ValueError(f"n={n} too large for int8 Ozaki scheme (beta < 1)")
+    return beta
+
+
+# splits using the sign-magnitude storage convention (Split.signmag=True)
+SM_SPLITS = ("sm",)
+
+
+def is_signmag(split: str) -> bool:
+    return split in SM_SPLITS
+
+
+def beta_for(split: str, n: int) -> int:
+    """Slice width of a splitting strategy at contraction length n."""
+    return compute_beta_sm(n) if split in SM_SPLITS else compute_beta(n)
+
+
+def compute_r(n: int, beta: int, digit_bits: Optional[int] = None) -> int:
+    """Slice-pair products summable in INT32 without overflow — eq. (12).
+
+    ``digit_bits=None``: digits strictly below 2^beta, so the power-of-two
+    ``r = 2^(31 - 2*beta - ceil(log2 n))`` is safe.  With ``digit_bits``
+    the digits may attain ±2^digit_bits and one pair is shaved off.
+    """
+    clog2 = max(1, (n - 1).bit_length())
+    if digit_bits is None:
+        return max(1, 2 ** max(0, 31 - 2 * beta - clog2))
+    return max(1, 2 ** max(0, 31 - 2 * digit_bits - clog2) - 1)
+
+
+# splits whose digits lie in [-2^(beta-1), 2^(beta-1)] (round-to-nearest)
+RN_SPLITS = ("rn", "rn_const", "oz2_rn", "oz2_rn_fast2")
+
+
+def digit_bits(split: str, beta: int) -> int:
+    """Digit magnitude bits of a splitting strategy."""
+    return beta - 1 if split in RN_SPLITS else beta
+
+
+def to_int8(d: torch.Tensor) -> torch.Tensor:
+    """Float digits -> int8, saturating, NaN -> 0 (XLA's conversion;
+    ``Tensor.to(torch.int8)`` wraps instead)."""
+    return torch.nan_to_num(d, nan=0.0).clamp(-128.0, 127.0).to(torch.int8)
+
+
+def _rowmax(a: torch.Tensor, axis: int) -> torch.Tensor:
+    """max_j |a_ij| along the non-scale matrix axis; shape (*batch, r)."""
+    return a.abs().amax(dim=-1 if axis == 0 else -2)
+
+
+def _contract_len(a: torch.Tensor, axis: int) -> int:
+    return a.shape[-1] if axis == 0 else a.shape[-2]
+
+
+_FLOAT_BITS = {torch.float32: (23, 127, torch.int32),
+               torch.float64: (52, 1023, torch.int64)}
+
+
+def _exp2i(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """2^e for an integer tensor ``e``, built from the bit pattern of the
+    result (exact, subnormal results included; 0 below the subnormal range,
+    inf above the normal range)."""
+    mbits, bias, itype = _FLOAT_BITS[dtype]
+    e = e.to(itype)
+    emin = 1 - bias
+    normal = (e + bias).clamp(min=1, max=2 * bias + 1) << mbits
+    sub = torch.ones_like(e) << (e - (emin - mbits)).clamp(min=0,
+                                                          max=mbits - 1)
+    bits = torch.where(e >= emin, normal,
+                       torch.where(e >= emin - mbits, sub,
+                                   torch.zeros_like(e)))
+    return bits.view(dtype)
+
+
+def _pow2_floor(x: torch.Tensor) -> torch.Tensor:
+    """2^floor(log2 x) elementwise (x > 0); 1.0 where x == 0."""
+    _, e = torch.frexp(x)  # x = m * 2^e, m in [0.5, 1)
+    out = _exp2i(e - 1, x.dtype)
+    return torch.where(x == 0, torch.ones_like(x), out)
+
+
+def _pow2_ceil(x: torch.Tensor) -> torch.Tensor:
+    """2^ceil(log2 x) elementwise (x > 0); 1.0 where x == 0."""
+    m, e = torch.frexp(x)
+    e = torch.where(m == 0.5, e - 1, e)  # exact powers of two
+    out = _exp2i(e, x.dtype)
+    return torch.where(x == 0, torch.ones_like(x), out)
+
+
+def _bcast(v: torch.Tensor, axis: int) -> torch.Tensor:
+    """Broadcast a (*batch, r) per-row/col vector against the matrix."""
+    return v[..., :, None] if axis == 0 else v[..., None, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _geo_exps(beta: int, k: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """[2^(-beta*s) for s = 1..k] on ``device``, built once per key: a
+    host-to-device copy on every split would stall the host on the card.
+    Read-only (shared by every caller)."""
+    return torch.tensor([2.0 ** (-beta * s) for s in range(1, k + 1)],
+                        dtype=dtype, device=device)
+
+
+def _geo_scales(base: torch.Tensor, beta: int, k: int) -> torch.Tensor:
+    """scale[s] = base * 2^(-beta*(s+1)), shape (k, *batch, r)."""
+    exps = _geo_exps(beta, k, base.dtype, base.device)
+    return base[None] * exps.reshape((k,) + (1,) * base.ndim)
+
+
+def split_bitmask(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
+                  axis: int = 0,
+                  rowmax_reduce: Optional[Callable] = None) -> Split:
+    """Alg. 3 — bit-mask splitting in pure float arithmetic (batched)."""
+    if beta is None:
+        beta = compute_beta(_contract_len(a, axis))
+    rowmax = _rowmax(a, axis)
+    if rowmax_reduce is not None:
+        rowmax = rowmax_reduce(rowmax)
+    base = 2.0 * _pow2_floor(rowmax)
+    digits = _bitmask_extract(a, base, beta, k, axis)
+    return Split(digits, _geo_scales(base, beta, k), base, beta, axis)
+
+
+def _bitmask_extract(a, base, beta: int, k: int, axis: int) -> torch.Tensor:
+    """The Alg. 3 truncation loop; returns ``(k, *batch, m, n)`` int8."""
+    two_beta = 2.0 ** beta
+    r = a * _bcast(1.0 / base, axis)
+    digits = []
+    for _ in range(k):
+        r = r * two_beta
+        d = torch.trunc(r)
+        r = r - d
+        digits.append(to_int8(d))
+    return torch.stack(digits)
+
+
+def _rn_extract(r, grid, axis: int):
+    """One round-to-nearest-even extraction: (slice_value, new_residual)."""
+    g = _bcast(grid, axis)
+    s = torch.round(r * (1.0 / g)) * g
+    return s, r - s
+
+
+def split_rn_const(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
+                   axis: int = 0,
+                   rowmax_reduce: Optional[Callable] = None) -> Split:
+    """Alg. 8 — round-to-nearest splitting with constant grid ratio 2^-beta
+    (the "ozIMMU_H" splitting).  Batched; one rowmax pass."""
+    if beta is None:
+        beta = compute_beta(_contract_len(a, axis))
+    rowmax = _rowmax(a, axis)
+    if rowmax_reduce is not None:
+        rowmax = rowmax_reduce(rowmax)
+    mu = _pow2_ceil(rowmax) * (2.0 ** (1 - beta))
+    digits = _rn_const_extract(a, mu, beta, k, axis)
+    base = mu * (2.0 ** beta)
+    return Split(digits, _geo_scales(base, beta, k), base, beta, axis)
+
+
+def _rn_const_extract(a, mu, beta: int, k: int, axis: int) -> torch.Tensor:
+    """The Alg. 8 RN loop against the first grid ``mu``."""
+    two_beta = 2.0 ** beta
+    r = a
+    grid = mu
+    digits = []
+    for _ in range(k):
+        s, r = _rn_extract(r, grid, axis)
+        d = s * _bcast(1.0 / grid, axis)
+        digits.append(to_int8(d))
+        grid = grid * (1.0 / two_beta)
+    return torch.stack(digits)
+
+
+def split_sm(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
+             axis: int = 0,
+             rowmax_reduce: Optional[Callable] = None) -> Split:
+    """Sign-magnitude splitting (``ozimmu_sm_b`` / ``ozimmu_sm_h``):
+    two's-complement digits of ``a / anchor`` with the strict anchor
+    ``2 * 2^floor(log2 rowmax)``; trailing digits stored mod 2^8."""
+    if beta is None:
+        beta = compute_beta_sm(_contract_len(a, axis))
+    rowmax = _rowmax(a, axis)
+    if rowmax_reduce is not None:
+        rowmax = rowmax_reduce(rowmax)
+    anchor = 2.0 * _pow2_floor(rowmax)
+    digits = _sm_extract(a, anchor, beta, k, axis)
+    base = 2.0 * anchor
+    return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
+                 signmag=True)
+
+
+def _sm_extract(a, anchor, beta: int, k: int, axis: int) -> torch.Tensor:
+    """The sign-magnitude extraction loop (``min(floor(r), 2^beta - 1)``
+    clamp on the trailing digits, stored mod 2^8)."""
+    two_beta = 2.0 ** beta
+    dmax = 2.0 ** beta - 1.0
+    r = a * _bcast(1.0 / anchor, axis)
+    r = r * (2.0 ** (beta - 1))
+    d = torch.floor(r)
+    r = r - d
+    digits = [to_int8(d)]
+    for _ in range(k - 1):
+        r = r * two_beta
+        d = torch.clamp(torch.floor(r), max=dmax)
+        r = r - d
+        digits.append(to_int8(torch.where(d > 127.0, d - 256.0, d)))
+    return torch.stack(digits)
+
+
+def sm_decode(digits: torch.Tensor) -> torch.Tensor:
+    """Widen stored sign-magnitude digits ``(k, ...)`` int8 -> int16:
+    slice 0 stays signed, slices 1..k-1 un-wrap to [0, 2^beta - 1]."""
+    w = digits.to(torch.int16)
+    if w.shape[0] <= 1:
+        return w
+    t = w[1:]
+    return torch.cat([w[:1], torch.where(t < 0, t + 256, t)], dim=0)
+
+
+def sm_decode_slice(d: torch.Tensor, s: int) -> torch.Tensor:
+    """Widen ONE stored slice (0-indexed position ``s``) to int16."""
+    w = d.to(torch.int16)
+    return w if s == 0 else torch.where(w < 0, w + 256, w)
+
+
+def reconstruct(split: Split, dtype=None) -> torch.Tensor:
+    """sum_s diag(scale[s]) @ digits[s] (or the axis=1 transpose form)."""
+    dt = dtype or split.scale.dtype
+    digits = sm_decode(split.digits) if split.signmag else split.digits
+    d = digits.to(dt)
+    if split.axis == 0:
+        return torch.sum(d * split.scale[..., :, None], dim=0)
+    return torch.sum(d * split.scale[..., None, :], dim=0)

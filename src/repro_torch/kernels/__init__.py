@@ -1,0 +1,24 @@
+"""Hand-written Hopper (sm_90a) CUDA kernels for the scheme's hot spots,
+each beside its plain PyTorch version:
+
+  * split_fused  — steps (i)/(ii): all k int8 slices in one read
+  * group_gemm   — steps (iii)+(iv) merged: int8 GEMM with an int32
+                   accumulator over a whole anti-diagonal group (Alg. 6/7)
+  * scale_accum  — step (iv) epilogue: fused convert + scale + add, df32
+                   compensated (``scale_accum``) or plain f32/f64
+                   (``scale_accum_plain``)
+
+A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches its kernel or raises.  :data:`LAUNCHES` counts kernel launches
+(one per launch, nowhere else), so a run can show which kernels it went
+through.
+"""
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"split_fused": 0, "group_gemm": 0,
+                            "scale_accum": 0, "scale_accum_plain": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

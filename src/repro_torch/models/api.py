@@ -1,0 +1,39 @@
+"""Uniform model API — PyTorch port of the dense path of
+``repro.models.api``.
+
+    init(cfg, generator=..., device=...)   -> params
+    forward(params, cfg, batch)            -> logits (B, L, vocab) f32
+    init_cache(cfg, batch_size, max_len, device=None) -> cache
+    cache_axes(cfg)                        -> logical axes of the cache
+    decode_step(params, cfg, cache, tokens, cur_len) -> (logits, cache)
+
+``batch`` is a dict with ``tokens`` (B, L).  The other families come with
+later slices of the port.
+"""
+from __future__ import annotations
+
+import types
+from typing import Any, Dict
+
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelConfig
+
+_FAMILY_MODULES = {"dense": transformer}
+
+
+class Model(types.SimpleNamespace):
+    pass
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    mod = _FAMILY_MODULES.get(cfg.family)
+    if mod is None:
+        raise NotImplementedError(f"the {cfg.family!r} family comes with a "
+                                  f"later slice of the port")
+
+    def forward(params, cfg, batch: Dict[str, Any]):
+        return mod.forward(params, cfg, batch["tokens"])
+
+    return Model(init=mod.init, forward=forward, init_cache=mod.init_cache,
+                 cache_axes=mod.cache_axes, decode_step=mod.decode_step,
+                 module=mod)

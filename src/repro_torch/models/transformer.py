@@ -1,0 +1,176 @@
+"""Dense decoder-only transformer (GQA + RoPE), forward and decode —
+PyTorch port of ``repro.models.transformer``.
+
+Parameters keep the reference's layout: one dict whose ``"layers"`` leaves
+are stacked along a leading layer axis, ``(n_layers, ...)``.  The
+reference's ``lax.scan`` over that axis is a Python loop here
+(:func:`layer_params` slices one layer).  Remat blocks are a training
+concern and come with the training slice.  The reference's ``expand_kv``
+replicates KV heads for sharding only and has no counterpart.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core.engine import PresplitWeight
+from repro_torch.models import layers as L
+from repro_torch.models.common import ModelConfig, dense_param
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, *, generator: torch.Generator,
+         device=None) -> Dict[str, Any]:
+    """Random parameters with the reference's shapes and ``dense_param``
+    scale rule, drawn from ``generator`` on ``device`` (f32 weights)."""
+    if cfg.mlp_type != "swiglu":
+        raise NotImplementedError(f"the {cfg.mlp_type!r} MLP comes with the "
+                                  f"configs that use it")
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    f, n = cfg.d_ff, cfg.n_layers
+    g = generator
+
+    def stack(shape, scale):
+        return dense_param(g, (n,) + shape, scale=scale, device=device)
+
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                       device=device)
+    return {
+        "embed": dense_param(g, (cfg.padded_vocab, d), scale=1.0,
+                             device=device),
+        "layers": {
+            "attn": {"wq": stack((d, H * hd), d ** -0.5),
+                     "wk": stack((d, KV * hd), d ** -0.5),
+                     "wv": stack((d, KV * hd), d ** -0.5),
+                     "wo": stack((H * hd, d), (H * hd) ** -0.5)},
+            "mlp": {"w_gate": stack((d, f), d ** -0.5),
+                    "w_up": stack((d, f), d ** -0.5),
+                    "w_down": stack((f, d), f ** -0.5)},
+            "ln1": zeros(n, d), "ln2": zeros(n, d),
+        },
+        "ln_f": zeros(d),
+        "lm_head": dense_param(g, (d, cfg.padded_vocab), device=device),
+    }
+
+
+def layer_params(stacked, i: int):
+    """Layer ``i`` of the stacked ``"layers"`` tree (tensors and
+    :class:`PresplitWeight` wrappers alike)."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    if isinstance(stacked, PresplitWeight):
+        return stacked.layer(i)
+    return stacked[i]
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def attn_block(p, cfg: ModelConfig, x, cos, sin, *, cache=None,
+               cur_len=None, window=None):
+    """Pre-norm GQA attention.  cache=(k, v) (B, Lmax, KV, hd) -> decode;
+    returns (x + attn, new_cache)."""
+    eng = cfg.engine
+    B, Lq, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xn = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q = eng(xn, p["attn"]["wq"]).reshape(B, Lq, H, hd)
+    k = eng(xn, p["attn"]["wk"]).reshape(B, Lq, KV, hd)
+    v = eng(xn, p["attn"]["wv"]).reshape(B, Lq, KV, hd)
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    new_cache = None
+    if cache is None:
+        out = L.attention_flash(q, k, v, causal=True, window=window,
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                engine=eng)
+    else:
+        kc, vc = cache
+        cache_len = kc.shape[1]
+        valid_len = torch.clamp(torch.as_tensor(cur_len, device=x.device),
+                                max=cache_len)
+        kc = L.cache_update_row(kc, k, cur_len)
+        vc = L.cache_update_row(vc, v, cur_len)
+        new_cache = (kc, vc)
+        out = L.attention_decode(q, kc, vc, valid_len, window=None,
+                                 engine=eng)
+    out = eng(out.reshape(B, Lq, H * hd), p["attn"]["wo"])
+    return x + out, new_cache
+
+
+def mlp_block(p, cfg: ModelConfig, x):
+    xn = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    out = L.swiglu(xn, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                   p["mlp"]["w_down"], cfg.engine)
+    return x + out
+
+
+def dense_layer(p, cfg, x, cos, sin, cache=None, cur_len=None):
+    x, new_cache = attn_block(p, cfg, x, cos, sin, cache=cache,
+                              cur_len=cur_len, window=cfg.window)
+    return mlp_block(p, cfg, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, L) -> logits (B, L, padded_vocab) f32."""
+    B, Lq = tokens.shape
+    x = L.embed_tokens(tokens, params["embed"], cfg.compute_dtype)
+    if positions is None:
+        positions = torch.arange(Lq, dtype=torch.int32,
+                                 device=tokens.device).expand(B, Lq)
+    cos, sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x, _ = dense_layer(layer_params(params["layers"], i), cfg, x, cos,
+                           sin)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return L.logits_head(x, params["lm_head"], cfg.engine)
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    cache_len = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (cfg.n_layers, batch, cache_len, KV, hd)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def cache_axes(cfg: ModelConfig):
+    ax = ("layers", "cache_batch", None, "cache_heads", "cache_hd")
+    return {"k": ax, "v": ax}
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                cur_len):
+    """One-token decode: tokens (B, 1) at absolute position cur_len - 1;
+    ``cur_len`` a scalar or a (B,) vector (per slot).  Returns (logits
+    (B, 1, vocab), new_cache)."""
+    B = tokens.shape[0]
+    cur_len = torch.as_tensor(cur_len, device=tokens.device)
+    x = L.embed_tokens(tokens, params["embed"], cfg.compute_dtype)
+    pos = L.decode_positions(cur_len, B)
+    cos, sin = L.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (kc, vc) = dense_layer(layer_params(params["layers"], i), cfg, x,
+                                  cos, sin, cache=(cache["k"][i],
+                                                   cache["v"][i]),
+                                  cur_len=cur_len)
+        ks.append(kc)
+        vs.append(vc)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = L.logits_head(x, params["lm_head"], cfg.engine)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}

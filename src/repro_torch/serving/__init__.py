@@ -1,0 +1,8 @@
+"""Serving runtime: continuous batching + persistent weight split-cache —
+PyTorch port of ``repro.serving`` (scheduler, metrics, per-slot cache
+ops, presplit wrapping, :class:`ServingRuntime`)."""
+from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.runtime import ServingRuntime
+from repro_torch.serving.scheduler import Request, Scheduler
+
+__all__ = ["ServingRuntime", "ServingMetrics", "Request", "Scheduler"]

@@ -1,0 +1,314 @@
+"""ServingRuntime — the continuous-batching inference loop — PyTorch port
+of ``repro.serving.runtime`` (monolithic per-slot cache).
+
+Ties together the scheduler (host policy), the per-slot cache, and the
+presplit weight wrapping around two eager device steps:
+
+* ``decode``: one token for every decode-ready slot, each at its OWN
+  sequence position (the per-slot ``cur_len`` vector).  Free and
+  mid-prefill slots carry ``cur == 0``, which makes their cache-row writes
+  no-ops, so one step serves any occupancy pattern.
+* ``chunk`` (per bucket length Lb): the decode step run over Lb positions,
+  teacher-forcing a SLICE of each participating prompt RIGHT-ALIGNED in
+  the bucket, resuming ``base`` tokens into the slot's cache.  With
+  ``prefill_chunk=None`` the slice is the whole prompt; with a chunk size
+  C each scheduler round feeds at most C prompt tokens per pending slot
+  and then decodes the resident slots.  Splitting the loop is bitwise
+  exact: each chunk resumes from exactly the cache the previous one
+  wrote.  Slots not in the call are frozen by a per-slot select.
+
+The weight split-cache: with an ozimmu engine, ``wrap_params`` freezes
+every projection weight's int8 digit slices once, and every step consumes
+the wrapped tree — B-side splitting drops out of the steps entirely,
+bit-identical to the unwrapped path.
+
+The block-paged KV pool (``page_block``) and the prefix cache come with
+the paged-KV slice of the port and raise until then.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.engine import presplit_trace_counts
+from repro_torch.models import api
+from repro_torch.serving import presplit as presplit_mod
+from repro_torch.serving.kvcache import SlotCacheOps
+from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.scheduler import Request, Scheduler
+
+__all__ = ["ServingRuntime"]
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class ServingRuntime:
+    """Continuous-batching server over one model + parameter set.
+
+    Args (keyword-only after ``params``, as in the reference):
+      cfg: ModelConfig (the engine spec rides inside it).
+      params: model parameters (raw; moved to ``device`` and wrapped
+        internally when presplit).
+      slots: decode-slot count (the step's batch dimension).
+      max_len: per-slot cache capacity (prompt + generation budget).
+      prefill_chunk: max prompt tokens fed per slot per scheduler round;
+        None prefills whole prompts in one call.
+      presplit: freeze weight splits (default: on for ozimmu engines).
+      now: clock (injectable for deterministic tests).
+      device: where the model runs; default the CUDA card (raises when
+        there is none — pass ``device="cpu"`` for the plain versions).
+      page_block / page_blocks / prefix_cache / ctx: the paged pool, the
+        prefix cache and the context families come with later slices.
+    """
+
+    def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 128,
+                 page_block: Optional[int] = None,
+                 page_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache=False, presplit: Optional[bool] = None,
+                 ctx=None, now=time.monotonic, device=None):
+        if page_block is not None or page_blocks is not None or \
+                prefix_cache:
+            raise NotImplementedError("the paged KV pool and the prefix "
+                                      "cache come with the paged-KV slice "
+                                      "of the port; use page_block=None")
+        if ctx is not None:
+            raise NotImplementedError("per-slot context (vlm/encdec) comes "
+                                      "with those families")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, "
+                             f"got {prefill_chunk}")
+        self.device = resolve_device(device)
+        self.cfg, self.model = cfg, api.get_model(cfg)
+        self.n_slots, self.max_len = slots, max_len
+        self.prefill_chunk = prefill_chunk
+        engine = cfg.engine
+        params = _to_device(params, self.device)
+        self.split_cache = None
+        self._wrapped_bytes = 0       # weight bytes whose split is frozen
+        self._avoided_split_bytes = 0  # splitter input bytes skipped so far
+        use_presplit = engine.is_ozimmu if presplit is None else presplit
+        if use_presplit and engine.is_ozimmu:
+            self.params, self.split_cache = presplit_mod.wrap_params(
+                params, engine)
+            self._wrapped_bytes = presplit_mod.wrapped_weight_bytes(
+                self.params, engine)
+        else:
+            self.params = params
+        self.sched = Scheduler(slots, bucket="pow2")
+        self.ops = SlotCacheOps(cfg, self.model)
+        self.metrics = ServingMetrics(now=now)
+        self._now = now
+        self._template = self.model.init_cache(cfg, 1, max_len,
+                                               device=self.device)
+        self.cache = self.model.init_cache(cfg, slots, max_len,
+                                           device=self.device)
+        # host-side per-slot decode state
+        self._cur = np.ones((slots,), np.int32)
+        self._last_tok = np.zeros((slots,), np.int32)
+        self._evictions_at_reset = 0
+        self._presplit_counts0 = presplit_trace_counts()
+        self._presplit_rate = None
+
+    # ------------------------------------------------------------------
+    # device steps
+    # ------------------------------------------------------------------
+
+    def _tensor(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _argmax(self, logits: torch.Tensor) -> np.ndarray:
+        return torch.argmax(logits[:, -1, :self.cfg.vocab],
+                            dim=-1).to(torch.int32).cpu().numpy()
+
+    @torch.no_grad()
+    def _decode(self, toks: np.ndarray, cur: np.ndarray) -> np.ndarray:
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cfg, self.cache, self._tensor(toks),
+            self._tensor(cur))
+        return self._argmax(logits)
+
+    @torch.no_grad()
+    def _prefill(self, toks: np.ndarray, start: np.ndarray,
+                 base: np.ndarray, newmask: np.ndarray) -> np.ndarray:
+        """The decode step over the bucket; each participating slot's chunk
+        is right-aligned and resumes ``base`` tokens in."""
+        Lb = toks.shape[1]
+        # every position's (slots,) cur vector, copied to the device once
+        curs = np.stack([np.where(newmask & (i >= start),
+                                  base + i - start + 1, 0)
+                         for i in range(Lb)]).astype(np.int32)
+        toks_d, curs_d = self._tensor(toks), self._tensor(curs)
+        before = self.cache
+        cache, logits = before, None
+        for i in range(Lb):
+            logits, cache = self.model.decode_step(
+                self.params, self.cfg, cache, toks_d[:, i:i + 1], curs_d[i])
+        self.cache = self.ops.select_slots(cache, before,
+                                           self._tensor(newmask))
+        return self._argmax(logits)
+
+    # ------------------------------------------------------------------
+    # host loop
+    # ------------------------------------------------------------------
+
+    def submit(self, prompt: Sequence[int], max_new: int,
+               eos_id: Optional[int] = None,
+               arrival: Optional[float] = None) -> Request:
+        plen = len(prompt)
+        if plen + max_new > self.max_len and not self.cfg.window:
+            raise ValueError(f"prompt({plen}) + max_new({max_new}) exceeds "
+                             f"max_len={self.max_len}")
+        req = self.sched.submit(prompt, max_new, eos_id=eos_id,
+                                arrival=self._now() if arrival is None
+                                else arrival)
+        self.metrics.requests_submitted += 1   # after validation
+        return req
+
+    def _plan_chunks(self) -> List[Tuple[int, Request, int]]:
+        """One (slot, request, chunk_len) plan per pending-prefill slot."""
+        plans = []
+        for slot, req in self.sched.pending_prefill():
+            total = len(req.prefill_tokens())
+            clen = total - self.sched.slots[slot].prefilled
+            if self.prefill_chunk is not None:
+                clen = min(clen, self.prefill_chunk)
+            plans.append((slot, req, clen))
+        return plans
+
+    def _do_prefill_round(self):
+        """Feed ONE chunk into every pending-prefill slot (grouped by
+        chunk-length bucket); final chunks produce the slot's first
+        token."""
+        plans = self._plan_chunks()
+        for Lb, group in self.sched.chunk_groups(plans):
+            toks = np.zeros((self.n_slots, Lb), np.int32)
+            start = np.full((self.n_slots,), Lb, np.int32)
+            base = np.zeros((self.n_slots,), np.int32)
+            newmask = np.zeros((self.n_slots,), bool)
+            for slot, req, clen in group:
+                done = self.sched.slots[slot].prefilled
+                pt = req.prefill_tokens()
+                toks[slot, Lb - clen:] = pt[done:done + clen]
+                start[slot] = Lb - clen
+                base[slot] = done
+                newmask[slot] = True
+            t0 = self._now()
+            nxt = self._prefill(toks, start, base, newmask)
+            now = self._now()
+            self.metrics.prefill_calls += 1
+            self.metrics.observe_timing("prefill_call", now - t0)
+            # every fed position consumes every frozen weight split
+            self._avoided_split_bytes += Lb * self._wrapped_bytes
+            for slot, req, clen in group:
+                done = self.sched.slots[slot].prefilled
+                total = len(req.prefill_tokens())
+                self.metrics.prefill_tokens += clen
+                if done + clen < total:
+                    self.sched.on_chunk(slot, clen)
+                    self.metrics.prefill_chunks += 1
+                    continue
+                self.metrics.tokens_generated += 1  # the first new token
+                finished = self.sched.on_prefilled(slot, int(nxt[slot]), now)
+                self._cur[slot] = self.sched.slots[slot].pos + 1 \
+                    if not finished else 1
+                self._last_tok[slot] = int(nxt[slot])
+                if finished:
+                    self.metrics.record_finish(req, now)
+
+    def _do_decode(self):
+        active_idx = self.sched.decode_slots()
+        if not active_idx:
+            return
+        active = np.zeros((self.n_slots,), bool)
+        active[active_idx] = True
+        # per-slot position of the token written this step; 0 for idle
+        # slots = "write nothing" (cache_update_row no-op)
+        cur = np.where(active, self._cur, 0).astype(np.int32)
+        toks = self._last_tok[:, None].astype(np.int32)
+        t0 = self._now()
+        nxt = self._decode(toks, cur)
+        now = self._now()
+        self.metrics.decode_steps += 1
+        self.metrics.observe_timing("decode_step", now - t0)
+        self._avoided_split_bytes += self._wrapped_bytes
+        for slot in active_idx:
+            req = self.sched.slots[slot].request
+            self.metrics.tokens_generated += 1
+            if self.sched.on_token(slot, int(nxt[slot]), now):
+                self.metrics.record_finish(req, now)
+            else:
+                self._cur[slot] = self.sched.slots[slot].pos + 1
+                self._last_tok[slot] = int(nxt[slot])
+
+    def step(self) -> bool:
+        """One scheduler round: admit new requests, feed one prefill chunk
+        per pending slot, then decode one token for every fully-prefilled
+        slot.  Returns False when idle."""
+        if self.sched.all_done:
+            return False
+        self.metrics.start()
+        self.metrics.sample_queue(self.sched.queue_depth)
+        for slot, _ in self.sched.admit():
+            self.cache = self.ops.reset_slot(self.cache, slot,
+                                             self._template)
+        self._do_prefill_round()
+        self._do_decode()
+        return True
+
+    def run(self, max_steps: Optional[int] = None) -> Dict[str, Any]:
+        """Drive the loop until every submitted request finished (or
+        ``max_steps`` rounds); returns the metrics summary."""
+        steps = 0
+        while self.step():
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        self.metrics.stop()
+        self.metrics.evictions = self.sched.evictions - \
+            self._evictions_at_reset
+        if self.split_cache is not None:
+            d = self.split_cache.stats.as_dict()
+            # MEASURED hit rate from the engine's consumption counters:
+            # the fraction of wrapped-weight contractions whose frozen
+            # split actually applied
+            counts = presplit_trace_counts()
+            d_used = counts["used"] - self._presplit_counts0["used"]
+            d_fb = counts["fallback"] - self._presplit_counts0["fallback"]
+            if d_used + d_fb:
+                self._presplit_rate = d_used / (d_used + d_fb)
+            rate = self._presplit_rate
+            if rate is None:
+                rate = 0.0
+            d.update({
+                "frozen_weight_bytes": self._wrapped_bytes,
+                "avoided_split_bytes": self._avoided_split_bytes,
+                "weight_split_hit_rate": rate,
+            })
+            self.metrics.split_cache = d
+        return self.metrics.summary()
+
+    def reset_metrics(self):
+        """Fresh metrics window; scheduler and caches are untouched."""
+        self.metrics = ServingMetrics(now=self._now)
+        self._avoided_split_bytes = 0
+        self._evictions_at_reset = self.sched.evictions
+        self._presplit_counts0 = presplit_trace_counts()
+
+    def generate(self, prompts: List[np.ndarray], max_new: int,
+                 eos_id: Optional[int] = None) -> List[np.ndarray]:
+        """Submit a batch and run to completion; returns prompt+generated
+        per request, in submission order."""
+        reqs = [self.submit(p, max_new, eos_id=eos_id) for p in prompts]
+        self.run()
+        return [np.concatenate([r.prompt,
+                                np.asarray(r.generated, np.int32)])
+                for r in reqs]
