@@ -8,24 +8,29 @@ Phases (each raises on failure, so any failure exits non-zero):
 1. Build every CUDA kernel of ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and print the card's name and
    power limit.
-2. Each kernel at the main path's shapes (internlm2-1.8b full width, k = 4;
-   decode m = slots, prefill m = slots x prompt length; plus the DGEMM
-   shapes) against its plain PyTorch version on the same CUDA tensors:
-   bitwise equal, with kernel, plain-version, bound and library times.
+2. Each kernel at the main paths' shapes (internlm2-1.8b full width,
+   k = 4; decode m = slots, prefill m = slots x prompt length; plus the
+   DGEMM shapes) against its plain PyTorch version on the same CUDA
+   tensors: bitwise equal, with kernel, plain-version, bound and library
+   times.
 3. DGEMM: ``ozimmu_matmul`` under ``ozimmu_h-8:f64:fused`` at n = 4096,
    error against ``torch.matmul`` in f64, plus a small input that must
    equal the CPU plain-version pipeline bit for bit.
+3b. Ozaki-II DGEMM: the same under ``oz2_h-8:f64:fast2:fused`` on the same
+   inputs, then once under ``oz2_h-auto:f64:fast2:prob:fused`` (the k the
+   planner resolves, and its error).
 4. Serve: ``ServingRuntime`` on the published internlm2-1.8b config
    (24 layers, random weights from a seed) under ``ozimmu_h-4:df32:fused``
    with the weight split-cache on; the first request's tokens must equal a
    monolithic greedy loop, and the full-width prefill logits must agree
    with the native f32 engine.
+4b. Ozaki-II serve: the same under ``oz2_h-4:df32:fast2:fused``.
 
-The launch counts of phases 3 and 4 are zeroed just before each path runs
-and read just after; every kernel of a path must have launched.  The last
-three lines are the card (``nvidia-smi``), the per-kernel JSON record and
-the result JSON.  Exits non-zero without a CUDA card, and when run outside
-the repository.
+The launch counts of phases 3, 3b, 4 and 4b are zeroed just before each
+path runs and read just after; every kernel of a path must have launched.
+The last three lines are the card (``nvidia-smi``), the per-kernel JSON
+record and the result JSON.  Exits non-zero without a CUDA card, and when
+run outside the repository.
 """
 from __future__ import annotations
 
@@ -47,6 +52,9 @@ F64_FLOPS = 34e12          # outside the tensor cores
 
 MODEL_SPEC = "ozimmu_h-4:df32:fused"
 DGEMM_SPEC = "ozimmu_h-8:f64:fused"
+OZ2_MODEL_SPEC = "oz2_h-4:df32:fast2:fused"
+OZ2_DGEMM_SPEC = "oz2_h-8:f64:fast2:fused"
+OZ2_AUTO_SPEC = "oz2_h-auto:f64:fast2:prob:fused"
 SLOTS, REQUESTS, PROMPT, GEN = 4, 8, 32, 16
 SEED = 0
 
@@ -179,6 +187,40 @@ def kernel_cases(dev):
                 peak, reps,
                 bench=lambda: sa.scale_accum_plain(p32, srow, scol, c_b))
 
+    def const_case(kernel, label, m, p, word, dtype, reps):
+        hi = 2 ** 52 if word == torch.int64 else 2 ** 30
+        w = torch.randint(-hi, hi, (1, m, p), generator=gen, device=dev,
+                          dtype=word)
+        s = torch.pow(2.0, torch.randint(-60, -30, (1,), generator=gen,
+                                         device=dev)).to(dtype)
+        c = torch.randn((1, m, p), generator=gen, device=dev, dtype=dtype)
+        peak = F64_FLOPS if dtype == f64 else F32_FLOPS
+        if kernel == "scale_accum_const":
+            lo = c * 2.0 ** -30
+            hi_b, lo_b = c.clone(), lo.clone()
+            add(kernel, label,
+                lambda: sa.scale_accum_const(w, s, c.clone(), lo.clone()),
+                lambda: sa.scale_accum_const_ref(w, s, c, lo),
+                nbytes(w, s) + 4 * nbytes(c), 22.0 * c.numel(), peak, reps,
+                bench=lambda: sa.scale_accum_const(w, s, hi_b, lo_b))
+        else:
+            c_b = c.clone()
+            add(kernel, label,
+                lambda: sa.scale_accum_const_plain(w, s, c.clone()),
+                lambda: sa.scale_accum_const_plain_ref(w, s, c),
+                nbytes(w, s) + 2 * nbytes(c), 3.0 * c.numel(), peak, reps,
+                bench=lambda: sa.scale_accum_const_plain(w, s, c_b))
+
+    def unscale_case(label, m, p, dtype, reps):
+        x = torch.randn((1, m, p), generator=gen, device=dev, dtype=dtype)
+        ra = torch.pow(2.0, torch.randint(-20, 20, (1, m), generator=gen,
+                                          device=dev)).to(dtype)
+        rb = torch.pow(2.0, torch.randint(-20, 20, (1, p), generator=gen,
+                                          device=dev)).to(dtype)
+        add("unscale", label, lambda: sa.unscale(x, ra, rb),
+            lambda: sa.unscale_ref(x, ra, rb), nbytes(ra, rb) + 2 * nbytes(x),
+            2.0 * x.numel(), F64_FLOPS if dtype == f64 else F32_FLOPS, reps)
+
     split_case("decode lm_head A (4x2048) f32 k=4", (SLOTS, d), f32, 4, 0,
                50)
     split_case("prefill A (128x2048) f32 k=4", (SLOTS * PROMPT, d), f32, 4,
@@ -201,6 +243,17 @@ def kernel_cases(dev):
                20)
     accum_case("scale_accum_plain", "decode w_gate (4x8192) f32", SLOTS, f,
                f32, 50)
+    i32, i64 = torch.int32, torch.int64
+    const_case("scale_accum_const", "decode lm_head (4x92672)", SLOTS, vocab,
+               i32, f32, 50)
+    const_case("scale_accum_const", "(4096x4096)", 4096, 4096, i32, f32, 20)
+    const_case("scale_accum_const_plain", "DGEMM (4096x4096) int64 word f64",
+               4096, 4096, i64, f64, 20)
+    const_case("scale_accum_const_plain",
+               "decode lm_head (4x92672) int32 word f32", SLOTS, vocab, i32,
+               f32, 50)
+    unscale_case("DGEMM (4096x4096) f64", 4096, 4096, f64, 20)
+    unscale_case("decode lm_head (4x92672) f32", SLOTS, vocab, f32, 50)
     return cases
 
 
@@ -208,7 +261,31 @@ def kernel_cases(dev):
 MAIN_CASE = {"split_fused": "decode lm_head A (4x2048) f32 k=4",
              "group_gemm": "decode lm_head (4x2048x92672) G=4",
              "scale_accum": "decode lm_head (4x92672)",
-             "scale_accum_plain": "DGEMM (4096x4096) f64"}
+             "scale_accum_plain": "DGEMM (4096x4096) f64",
+             "scale_accum_const": "decode lm_head (4x92672)",
+             "scale_accum_const_plain": "DGEMM (4096x4096) int64 word f64",
+             "unscale": "decode lm_head (4x92672) f32"}
+
+# the path whose launch count a kernel's record reports
+MAIN_PATH = {"split_fused": "serve", "group_gemm": "serve",
+             "scale_accum": "serve", "scale_accum_plain": "dgemm",
+             "scale_accum_const": "serve_oz2",
+             "scale_accum_const_plain": "dgemm_oz2", "unscale": "serve_oz2"}
+
+# why no single PyTorch call is a library yardstick for a kernel
+NO_LIBRARY = {
+    "split_fused": "no one PyTorch call extracts k digits",
+    "group_gemm": "torch._int_mm needs m > 16",
+    "scale_accum": "no one PyTorch call does the int32 split and TwoSum",
+    "scale_accum_plain": "convert and two scalings are separate calls",
+    "scale_accum_const": "no one PyTorch call does the int32 split and "
+                         "TwoSum",
+    "scale_accum_const_plain": "the convert is a call of its own; "
+                               "torch.add(c, word, alpha=s) takes s from "
+                               "the host and may contract into an FMA",
+    "unscale": "a two-sided scaling is two calls (or an outer product "
+               "first)",
+}
 
 KERNELS = {
     "split_fused": ("src/repro_torch/kernels/csrc/split_fused.cu",
@@ -219,6 +296,13 @@ KERNELS = {
                     "src/repro/kernels/scale_accum.py:139"),
     "scale_accum_plain": ("src/repro_torch/kernels/csrc/scale_accum.cu",
                           "src/repro/kernels/scale_accum.py:171"),
+    "scale_accum_const": ("src/repro_torch/kernels/csrc/scale_accum.cu",
+                          "src/repro/kernels/scale_accum.py:222"),
+    "scale_accum_const_plain": ("src/repro_torch/kernels/csrc/"
+                                "scale_accum.cu",
+                                "src/repro/kernels/scale_accum.py:246"),
+    "unscale": ("src/repro_torch/kernels/csrc/scale_accum.cu",
+                "src/repro/kernels/scale_accum.py:197"),
 }
 
 
@@ -255,27 +339,38 @@ def phase_kernels(dev):
 # phase 3: DGEMM
 # ---------------------------------------------------------------------------
 
-def phase_dgemm(dev):
+def dgemm_inputs(dev):
+    """The small input and the paper's phi = 0.5 inputs at n = 4096, the
+    same for every DGEMM phase (one seed)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    f64 = torch.float64
+    a = torch.randn((48, 200), generator=gen, device=dev, dtype=f64)
+    b = torch.randn((200, 40), generator=gen, device=dev, dtype=f64)
+    n = 4096
+    mats = []
+    for _ in range(2):
+        u = torch.rand((n, n), generator=gen, device=dev, dtype=f64)
+        z = torch.randn((n, n), generator=gen, device=dev, dtype=f64)
+        mats.append((u - 0.5) * torch.exp(0.5 * z))
+    return (a, b), tuple(mats)
+
+
+def phase_dgemm(dev, spec, kernels, tag="dgemm"):
+    """``ozimmu_matmul`` under ``spec`` at n = 4096 against ``torch.matmul``
+    in f64 (error <= 1e-8), after a small input that must equal the CPU
+    plain-version pipeline; every kernel in ``kernels`` must launch."""
     import torch
     from repro_torch.core.ozimmu import ozimmu_matmul, parse_spec
     from repro_torch.kernels import LAUNCHES, reset_launches
-    cfg = parse_spec(DGEMM_SPEC)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    # small input: the card's pipeline equals the CPU plain versions
-    a = torch.randn((48, 200), generator=gen, device=dev, dtype=torch.float64)
-    b = torch.randn((200, 40), generator=gen, device=dev, dtype=torch.float64)
+    cfg = parse_spec(spec)
+    (a, b), (A, B) = dgemm_inputs(dev)
     small = ozimmu_matmul(a, b, cfg)
     small_cpu = ozimmu_matmul(a.cpu(), b.cpu(), cfg)
     if not same(small.cpu(), small_cpu):
-        raise AssertionError("DGEMM: the card's fused pipeline differs from "
-                             "the CPU plain-version pipeline")
-    n = 4096
-    u = torch.rand((n, n), generator=gen, device=dev, dtype=torch.float64)
-    z = torch.randn((n, n), generator=gen, device=dev, dtype=torch.float64)
-    A = (u - 0.5) * torch.exp(0.5 * z)        # the paper's phi = 0.5 inputs
-    u = torch.rand((n, n), generator=gen, device=dev, dtype=torch.float64)
-    z = torch.randn((n, n), generator=gen, device=dev, dtype=torch.float64)
-    B = (u - 0.5) * torch.exp(0.5 * z)
+        raise AssertionError(f"{tag}: the card's fused pipeline differs from "
+                             f"the CPU plain-version pipeline")
+    n = A.shape[0]
     ozimmu_matmul(A, B, cfg)                  # warm-up
     torch.cuda.synchronize()
     reset_launches()
@@ -287,22 +382,47 @@ def phase_dgemm(dev):
     ref = torch.matmul(A, B)
     err = float((C - ref).abs().max() / ref.abs().max())
     ref_ms = time_ms(lambda: torch.matmul(A, B), 3)
-    log(f"[dgemm] {DGEMM_SPEC} n={n}: {dt * 1e3:.1f} ms (torch.matmul f64 "
-        f"{ref_ms:.2f} ms); max|C - A@B| / max|A@B| = {err:.3e}; "
-        f"launches {counts}")
+    log(f"[{tag}] {spec} n={n}: {dt * 1e3:.1f} ms (torch.matmul f64 "
+        f"{ref_ms:.2f} ms); max|C - A@B| / max|A@B| = {err:.3e}; small "
+        f"input bitwise equal to the CPU pipeline; launches {counts}")
     if not math.isfinite(err) or err > 1e-8:
-        raise AssertionError(f"DGEMM error {err:.3e} above 1e-8")
-    for name in ("split_fused", "group_gemm", "scale_accum_plain"):
+        raise AssertionError(f"{tag} error {err:.3e} above 1e-8")
+    for name in kernels:
         if counts[name] <= 0:
-            raise AssertionError(f"DGEMM path launched no {name} kernel")
-    return counts
+            raise AssertionError(f"{tag} path launched no {name} kernel")
+    return counts, ref
+
+
+def phase_dgemm_auto(dev, spec, ref):
+    """One eager auto-k DGEMM: the planner probes the operands on the card;
+    print the k it resolved and the error against ``ref``."""
+    import torch
+    from repro_torch.core import plan
+    from repro_torch.core.ozimmu import ozimmu_matmul, parse_spec
+    _, (A, B) = dgemm_inputs(dev)
+    plan.get_ledger().clear()
+    t0 = time.perf_counter()
+    C = ozimmu_matmul(A, B, parse_spec(spec))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d = plan.get_ledger().entries()[-1]
+    err = float((C - ref).abs().max() / ref.abs().max())
+    log(f"[dgemm_oz2] {spec} n={A.shape[0]}: resolved k={d.k} "
+        f"({'probed' if d.probed else 'static'}, gaps {d.gap_a}/{d.gap_b}, "
+        f"needs {d.needed_bits} bits, {d.int8_gemms} int8 GEMMs), "
+        f"{dt * 1e3:.1f} ms with the probe; max|C - A@B| / max|A@B| = "
+        f"{err:.3e}")
+    if not math.isfinite(err) or err > 1e-8:
+        raise AssertionError(f"{spec} error {err:.3e} above 1e-8")
 
 
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def phase_serve(dev):
+def phase_serve(dev, spec, kernels, tag="serve"):
+    """Serve full-width internlm2-1.8b under ``spec``; every kernel in
+    ``kernels`` must launch."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -310,10 +430,10 @@ def phase_serve(dev):
     from repro_torch.models import api
     from repro_torch.serving import ServingRuntime
 
-    cfg = configs.get_config("internlm2_1_8b", engine_spec=MODEL_SPEC)
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers (depth not cut), "
+    cfg = configs.get_config("internlm2_1_8b", engine_spec=spec)
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers (depth not cut), "
         f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; engine {MODEL_SPEC}")
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; engine {spec}")
     model = api.get_model(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -322,7 +442,7 @@ def phase_serve(dev):
                         device=dev)
     torch.cuda.synchronize()
     st = rt.split_cache.stats
-    log(f"[serve] init + weight freeze {time.perf_counter() - t0:.1f} s: "
+    log(f"[{tag}] init + weight freeze {time.perf_counter() - t0:.1f} s: "
         f"{st.misses} weight splits, {st.cached_bytes / 1e9:.2f} GB resident"
         f"; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
@@ -335,19 +455,19 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     sc = s["split_cache"]
-    log(f"[serve] {s['tokens_generated']} tokens from "
+    log(f"[{tag}] {s['tokens_generated']} tokens from "
         f"{s['requests']['finished']} requests in {s['elapsed_s']:.2f} s: "
         f"{s['tokens_per_s']:.2f} tok/s; TTFT mean {s['ttft_s']['mean']:.3f}"
         f" s p95 {s['ttft_s']['p95']:.3f} s; decode steps "
         f"{s['decode_steps']}, prefill calls {s['prefill_calls']}; "
         f"weight-split hit rate {sc['weight_split_hit_rate']:.3f}")
-    log(f"[serve] kernel launches {counts}")
-    for name in ("split_fused", "group_gemm", "scale_accum"):
+    log(f"[{tag}] kernel launches {counts}")
+    for name in kernels:
         if counts[name] <= 0:
-            raise AssertionError(f"serve path launched no {name} kernel")
+            raise AssertionError(f"{tag} path launched no {name} kernel")
     if s["requests"]["finished"] != REQUESTS or \
             s["tokens_generated"] != REQUESTS * GEN:
-        raise AssertionError(f"serve finished {s['requests']} with "
+        raise AssertionError(f"{tag} finished {s['requests']} with "
                              f"{s['tokens_generated']} tokens")
     if sc["weight_split_hit_rate"] != 1.0:
         raise AssertionError(f"weight-split hit rate "
@@ -379,7 +499,7 @@ def phase_serve(dev):
     if not np.array_equal(got, np.asarray(toks)):
         raise AssertionError(f"request 0 differs from the monolithic "
                              f"greedy loop:\n{got.tolist()}\n{toks}")
-    log(f"[serve] request 0 equals the monolithic greedy loop: "
+    log(f"[{tag}] request 0 equals the monolithic greedy loop: "
         f"{got[PROMPT:].tolist()}")
 
     # full-width prefill logits in f32 activations: the emulated engine
@@ -394,10 +514,13 @@ def phase_serve(dev):
     if not bool(torch.isfinite(emu).all()) or emu.shape != nat.shape:
         raise AssertionError("prefill logits not finite or misshapen")
     rel = float((emu - nat).abs().max() / nat.abs().max())
-    log(f"[serve] prefill logits (1x16, f32 activations) vs the f32 engine: "
+    log(f"[{tag}] prefill logits (1x16, f32 activations) vs the f32 engine: "
         f"max|diff| / max|logit| = {rel:.3e}")
     if rel > 1e-3:
-        raise AssertionError(f"emulated prefill logits off by {rel:.3e}")
+        raise AssertionError(f"{tag}: emulated prefill logits off by "
+                             f"{rel:.3e}")
+    del rt, params, emu, nat, cache
+    torch.cuda.empty_cache()
     return counts, s
 
 
@@ -421,7 +544,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     seconds = _build.build(verbose=True)
     log(f"[build] {len(seconds)} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s: "
@@ -434,25 +557,40 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     kern = phase_kernels(dev)
-    dgemm_counts = phase_dgemm(dev)
-    serve_counts, _ = phase_serve(dev)
+    paths = {}
+    paths["dgemm"], _ = phase_dgemm(
+        dev, DGEMM_SPEC, ("split_fused", "group_gemm", "scale_accum_plain"))
+    paths["dgemm_oz2"], ref = phase_dgemm(
+        dev, OZ2_DGEMM_SPEC, ("split_fused", "group_gemm",
+                              "scale_accum_const_plain", "unscale"),
+        tag="dgemm_oz2")
+    phase_dgemm_auto(dev, OZ2_AUTO_SPEC, ref)
+    del ref
+    paths["serve"], _ = phase_serve(
+        dev, MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"))
+    paths["serve_oz2"], _ = phase_serve(
+        dev, OZ2_MODEL_SPEC, ("split_fused", "group_gemm",
+                              "scale_accum_const", "unscale"),
+        tag="serve_oz2")
 
     records = []
     for name, (source, replaces) in KERNELS.items():
         main_rec = next(r for r in kern[name] if r["label"] == MAIN_CASE[name])
-        path = "dgemm" if name == "scale_accum_plain" else "serve"
-        launches = (dgemm_counts if path == "dgemm" else serve_counts)[name]
-        records.append({
+        rec = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "launches_by_path": {"serve": serve_counts[name],
-                                 "dgemm": dgemm_counts[name]},
+            "replaces": replaces, "launches": paths[MAIN_PATH[name]][name],
+            "main_path": MAIN_PATH[name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
-            "case": main_rec["label"], "cases": kern[name]})
+            "case": main_rec["label"], "cases": kern[name]}
+        if rec["library_ms"] is None:
+            rec["library_none_reason"] = NO_LIBRARY[name]
+        records.append(rec)
+    log(f"[total] wall time {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Slice-product evaluation + accumulation for the Ozaki scheme — PyTorch
 port of ``repro.core.accumulate``.
 
-Two evaluation strategies from the paper:
+Two evaluation strategies from the paper, plus the Ozaki-II
+constant-scaling path:
 
   * ``matmul_naive``    — Alg. 4: one INT8 GEMM per slice pair (s, t) with
     s+t <= k+1, each converted to high precision, scaled, and added.
@@ -9,6 +10,11 @@ Two evaluation strategies from the paper:
     group g = s+t share the exponent 2^(-beta*g), so they are summed inside
     the integer accumulator (chunks of at most r pairs, eq. 12), then
     converted, scaled and added once per chunk.
+  * ``matmul_oz2``      — on the shared-grid splits of ``split_oz2*``
+    every pair of group g carries one SCALAR scale, so consecutive groups
+    also fold into one integer word by exact shifts (the exponent ladder)
+    before a single convert+scale+add per window; the fast2 splits add an
+    exact two-sided power-of-two unscale at the end.
 
 High-precision accumulator modes: ``f64`` (paper-faithful; native on
 Hopper), ``f32`` and ``df32`` (two-float compensated accumulation, kept for
@@ -22,9 +28,10 @@ tensors would return int8 and wrap, so nothing here calls it.
 Hooks, as in the reference: ``group_gemm_fn(pairs)``, ``pair_gemm_fn(s, t)``
 and ``scale_accum_fn(prod, srow, scol, acc)`` replace the int8 products and
 the convert+scale+add epilogue (the ``:fused`` pipeline substitutes the
-kernels of ``repro_torch.kernels.ops``).  ``partial=True`` returns the
-unrounded accumulator.  The Ozaki-II ladder (``matmul_oz2``) and the mesh
-``product_reduce`` hook come with later slices of the port.
+kernels of ``repro_torch.kernels.ops``); ``matmul_oz2`` takes
+``scale_accum_fn(word, scale, acc)`` and ``unscale_fn(acc, ra, rb)``
+instead.  ``partial=True`` returns the unrounded accumulator.  The mesh
+``product_reduce`` hook comes with the distributed slice of the port.
 """
 from __future__ import annotations
 
@@ -39,6 +46,13 @@ __all__ = [
     "gemm_slice",
     "matmul_naive",
     "matmul_group_ef",
+    "matmul_oz2",
+    "num_highprec_adds",
+    "oz2_groups",
+    "oz2_num_pairs",
+    "oz2_num_highprec_adds",
+    "oz2_num_chunks",
+    "ladder_width",
     "group_gemm_concat",
     "DF32",
     "int32_to_df32",
@@ -138,6 +152,16 @@ def _scale_accum_plain(prod: torch.Tensor, srow: torch.Tensor,
                        scol: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     """One plain-accumulator epilogue step in ``acc.dtype`` (f64/f32)."""
     return acc + _outer_scale(prod.to(acc.dtype), srow, scol)
+
+
+def num_highprec_adds(k: int, r: int, group_ef: bool) -> int:
+    """Number of high-precision matrix additions (paper's accounting)."""
+    if not group_ef:
+        return k * (k + 1) // 2
+    total = 0
+    for g in range(2, k + 2):
+        total += -(-(g - 1) // r)  # ceil((g-1)/r) chunks for group g
+    return total
 
 
 def _out_shape(sa: Split, sb: Split):
@@ -246,3 +270,192 @@ def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
     for (g, _), prod in zip(chunks, prods):
         c = fn(prod, base_a * (2.0 ** (-beta * g)), base_b, c)
     return c if partial else c.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Ozaki-II — constant scaling + exponent-ladder accumulation
+# ---------------------------------------------------------------------------
+
+def _clog2(x: int) -> int:
+    return max(0, (int(x) - 1).bit_length())
+
+
+def oz2_groups(k: int, fast):
+    """Anti-diagonal groups g = s + t the oz2 modes evaluate: all of
+    g = 2..2k in full mode, the band g <= k + 1 when ``fast`` is truthy
+    (``True`` or ``"fast2"``)."""
+    return range(2, (k + 1 if fast else 2 * k) + 1)
+
+
+def _oz2_group_pairs(k: int, g: int):
+    return [(s, g - s) for s in range(max(1, g - k), min(k, g - 1) + 1)]
+
+
+def oz2_num_pairs(k: int, fast: bool) -> int:
+    """INT8 slice-pair GEMM count: k(k+1)/2 (fast band) or k^2 (full)."""
+    return k * (k + 1) // 2 if fast else k * k
+
+
+def _oz2_chunks(k: int, r: int, fast: bool):
+    """Yield (g, [(s, t), ...]) chunks of size <= r, ascending g."""
+    for g in oz2_groups(k, fast):
+        pairs = _oz2_group_pairs(k, g)
+        for i in range(0, len(pairs), r):
+            yield g, pairs[i:i + r]
+
+
+def ladder_width(n: int, k: int, beta: int, digit_bits: int,
+                 word_bits: int) -> int:
+    """How many consecutive groups fold into ONE integer word: group g's
+    sum carries 2^(-beta*g), so c groups combine exactly as
+    ``sum_j S_(g+j) << (beta * (c - 1 - j))`` within ``word_bits`` (52 for
+    the int64 word of the f64 accumulator, 31 for int32)."""
+    head = 1 + _clog2(k) + _clog2(n) + 2 * digit_bits
+    return 1 + max(0, (word_bits - head) // beta)
+
+
+def _ladder_windows(chunks, c: int):
+    """Pack the ascending-g chunk list into windows spanning <= c groups."""
+    windows = []
+    for idx, (g, _) in enumerate(chunks):
+        if windows and g - windows[-1][0][1] < c:
+            windows[-1].append((idx, g))
+        else:
+            windows.append([(idx, g)])
+    return windows
+
+
+def oz2_num_highprec_adds(k: int, r: int, beta: int, n: int, fast: bool,
+                          digit_bits: int, word_bits: int = 52) -> int:
+    """High-precision adds of the oz2 path = number of ladder windows."""
+    chunks = list(_oz2_chunks(k, r, fast))
+    return len(_ladder_windows(chunks, ladder_width(n, k, beta, digit_bits,
+                                                    word_bits)))
+
+
+def oz2_num_chunks(k: int, r: int, fast: bool) -> int:
+    """INT32 group-GEMM outputs the ladder folds."""
+    return sum(1 for _ in _oz2_chunks(k, r, fast))
+
+
+def _oz2_scale(gbase_a: torch.Tensor, gbase_b: torch.Tensor, beta: int,
+               g: int, dtype) -> torch.Tensor:
+    """(*batch,) scalar scale ``gbaseA * gbaseB * 2^(-beta*g)``, the group
+    exponent split over the two bases (in the reference's order) so that
+    neither factor underflows on its own; every factor is a power of two."""
+    ea = 2.0 ** (-beta * (g // 2))
+    eb = 2.0 ** (-beta * (g - g // 2))
+    return (gbase_a.to(dtype) * ea) * (gbase_b.to(dtype) * eb)
+
+
+def _oz2_accum_df32(word: torch.Tensor, scale: torch.Tensor,
+                    acc: DF32) -> DF32:
+    """One ladder-window df32 step: ``acc += scale * float(word)`` with the
+    exact low-8-bit int32 split."""
+    term = int32_to_df32(word)
+    s = scale[..., None, None]
+    return df32_add_df(acc, DF32(term.hi * s, term.lo * s))
+
+
+def _oz2_accum_plain(word: torch.Tensor, scale: torch.Tensor,
+                     acc: torch.Tensor) -> torch.Tensor:
+    """One ladder-window plain step in ``acc.dtype`` (f64: the int64 word
+    converts exactly by the 52-bit word budget)."""
+    return acc + word.to(acc.dtype) * scale[..., None, None]
+
+
+def _oz2_unscale(acc, ra: torch.Tensor, rb: torch.Tensor):
+    """The fast2 epilogue ``C = diag(ra) C_hat diag(rb)``; both limbs of a
+    df32 accumulator scale by the same powers of two (exact)."""
+    if isinstance(acc, DF32):
+        ra32 = ra.to(torch.float32)
+        rb32 = rb.to(torch.float32)
+        return DF32(_outer_scale(acc.hi, ra32, rb32),
+                    _outer_scale(acc.lo, ra32, rb32))
+    return _outer_scale(acc, ra.to(acc.dtype), rb.to(acc.dtype))
+
+
+def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
+               out_dtype=None, fast: Union[bool, str] = False,
+               r: Optional[int] = None, n_total: Optional[int] = None,
+               digit_bits: Optional[int] = None, group_gemm_fn=None,
+               partial: bool = False,
+               scale_accum_fn: Optional[Callable] = None,
+               unscale_fn: Optional[Callable] = None
+               ) -> Union[torch.Tensor, DF32]:
+    """Ozaki-II evaluation on constant-scaling splits (``Split.gbase``).
+
+    Groups are summed in the int32 group GEMM (chunks of <= r pairs), then
+    consecutive groups fold into one integer word by exact shifts (int64
+    for the f64 accumulator, int32 otherwise) before ONE convert+scale+add
+    per ladder window.  ``fast`` selects the g <= k+1 band; ``"fast2"``
+    also applies the exact unscale by ``base / gbase`` at the end.  The
+    fold itself is plain integer PyTorch, as the reference's is jnp
+    outside any kernel.  Hooks: ``scale_accum_fn(word, scale, acc)`` and
+    ``unscale_fn(acc, ra, rb)`` (the ``:fused`` kernels)."""
+    assert sa.axis == 0 and sb.axis == 1
+    if sa.gbase is None or sb.gbase is None:
+        raise ValueError("oz2 accumulation needs constant-scaling splits "
+                         "(split_oz2 / split_oz2_bitmask); got per-row "
+                         "scales")
+    fast2 = fast == "fast2"
+    if fast2 and (sa.base is None or sb.base is None):
+        raise ValueError("fast2 needs the per-row bases of the fast2 "
+                         "splits (split_oz2_fast2 / "
+                         "split_oz2_bitmask_fast2)")
+    k = sa.digits.shape[0]
+    assert sb.digits.shape[0] == k
+    beta = sa.beta
+    n = n_total if n_total is not None else sa.digits.shape[-1]
+    out_shape = _out_shape(sa, sb)
+    out_dtype = out_dtype or sa.scale.dtype
+    device = sa.digits.device
+    if digit_bits is None:
+        digit_bits = beta  # conservative: truncation digits span ±(2^beta-1)
+    if r is None:
+        r = compute_r(n, beta, digit_bits)
+    use_i64 = accum == "f64"
+    word_dtype = torch.int64 if use_i64 else torch.int32
+    c = ladder_width(n, k, beta, digit_bits, 52 if use_i64 else 31)
+
+    gg = group_gemm_fn or (lambda pairs: group_gemm_concat(sa, sb, pairs))
+    chunks = list(_oz2_chunks(k, r, fast))
+    prods = [gg(pairs) for _, pairs in chunks]
+    windows = _ladder_windows(chunks, c)
+
+    def fold(window):
+        g_hi = window[-1][1]
+        word = None
+        for idx, g in window:
+            t = prods[idx].to(word_dtype)
+            if g_hi != g:
+                t = torch.bitwise_left_shift(t, beta * (g_hi - g))
+            word = t if word is None else word + t
+        return word, g_hi
+
+    def unscale(acc):
+        if not fast2:
+            return acc
+        ra = sa.base * (1.0 / sa.gbase[..., None])
+        rb = sb.base * (1.0 / sb.gbase[..., None])
+        return (unscale_fn or _oz2_unscale)(acc, ra, rb)
+
+    if accum == "df32":
+        fn = scale_accum_fn or _oz2_accum_df32
+        acc = df32_zero(out_shape, device)
+        for window in windows:
+            word, g_hi = fold(window)
+            acc = fn(word, _oz2_scale(sa.gbase, sb.gbase, beta, g_hi,
+                                      torch.float32), acc)
+        acc = unscale(acc)
+        return acc if partial else acc.to_float(out_dtype)
+
+    acc_dtype = _ACC_DTYPES[accum]
+    fn = scale_accum_fn or _oz2_accum_plain
+    acc = torch.zeros(out_shape, dtype=acc_dtype, device=device)
+    for window in windows:
+        word, g_hi = fold(window)
+        acc = fn(word, _oz2_scale(sa.gbase, sb.gbase, beta, g_hi,
+                                  acc_dtype), acc)
+    acc = unscale(acc)
+    return acc if partial else acc.to(out_dtype)

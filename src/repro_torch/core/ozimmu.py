@@ -17,11 +17,13 @@ The named variants and the spec grammar are the reference's:
   ===============  ================  =====================
 
 Every spec parses exactly as in the reference (same configs, same error
-texts).  This slice of the port executes the per-row geometric variants
-(``ozimmu``, ``ozimmu_ef``, ``ozimmu_h``, ``ozimmu_sm_*``) with fixed k,
-on the plain path and on the ``:fused`` kernel path.  The adaptive-RN and
-Ozaki-II variants, ``auto`` k and ``@mesh`` specs parse but raise
-``NotImplementedError`` at execution, naming the slice that brings them.
+texts), and every variant executes, with a fixed or an ``auto`` k, on the
+plain path and on the ``:fused`` kernel path.  Two exceptions remain:
+``@mesh`` specs raise ``NotImplementedError`` at execution (the
+distributed slice), and on CUDA the sign-magnitude variants raise in the
+group GEMM, whose widened-digit form is not ported yet.  ``auto`` k
+probes the operands of every call (PyTorch is eager); a call with a
+frozen B split adopts the k the split cache froze (the static plan).
 
 Two entry points: ``ozimmu_matmul(a, b, cfg)`` (rank 2) and
 ``ozimmu_dot_general(a, b, dimension_numbers, cfg)``, the emulated
@@ -63,7 +65,8 @@ class OzimmuConfig:
                                     # token ``:fused``): fused splitting,
                                     # group-GEMM kernel, fused epilogue.
                                     # True: the group-GEMM kernel only.
-    auto_k: bool = False            # spec token ``auto`` (planner slice)
+    auto_k: bool = False            # spec token ``auto``: accuracy-driven
+                                    # k (core/plan.py)
     target_eps: Optional[float] = None
     target_eps_mode: str = "deterministic"
     target_delta: Optional[float] = None
@@ -87,8 +90,13 @@ VARIANTS = {
 
 _SPLITTERS = {
     "bitmask": splitting.split_bitmask,
+    "rn": splitting.split_rn,
     "rn_const": splitting.split_rn_const,
     "sm": splitting.split_sm,
+    "oz2_rn": splitting.split_oz2,
+    "oz2_bitmask": splitting.split_oz2_bitmask,
+    "oz2_rn_fast2": splitting.split_oz2_fast2,
+    "oz2_bitmask_fast2": splitting.split_oz2_bitmask_fast2,
 }
 
 
@@ -194,33 +202,22 @@ def parse_spec(spec: str) -> OzimmuConfig:
 
 
 def check_supported(cfg: OzimmuConfig) -> None:
-    """Raise ``NotImplementedError`` for what parses but this slice of the
-    port does not execute yet, naming the slice that brings it."""
+    """Raise ``NotImplementedError`` for what parses but the port does not
+    execute yet: the mesh-native ``@axis`` specs."""
     if cfg.mesh_axis is not None:
         raise NotImplementedError(
             f"mesh-native specs (@{cfg.mesh_axis}) come with the "
             f"distributed slice of the port")
-    if cfg.auto_k:
-        raise NotImplementedError(
-            "auto k comes with the plan/analysis slice of the port; use a "
-            "fixed slice count")
-    if cfg.accumulate == "oz2" or cfg.split.startswith("oz2"):
-        raise NotImplementedError(
-            f"the Ozaki-II variant {variant_name(cfg)!r} comes with the "
-            f"oz2/fast2 slice of the port")
-    if cfg.split not in _SPLITTERS:
-        raise NotImplementedError(
-            f"the {cfg.split!r} splitter ({variant_name(cfg)}) comes with "
-            f"the oz2/fast2 slice of the port, with the other splitters")
 
 
 def splitter_for(cfg: OzimmuConfig, n: int):
     """``split(x, axis) -> Split`` for contraction length ``n`` under
-    ``cfg``: the split kernel under ``:fused`` (every ported strategy is
-    geometric and fuses), the library splitter otherwise — bit-identical
-    either way."""
+    ``cfg``: the split kernel under ``:fused`` for every constant-ratio
+    strategy, the library splitter otherwise and for the adaptive ``rn``
+    (its grid needs a fresh row maximum per slice) — bit-identical either
+    way."""
     beta = splitting.beta_for(cfg.split, n)
-    if cfg.use_pallas == "fused":
+    if cfg.use_pallas == "fused" and cfg.split != "rn":
         from repro_torch.kernels import ops as kops
         return lambda x, axis: kops.split_fused(x, cfg.k, beta,
                                                 mode=cfg.split, axis=axis)
@@ -247,7 +244,7 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
                rhs_presplit: Optional[splitting.Split] = None):
     """Single-device emulated batched matmul on canonical operands."""
     sa, sb = split_operands(a, b, cfg, rhs_presplit=rhs_presplit)
-    group_gemm_fn = scale_accum_fn = pair_gemm_fn = None
+    group_gemm_fn = scale_accum_fn = pair_gemm_fn = unscale_fn = None
     if cfg.use_pallas:
         from repro_torch.kernels import ops as kops
         if cfg.accumulate == "naive":
@@ -257,12 +254,22 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
         else:
             group_gemm_fn = lambda pairs: kops.group_gemm(sa, sb, pairs)
         if cfg.use_pallas == "fused":
-            scale_accum_fn = kops.scale_accum_update
+            scale_accum_fn = (kops.oz2_scale_accum_update
+                              if cfg.accumulate == "oz2"
+                              else kops.scale_accum_update)
+            unscale_fn = kops.oz2_unscale_update
     if cfg.accumulate == "naive":
         return accumulate.matmul_naive(
             sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype,
             partial=partial, scale_accum_fn=scale_accum_fn,
             pair_gemm_fn=pair_gemm_fn)
+    if cfg.accumulate == "oz2":
+        return accumulate.matmul_oz2(
+            sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype,
+            fast=cfg.fast, n_total=a.shape[-1],
+            digit_bits=splitting.digit_bits(cfg.split, sa.beta),
+            group_gemm_fn=group_gemm_fn, partial=partial,
+            scale_accum_fn=scale_accum_fn, unscale_fn=unscale_fn)
     r = splitting.compute_r(a.shape[-1], sa.beta)
     return accumulate.matmul_group_ef(
         sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype, r=r,
@@ -296,6 +303,10 @@ def _check_presplit(a: torch.Tensor, b_shape, cfg: OzimmuConfig,
         raise ValueError(f"rhs_presplit has k={sp.digits.shape[0]} slices, "
                          f"config wants k={cfg.k}; re-freeze under the "
                          f"current spec")
+    if cfg.accumulate == "oz2" and sp.gbase is None:
+        raise ValueError("oz2 accumulation needs a constant-scaling "
+                         "presplit (gbase); the cached split was frozen "
+                         "under a per-row strategy")
     if cfg.accumulate == "group_ef" and sp.base is None:
         raise ValueError("group-EF accumulation needs geometric slice "
                          "scales; the cached split was frozen under the "
@@ -317,6 +328,16 @@ def _bmm_impl(a: torch.Tensor, b: torch.Tensor, cfg: OzimmuConfig,
                          f"{tuple(b.shape)}")
     cfg = canonical_fast2(cfg)
     check_supported(cfg)
+    if cfg.auto_k:
+        if rhs_presplit is not None:
+            # the split cache resolved auto k at freeze time with the
+            # static plan (split_cache.resolved_k); adopt the frozen k
+            cfg = cfg.with_(k=int(rhs_presplit.digits.shape[0]),
+                            auto_k=False)
+        else:
+            # eager: the planner probes the operands
+            from repro_torch.core import plan
+            cfg = cfg.with_(k=plan.auto_k(a, b, cfg), auto_k=False)
     if rhs_presplit is not None:
         _check_presplit(a, b.shape, cfg, rhs_presplit)
     return _bmm_local(a, b, cfg, rhs_presplit=rhs_presplit)

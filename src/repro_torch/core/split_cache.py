@@ -1,5 +1,5 @@
 """Persistent weight split-cache for emulated GEMMs — PyTorch port of
-``repro.core.split_cache`` (fixed k).
+``repro.core.split_cache``.
 
 At inference the B operand of almost every emulated contraction is a
 static weight matrix.  :class:`SplitCache` freezes it into its
@@ -13,7 +13,14 @@ Identity is ``id(tensor)`` guarded by a ``weakref``: when the weight
 tensor dies, its entries drop out, so a recycled ``id`` never aliases a
 stale split.  Under a ``:fused`` spec the freeze runs through the split
 kernel (axis 1), so on the card the B side of every projection is split
-by the kernel exactly once.  ``auto`` k comes with the planner slice.
+by the kernel exactly once.
+
+Auto k (``...-auto`` specs) is resolved at freeze time by
+:func:`resolved_k`: the static mantissa-coverage plan, which is what the
+reference's jitted serving step resolves to.  A call that gets the frozen
+split adopts its k (``ozimmu._bmm_impl``), so the serving path of both
+packages agrees on k.  Constant-scaling (oz2, fast2) splits carry their
+``gbase`` through the cache and :func:`stack_leading`.
 """
 from __future__ import annotations
 
@@ -25,18 +32,35 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core import splitting
 from repro_torch.core.splitting import Split
 
 __all__ = ["SplitCache", "CacheStats", "resolved_k", "presplit_rhs",
            "stack_leading", "split_nbytes"]
 
 
-def resolved_k(cfg) -> int:
-    """The slice count a frozen split uses (fixed-k configs only)."""
-    if getattr(cfg, "auto_k", False):
-        raise NotImplementedError("auto k comes with the plan/analysis "
-                                  "slice of the port")
-    return cfg.k
+def resolved_k(cfg, n: int, dtype) -> int:
+    """The slice count a frozen split uses for contraction length ``n`` in
+    compute dtype ``dtype``.  Fixed-k configs return ``cfg.k``; ``auto``
+    configs the static plan of ``plan.choose_k_bits`` (no probed gaps),
+    with ``target_eps_mode`` riding along (a ``:prob`` config freezes the
+    probabilistic plan's smaller k; the k is part of :func:`_cfg_key`)."""
+    if not getattr(cfg, "auto_k", False):
+        return cfg.k
+    from repro_torch.core import plan
+    beta = splitting.beta_for(cfg.split, n)
+    k, needed = plan.choose_k_bits(
+        n, beta,
+        cfg.target_eps if cfg.target_eps is not None
+        else plan.DEFAULT_TARGET_EPS,
+        split=cfg.split, mantissa=plan._MANTISSA.get(dtype, 24),
+        fast=getattr(cfg, "fast", False),
+        mode=getattr(cfg, "target_eps_mode", "deterministic"),
+        delta=getattr(cfg, "target_delta", None))
+    # m=p=0: the freeze-time resolution sees only the contraction length
+    plan.record_decision(cfg, m=0, n=n, p=0, k=k, beta=beta,
+                         needed=needed, probed=False, source="split_cache")
+    return k
 
 
 def presplit_rhs(b: torch.Tensor, dimension_numbers, cfg) -> Split:
@@ -48,7 +72,8 @@ def presplit_rhs(b: torch.Tensor, dimension_numbers, cfg) -> Split:
     ozimmu.check_supported(cfg)
     b3, n = ozimmu.canonical_rhs(b, ozimmu._canonicalize_dnums(
         dimension_numbers))
-    return ozimmu.splitter_for(cfg.with_(k=resolved_k(cfg)), n)(b3, 1)
+    k = resolved_k(cfg, n, b3.dtype)
+    return ozimmu.splitter_for(cfg.with_(k=k), n)(b3, 1)
 
 
 def stack_leading(sp: Split, nstack: int) -> Split:
@@ -124,7 +149,7 @@ class SplitCache:
         dtype = b.dtype if dtype is None else dtype
         dnums = ozimmu._canonicalize_dnums(dimension_numbers)
         (_, bc), (_, bb) = dnums
-        k = resolved_k(cfg)
+        k = resolved_k(cfg, math.prod(b.shape[i] for i in bc), dtype)
         key = (id(b), _cfg_key(cfg, k, dtype), dnums, layout)
         in_bytes = math.prod(b.shape) * torch.empty((), dtype=dtype
                                                     ).element_size()

@@ -12,8 +12,21 @@ This slice ports the per-row geometric strategies the main path needs:
     family): the sign lives in the leading slice only, trailing digits are
     unsigned magnitudes stored mod 2^8 (decode with :func:`sm_decode`).
 
-The adaptive RN splitter and the Ozaki-II constant-grid splitters come
-with later slices of the port.
+plus the adaptive splitter and the Ozaki-II constant-scaling strategies:
+
+  * ``split_rn``      — Alg. 5 (the "RN" splitting): round-to-nearest with
+    a grid re-derived from the residual's row maxima every slice; scales
+    are not geometric (``base is None``), so only naive accumulation
+    applies (``ozimmu_rn``).
+  * ``split_oz2`` / ``split_oz2_bitmask`` — Ozaki-II constant scaling
+    (``oz2_h`` / ``oz2_b``): the RN / truncation extraction on ONE grid
+    per batch element, from the global |a| maximum; the scalar base rides
+    in ``Split.gbase``.
+  * ``split_oz2_fast2`` / ``split_oz2_bitmask_fast2`` — the improved
+    fast-mode scaling (spec token ``:fast2``): every row is equilibrated
+    by its own power of two, so the digits are bitwise the per-row
+    splitter's and the equilibrated grid is the constant ``gbase = 2``;
+    ``matmul_oz2`` unscales by ``base / gbase`` after the ladder.
 
 Every split returns a :class:`Split` with the reference's convention
 
@@ -48,6 +61,11 @@ __all__ = [
     "split_bitmask",
     "split_rn_const",
     "split_sm",
+    "split_rn",
+    "split_oz2",
+    "split_oz2_bitmask",
+    "split_oz2_fast2",
+    "split_oz2_bitmask_fast2",
     "sm_decode",
     "sm_decode_slice",
     "reconstruct",
@@ -66,7 +84,9 @@ class Split(NamedTuple):
               2^(-beta*(s+1))``.
       beta:   bits per slice.
       axis:   0 if ``scale`` indexes rows, 1 for columns.
-      gbase:  scalar base of the constant-grid (oz2) strategies; None here.
+      gbase:  ``(*batch,)`` scalar base of the constant-grid (oz2)
+              strategies (2 for the fast2 ones); None for the per-row
+              strategies.
       signmag: sign-magnitude storage (``split_sm``): slices 1..k-1 are
               unsigned magnitudes stored mod 2^8 — widen through
               :func:`sm_decode` before any arithmetic.
@@ -244,6 +264,31 @@ def _rn_extract(r, grid, axis: int):
     return s, r - s
 
 
+def split_rn(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
+             axis: int = 0,
+             rowmax_reduce: Optional[Callable] = None) -> Split:
+    """Alg. 5 — round-to-nearest splitting with per-slice adaptive
+    rescaling: slice s rounds the residual to the nearest multiple of
+    ``2^ceil(log2 rowmax(residual)) * 2^(1-beta)``.  Scales are not
+    geometric (``base is None``), so only naive accumulation applies (the
+    "ozIMMU_RN" configuration).  ``rowmax_reduce`` applies per slice."""
+    if beta is None:
+        beta = compute_beta(_contract_len(a, axis))
+    grid_factor = 2.0 ** (1 - beta)
+    r = a
+    digits, scales = [], []
+    for _ in range(k):
+        rowmax = _rowmax(r, axis)
+        if rowmax_reduce is not None:
+            rowmax = rowmax_reduce(rowmax)
+        grid = _pow2_ceil(rowmax) * grid_factor
+        s, r = _rn_extract(r, grid, axis)
+        d = s * _bcast(1.0 / grid, axis)
+        digits.append(to_int8(d))
+        scales.append(grid)
+    return Split(torch.stack(digits), torch.stack(scales), None, beta, axis)
+
+
 def split_rn_const(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
                    axis: int = 0,
                    rowmax_reduce: Optional[Callable] = None) -> Split:
@@ -308,6 +353,77 @@ def _sm_extract(a, anchor, beta: int, k: int, axis: int) -> torch.Tensor:
         r = r - d
         digits.append(to_int8(torch.where(d > 127.0, d - 256.0, d)))
     return torch.stack(digits)
+
+
+def _global_base(a: torch.Tensor, axis: int,
+                 rowmax_reduce: Optional[Callable]) -> torch.Tensor:
+    """Per-batch-element global |a| maximum, broadcast back to the per-row
+    (``axis=0``) / per-column (``axis=1``) vector shape ``(*batch, r)``
+    (reduced through the row maxima, so ``rowmax_reduce`` composes as in
+    the per-row splitters)."""
+    rowmax = _rowmax(a, axis)
+    if rowmax_reduce is not None:
+        rowmax = rowmax_reduce(rowmax)
+    return rowmax.amax(dim=-1, keepdim=True).expand(rowmax.shape)
+
+
+def split_oz2(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
+              axis: int = 0,
+              rowmax_reduce: Optional[Callable] = None) -> Split:
+    """Ozaki-II constant scaling, round-to-nearest digits (``oz2_h``): the
+    Alg. 8 extraction against ONE grid ``mu = 2^ceil(log2 max|a|) *
+    2^(1-beta)`` per batch element, so a slice pair's scale is the scalar
+    ``gbaseA * gbaseB * 2^(-beta*(s+t))``."""
+    if beta is None:
+        beta = compute_beta(_contract_len(a, axis))
+    gmax = _global_base(a, axis, rowmax_reduce)
+    mu = _pow2_ceil(gmax) * (2.0 ** (1 - beta))
+    digits = _rn_const_extract(a, mu, beta, k, axis)
+    base = mu * (2.0 ** beta)
+    return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
+                 gbase=base[..., 0])
+
+
+def split_oz2_bitmask(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
+                      axis: int = 0,
+                      rowmax_reduce: Optional[Callable] = None) -> Split:
+    """Ozaki-II constant scaling, truncation digits (``oz2_b``): Alg. 3
+    against the shared grid ``base = 2 * 2^floor(log2 max|a|)``."""
+    if beta is None:
+        beta = compute_beta(_contract_len(a, axis))
+    gmax = _global_base(a, axis, rowmax_reduce)
+    base = 2.0 * _pow2_floor(gmax)
+    digits = _bitmask_extract(a, base, beta, k, axis)
+    return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
+                 gbase=base[..., 0])
+
+
+def _with_fast2_gbase(s: Split) -> Split:
+    """Attach the constant equilibrated-grid base ``gbase = 2`` to a
+    per-row split (the fast2 contract): ``base / gbase`` is then the exact
+    power-of-two equilibration factor ``matmul_oz2`` unscales by."""
+    return s._replace(gbase=torch.full(s.base.shape[:-1], 2.0,
+                                       dtype=s.base.dtype,
+                                       device=s.base.device))
+
+
+def split_oz2_fast2(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
+                    axis: int = 0,
+                    rowmax_reduce: Optional[Callable] = None) -> Split:
+    """Improved fast-mode scaling, RN digits (``oz2_h ... :fast2``): bitwise
+    :func:`split_rn_const`'s digits and per-row bases, plus ``gbase = 2``."""
+    return _with_fast2_gbase(split_rn_const(a, k, beta=beta, axis=axis,
+                                            rowmax_reduce=rowmax_reduce))
+
+
+def split_oz2_bitmask_fast2(a: torch.Tensor, k: int, *,
+                            beta: Optional[int] = None, axis: int = 0,
+                            rowmax_reduce: Optional[Callable] = None
+                            ) -> Split:
+    """Improved fast-mode scaling, truncation digits (``oz2_b ...
+    :fast2``): bitwise :func:`split_bitmask`'s digits, plus ``gbase = 2``."""
+    return _with_fast2_gbase(split_bitmask(a, k, beta=beta, axis=axis,
+                                           rowmax_reduce=rowmax_reduce))
 
 
 def sm_decode(digits: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ each beside its plain PyTorch version:
                    accumulator over a whole anti-diagonal group (Alg. 6/7)
   * scale_accum  — step (iv) epilogue: fused convert + scale + add, df32
                    compensated (``scale_accum``) or plain f32/f64
-                   (``scale_accum_plain``)
+                   (``scale_accum_plain``); the Ozaki-II ladder windows
+                   with one scalar scale (``scale_accum_const``,
+                   ``scale_accum_const_plain``) and the fast2 unscale
+                   (``unscale``)
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.  :data:`LAUNCHES` counts kernel launches
@@ -16,7 +19,9 @@ through.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"split_fused": 0, "group_gemm": 0,
-                            "scale_accum": 0, "scale_accum_plain": 0}
+                            "scale_accum": 0, "scale_accum_plain": 0,
+                            "scale_accum_const": 0,
+                            "scale_accum_const_plain": 0, "unscale": 0}
 
 
 def reset_launches() -> None:

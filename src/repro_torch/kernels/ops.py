@@ -14,46 +14,59 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch.core.splitting import (Split, _geo_scales, _pow2_ceil,
-                                        _pow2_floor, _rowmax, sm_decode)
+from repro_torch.core.splitting import (Split, _geo_scales, _global_base,
+                                        _pow2_ceil, _pow2_floor, _rowmax,
+                                        _with_fast2_gbase, sm_decode)
 from repro_torch.kernels import group_gemm as _gg
 from repro_torch.kernels import scale_accum as _sa
 from repro_torch.kernels import split_fused as _sf
 
-__all__ = ["split_fused", "group_gemm", "scale_accum_update"]
+__all__ = ["split_fused", "group_gemm", "scale_accum_update",
+           "oz2_scale_accum_update", "oz2_unscale_update"]
+
+# fused-split mode -> the kernel's extraction mode
+_KERNEL_MODE = {"bitmask": "bitmask", "oz2_bitmask": "bitmask",
+                "oz2_bitmask_fast2": "bitmask", "rn_const": "rn_const",
+                "oz2_rn": "rn_const", "oz2_rn_fast2": "rn_const", "sm": "sm"}
 
 
 def split_fused(a: torch.Tensor, k: int, beta: int, *,
                 mode: str = "rn_const", axis: int = 0) -> Split:
     """Fused splitting (Alg. 3 ``bitmask`` / Alg. 8 ``rn_const`` / the
-    sign-magnitude ``sm``): the same :class:`Split` as the library
-    splitters, bit for bit, in ``a``'s own dtype.  ``a`` is ``(*batch, m,
-    n)``; ``axis=1`` (column scales, for B) indexes the grid per column
-    instead of transposing.  The oz2 constant-grid modes come with a later
-    slice of the port."""
-    rowmax = _rowmax(a, axis)
-    if mode == "bitmask":
+    sign-magnitude ``sm`` / the oz2 constant-grid modes ``oz2_bitmask`` /
+    ``oz2_rn`` and their fast2 twins): the same :class:`Split` as the
+    library splitters, bit for bit, in ``a``'s own dtype.  ``a`` is
+    ``(*batch, m, n)``; ``axis=1`` (column scales, for B) indexes the grid
+    per column instead of transposing.
+
+    The plain oz2 modes broadcast the global maximum of each batch element
+    onto the per-row reciprocal grid, which is bit-identical to the
+    reference's constant-grid kernel, so the kernel needs no mode of its
+    own.  The fast2 modes keep the per-row grids and attach ``gbase = 2``
+    (``splitting._with_fast2_gbase``)."""
+    if mode not in _KERNEL_MODE:
+        raise ValueError(f"fused splitting supports {sorted(_KERNEL_MODE)}"
+                         f", got {mode!r}")
+    kmode = _KERNEL_MODE[mode]
+    rowmax = (_global_base(a, axis, None) if mode in ("oz2_rn", "oz2_bitmask")
+              else _rowmax(a, axis))
+    if kmode == "bitmask":
         base = 2.0 * _pow2_floor(rowmax)
         invgrid = (2.0 ** beta) / base  # 1/grid_1, grid_1 = base*2^-beta
-    elif mode == "rn_const":
+    elif kmode == "rn_const":
         mu = _pow2_ceil(rowmax) * (2.0 ** (1 - beta))
         base = mu * (2.0 ** beta)
         invgrid = 1.0 / mu
-    elif mode == "sm":
+    else:
         anchor = 2.0 * _pow2_floor(rowmax)
         base = 2.0 * anchor
         invgrid = (2.0 ** (beta - 1)) / anchor
-    elif mode.startswith("oz2"):
-        raise NotImplementedError(
-            f"fused splitting mode {mode!r} (Ozaki-II) is not ported yet; "
-            f"it comes with the oz2/fast2 slice")
-    else:
-        raise ValueError(f"fused splitting supports bitmask/rn_const/sm, "
-                         f"got {mode!r}")
-    digits = _sf.split_fused(a, invgrid, k=k, beta=beta, mode=mode,
+    digits = _sf.split_fused(a, invgrid, k=k, beta=beta, mode=kmode,
                              axis=axis)
-    return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
-                 signmag=(mode == "sm"))
+    sp = Split(digits, _geo_scales(base, beta, k), base, beta, axis,
+               gbase=base[..., 0] if mode in ("oz2_rn", "oz2_bitmask")
+               else None, signmag=(mode == "sm"))
+    return _with_fast2_gbase(sp) if mode.endswith("_fast2") else sp
 
 
 def group_gemm(sa: Split, sb: Split, pairs: Sequence[Tuple[int, int]]
@@ -76,3 +89,26 @@ def scale_accum_update(prod: torch.Tensor, srow: torch.Tensor,
     if isinstance(acc, DF32):
         return DF32(*_sa.scale_accum(prod, srow, scol, acc.hi, acc.lo))
     return _sa.scale_accum_plain(prod, srow, scol, acc)
+
+
+def oz2_scale_accum_update(word: torch.Tensor, s: torch.Tensor, acc):
+    """``scale_accum_fn`` hook of ``accumulate.matmul_oz2``: one ladder
+    window's convert+scale+add through the const-scale kernels (df32 pair
+    or plain accumulator, by ``acc``'s type), bit-identical to the plain
+    epilogue.  On CUDA the accumulator is updated in place."""
+    from repro_torch.core.accumulate import DF32  # local: import cycle
+    if isinstance(acc, DF32):
+        return DF32(*_sa.scale_accum_const(word, s, acc.hi, acc.lo))
+    return _sa.scale_accum_const_plain(word, s, acc)
+
+
+def oz2_unscale_update(acc, ra: torch.Tensor, rb: torch.Tensor):
+    """``unscale_fn`` hook of ``accumulate.matmul_oz2`` (fast2): the exact
+    two-sided power-of-two unscale through the kernel, once per limb of a
+    df32 accumulator."""
+    from repro_torch.core.accumulate import DF32  # local: import cycle
+    if isinstance(acc, DF32):
+        ra32, rb32 = ra.to(torch.float32), rb.to(torch.float32)
+        return DF32(_sa.unscale(acc.hi, ra32, rb32),
+                    _sa.unscale(acc.lo, ra32, rb32))
+    return _sa.unscale(acc, ra.to(acc.dtype), rb.to(acc.dtype))

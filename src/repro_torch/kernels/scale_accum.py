@@ -1,7 +1,7 @@
 """Fused convert + scale + add epilogue (step iv): the CUDA kernels of
 ``csrc/scale_accum.cu`` and their plain PyTorch versions.
 
-Replaces two TPU kernels of ``repro/kernels/scale_accum.py``:
+Replaces five TPU kernels of ``repro/kernels/scale_accum.py``:
 
   * ``scale_accum`` (body ``_scale_accum_kernel``) — the df32 accumulator
     ``(hi, lo) += srow * float(P32) * scol``: exact low-8-bit int32 split,
@@ -9,12 +9,22 @@ Replaces two TPU kernels of ``repro/kernels/scale_accum.py``:
     ``accumulate._scale_accum_df32``;
   * ``scale_accum_plain`` (body ``_scale_accum_plain_kernel``) — the plain
     accumulator ``c += float(P32) * srow * scol`` in c's dtype (f32 or
-    f64; the f64 form runs natively on Hopper).
+    f64; the f64 form runs natively on Hopper);
+  * ``scale_accum_const`` (body ``_scale_accum_const_kernel``) — the
+    Ozaki-II ladder window in df32, ``(hi, lo) += s * float(word)`` with
+    one scalar per batch element (``accumulate._oz2_accum_df32``);
+  * ``scale_accum_const_plain`` (body ``_scale_accum_const_plain_kernel``)
+    — ``c += float(word) * s``; the word is int32, or int64 for the f64
+    ladder (exact: the ladder keeps it within 52 bits);
+  * ``unscale`` (body ``_unscale_kernel``) — ``out = x * srow * scol``,
+    the exact fast2 power-of-two unscale (``accumulate._oz2_unscale``).
 
-Operands: ``p32 (*batch, m, p)`` int32, ``srow (*batch, m)``, ``scol
-(*batch, p)``.  The CUDA path updates the accumulators IN PLACE and returns
-them; callers pass only buffers they own (the accumulate routines allocate
-theirs per contraction).  The plain versions return new tensors.
+Operands: ``p32``/``word``/``x`` ``(*batch, m, p)``, ``srow (*batch, m)``,
+``scol (*batch, p)``, the const kernels' scalar ``s (*batch,)`` (a device
+tensor, read by the kernel: no host sync).  The CUDA accumulate paths
+update the accumulators IN PLACE and return them; callers pass only
+buffers they own (the accumulate routines allocate theirs per
+contraction).  ``unscale`` and the plain versions return new tensors.
 """
 from __future__ import annotations
 
@@ -27,11 +37,16 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 
 __all__ = ["scale_accum", "scale_accum_ref", "scale_accum_plain",
-           "scale_accum_plain_ref"]
+           "scale_accum_plain_ref", "scale_accum_const",
+           "scale_accum_const_ref", "scale_accum_const_plain",
+           "scale_accum_const_plain_ref", "unscale", "unscale_ref"]
 
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGS_DF32 = [_p, _p, _p, _p, _p, _ll, _ll, _ll, _p]
 _ARGS_PLAIN = [_p, _p, _p, _p, _ll, _ll, _ll, _i, _p]
+_ARGS_CONST_DF32 = [_p, _p, _p, _p, _ll, _ll, _ll, _p]
+_ARGS_CONST_PLAIN = [_p, _p, _p, _ll, _ll, _ll, _i, _i, _p]
+_ARGS_UNSCALE = [_p, _p, _p, _p, _ll, _ll, _ll, _i, _p]
 
 
 def _two_sum(a, b):
@@ -120,3 +135,121 @@ def scale_accum_plain(p32, srow, scol, c) -> torch.Tensor:
                     int(c.dtype == torch.float64), _build.stream(p32)),
                  "scale_accum_plain")
     return c
+
+
+# ---------------------------------------------------------------------------
+# Ozaki-II: one scalar scale per batch element, and the fast2 unscale
+# ---------------------------------------------------------------------------
+
+def scale_accum_const_ref(word, s, c_hi, c_lo
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the oz2 df32 window: the exact
+    ``accumulate._oz2_accum_df32`` operation sequence."""
+    p_hi = (word >> 8) << 8
+    p_lo = word - p_hi
+    sv = s[..., None, None]
+    hi, err = _two_sum(c_hi, p_hi.to(torch.float32) * sv)
+    lo = c_lo + err + p_lo.to(torch.float32) * sv
+    return _two_sum(hi, lo)
+
+
+def scale_accum_const_plain_ref(word, s, c) -> torch.Tensor:
+    """Plain version of the oz2 plain window, in c's dtype."""
+    return c + word.to(c.dtype) * s[..., None, None]
+
+
+def unscale_ref(x, srow, scol) -> torch.Tensor:
+    """Plain version of the fast2 unscale, ``(x * srow) * scol``."""
+    return x * srow[..., :, None] * scol[..., None, :]
+
+
+def _check_const(word, s, accs, dtype, word_dtypes, kernel):
+    _build.require_cuda(word, kernel)
+    if word.dtype not in word_dtypes:
+        raise TypeError(f"{kernel}: word must be one of {word_dtypes}, got "
+                        f"{word.dtype}")
+    batch = tuple(word.shape[:-2])
+    if tuple(s.shape) != batch or s.dtype != dtype:
+        raise ValueError(f"{kernel}: s must be {batch} {dtype}, got "
+                         f"{tuple(s.shape)} {s.dtype}")
+    for t in (s,) + tuple(accs):
+        if t.device != word.device:
+            raise ValueError(f"{kernel}: operands live on {t.device} and "
+                             f"{word.device}")
+    for t in accs:
+        if tuple(t.shape) != tuple(word.shape) or t.dtype != dtype:
+            raise ValueError(f"{kernel}: accumulator must be "
+                             f"{tuple(word.shape)} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} updates its accumulator in place; "
+                             f"it must be contiguous")
+    return math.prod(batch), word.shape[-2], word.shape[-1]
+
+
+def scale_accum_const(word, s, c_hi, c_lo
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """oz2 df32 window ``(c_hi, c_lo) += s * float(word)``, word int32, s
+    f32 ``(*batch,)``; on CUDA in place (returns the same tensors)."""
+    if word.device.type == "cpu":
+        return scale_accum_const_ref(word, s, c_hi, c_lo)
+    B, m, p = _check_const(word, s, (c_hi, c_lo), torch.float32,
+                           (torch.int32,), "scale_accum_const")
+    word, s = word.contiguous(), s.contiguous()
+    fn = _build.function("scale_accum", "scale_accum_const_df32",
+                         _ARGS_CONST_DF32)
+    LAUNCHES["scale_accum_const"] += 1
+    _build.check(fn(word.data_ptr(), s.data_ptr(), c_hi.data_ptr(),
+                    c_lo.data_ptr(), B, m, p, _build.stream(word)),
+                 "scale_accum_const")
+    return c_hi, c_lo
+
+
+def scale_accum_const_plain(word, s, c) -> torch.Tensor:
+    """oz2 plain window ``c += float(word) * s`` in c's dtype (f32 or f64);
+    word int32 or int64; on CUDA in place (returns the same tensor)."""
+    if word.device.type == "cpu":
+        return scale_accum_const_plain_ref(word, s, c)
+    if c.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"scale_accum_const_plain accumulates in f32 or "
+                        f"f64, got {c.dtype}")
+    B, m, p = _check_const(word, s, (c,), c.dtype,
+                           (torch.int32, torch.int64),
+                           "scale_accum_const_plain")
+    word, s = word.contiguous(), s.contiguous()
+    fn = _build.function("scale_accum", "scale_accum_const_plain",
+                         _ARGS_CONST_PLAIN)
+    LAUNCHES["scale_accum_const_plain"] += 1
+    _build.check(fn(word.data_ptr(), s.data_ptr(), c.data_ptr(), B, m, p,
+                    int(word.dtype == torch.int64),
+                    int(c.dtype == torch.float64), _build.stream(word)),
+                 "scale_accum_const_plain")
+    return c
+
+
+def unscale(x, srow, scol) -> torch.Tensor:
+    """fast2 unscale ``(x * srow) * scol`` in x's dtype (f32 or f64), into
+    a new tensor."""
+    if x.device.type == "cpu":
+        return unscale_ref(x, srow, scol)
+    _build.require_cuda(x, "unscale")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unscale takes f32 or f64, got {x.dtype}")
+    batch, (m, p) = tuple(x.shape[:-2]), tuple(x.shape[-2:])
+    for name, t, shape in (("srow", srow, batch + (m,)),
+                           ("scol", scol, batch + (p,))):
+        if tuple(t.shape) != shape or t.dtype != x.dtype:
+            raise ValueError(f"unscale: {name} must be {shape} {x.dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"unscale: operands live on {t.device} and "
+                             f"{x.device}")
+    x, srow, scol = x.contiguous(), srow.contiguous(), scol.contiguous()
+    out = torch.empty_like(x)
+    fn = _build.function("scale_accum", "unscale", _ARGS_UNSCALE)
+    LAUNCHES["unscale"] += 1
+    _build.check(fn(x.data_ptr(), srow.data_ptr(), scol.data_ptr(),
+                    out.data_ptr(), math.prod(batch), m, p,
+                    int(x.dtype == torch.float64), _build.stream(x)),
+                 "unscale")
+    return out

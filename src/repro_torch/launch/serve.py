@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.core import plan
 from repro_torch.models import api
 from repro_torch.serving import ServingRuntime
 
@@ -74,6 +75,10 @@ def main(argv=None):
 
     cfg = configs.get_config(args.arch, smoke=not args.full,
                              engine_spec=args.engine)
+    oz_cfg = cfg.engine.ozimmu_config
+    if oz_cfg is not None:
+        print(f"[serve] engine {args.engine}: "
+              f"{plan.describe_config(oz_cfg, cfg.d_model, cfg.d_model, cfg.d_model)}")
     model = api.get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(cfg, generator=gen, device=device)
@@ -86,6 +91,8 @@ def main(argv=None):
         st = runtime.split_cache.stats
         print(f"[serve] split-cache: froze {st.misses} weight splits "
               f"({st.cached_bytes / 1e6:.2f} MB resident)")
+    if len(plan.get_ledger()):
+        print(f"[serve] planner: {plan.get_ledger().describe()}")
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len,
                             dtype=np.int32) for _ in range(n_requests)]

@@ -117,8 +117,7 @@ def test_parse_spec_error_texts(spec):
 
 
 @pytest.mark.parametrize("spec,later", [
-    ("ozimmu_h-auto", "plan/analysis"), ("oz2_h-4:fast", "oz2/fast2"),
-    ("ozimmu_rn-4", "oz2/fast2"), ("ozimmu_h-4@model", "distributed")])
+    ("ozimmu_h-4@model", "distributed")])
 def test_unported_specs_raise_naming_their_slice(spec, later):
     a = torch.ones((2, 8), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match=later):

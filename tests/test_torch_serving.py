@@ -193,3 +193,91 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--slots", "1"])
+
+
+@pytest.mark.parametrize("spec", ["oz2_h-4:df32:fast2", "ozimmu_h-auto:df32"])
+def test_runtime_tokens_match_reference(ref_params, spec):
+    """Ozaki-II and auto-k serving: the port's runtime (``:fused``, the
+    kernels' plain versions) gives the reference runtime's greedy tokens,
+    and every frozen weight split has the k of the reference's static plan
+    (what its jitted step resolves).  f32 activations, as above."""
+    from repro.core import split_cache as R_sc
+    from repro.serving import ServingRuntime as RRuntime
+    from repro_torch.serving import ServingRuntime
+    rparams, nparams = ref_params
+    rcfg = R_configs.get_config("internlm2_1_8b", smoke=True,
+                                engine_spec=spec, dtype="float32")
+    pcfg = P_configs.get_config("internlm2_1_8b", smoke=True,
+                                engine_spec=spec + ":fused",
+                                dtype="float32")
+    prompts = [_tokens(rcfg.vocab, (8,), seed=s) for s in range(3)]
+    rrt = RRuntime(rcfg, rparams, slots=2, max_len=32)
+    refs = rrt.generate([p.copy() for p in prompts], 4)
+    prt = ServingRuntime(pcfg, params_from_numpy(nparams, device="cpu"),
+                         slots=2, max_len=32, device="cpu")
+    outs = prt.generate([p.copy() for p in prompts], 4)
+    for o, r in zip(outs, refs):
+        np.testing.assert_array_equal(o, r)
+    static_k = R_sc.resolved_k(rcfg.engine.ozimmu_config, rcfg.d_model,
+                               np.float32)
+    for name in ("lm_head",):
+        assert prt.params[name].k == rrt.params[name].k == static_k
+    for name, w in prt.params["layers"].items():
+        if hasattr(w, "k"):
+            assert w.k == rrt.params["layers"][name].k, name
+    assert prt.metrics.summary()["split_cache"][
+        "weight_split_hit_rate"] == 1.0
+
+
+def test_runtime_oz2_plain_slot_hygiene():
+    """The port's counterpart of the reference's
+    ``test_runtime_matches_reference_oz2``: plain oz2 takes ONE digit grid
+    per operand, so a stray cache row of an idle or warming-up slot would
+    move every other slot's digits.  With 2 slots the tokens equal a
+    per-request greedy loop."""
+    from repro_torch.serving import ServingRuntime
+    cfg = P_configs.get_config("internlm2_1_8b", smoke=True,
+                               engine_spec="oz2_h-4:df32:fast:fused")
+    model = P_api.get_model(cfg)
+    params = model.init(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    prompts = [_tokens(cfg.vocab, (8,), seed=s) for s in range(3)]
+
+    def reference(prompt):
+        cache = model.init_cache(cfg, 1, 64, device="cpu")
+        for t, tok in enumerate(prompt):
+            logits, cache = model.decode_step(
+                params, cfg, cache, torch.tensor([[tok]]), torch.tensor(t + 1))
+        out = list(prompt)
+        cur = int(torch.argmax(logits[0, -1, :cfg.vocab]))
+        for g in range(3):
+            out.append(cur)
+            logits, cache = model.decode_step(
+                params, cfg, cache, torch.tensor([[cur]]),
+                torch.tensor(len(prompt) + g + 1))
+            cur = int(torch.argmax(logits[0, -1, :cfg.vocab]))
+        return np.asarray(out)
+
+    rt = ServingRuntime(cfg, params, slots=2, max_len=64, device="cpu")
+    outs = rt.generate([p.copy() for p in prompts], 3)
+    for o, p in zip(outs, prompts):
+        np.testing.assert_array_equal(o, reference(p))
+
+
+@pytest.mark.parametrize("spec", ["oz2_h-4:df32:fast2",
+                                  "ozimmu_h-auto:df32:prob"])
+def test_launcher_serves_and_prints_plan(spec, capsys):
+    """``python -m repro_torch.launch.serve --engine <spec>`` serves the
+    Ozaki-II and auto-k specs and prints the engine's plan
+    (``plan.describe_config``) first."""
+    from repro_torch.core import ozimmu, plan
+    from repro_torch.launch import serve
+    s = serve.main(["--slots", "2", "--requests", "3", "--prompt-len", "6",
+                    "--gen", "3", "--max-len", "16", "--engine", spec,
+                    "--device", "cpu"])
+    assert s["requests"]["finished"] == 3 and s["tokens_generated"] == 9
+    assert s["split_cache"]["weight_split_hit_rate"] == 1.0
+    lines = capsys.readouterr().out.splitlines()
+    cfg = P_configs.get_config("internlm2_1_8b", smoke=True)
+    assert lines[0] == (f"[serve] engine {spec}: " + plan.describe_config(
+        ozimmu.parse_spec(spec), cfg.d_model, cfg.d_model, cfg.d_model))
