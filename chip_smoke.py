@@ -19,15 +19,30 @@ Phases (each raises on failure, so any failure exits non-zero):
 3b. Ozaki-II DGEMM: the same under ``oz2_h-8:f64:fast2:fused`` on the same
    inputs, then once under ``oz2_h-auto:f64:fast2:prob:fused`` (the k the
    planner resolves, and its error).
+3c. Sign-magnitude DGEMM: the same as phase 3 under
+   ``ozimmu_sm_h-8:f64:fused`` (the group GEMM on the stored digits), with
+   the small input bitwise against the CPU for it and for the pairwise
+   ``ozimmu_sm_b-4:fused``.
 4. Serve: ``ServingRuntime`` on the published internlm2-1.8b config
    (24 layers, random weights from a seed) under ``ozimmu_h-4:df32:fused``
    with the weight split-cache on; the first request's tokens must equal a
    monolithic greedy loop, and the full-width prefill logits must agree
    with the native f32 engine.
 4b. Ozaki-II serve: the same under ``oz2_h-4:df32:fast2:fused``.
+4c. Sign-magnitude serve: phase 4 under ``ozimmu_sm_h-4:df32:fused``.
+5. Flash: the reference's flash entry point ``ops.flash_attention`` at
+   internlm2-1.8b's attention width (B 1, L 4096, H 16, KV 8, D 128,
+   causal) against the port's ``layers.attention_flash`` (3e-5), and the
+   kernel-level forward -> backward chain against autograd of the naive
+   oracle (2e-4).
 
-The launch counts of phases 3, 3b, 4 and 4b are zeroed just before each
-path runs and read just after; every kernel of a path must have launched.
+The launch counts of phases 3-5 are zeroed just before each path runs and
+read just after; every kernel of a path must have launched.  Phase 2 holds
+the flash kernels to their plain versions within the reference's
+tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
+these), a bf16 output within ``2e-2 |y| + min(2e-2, 4e-3 max|y|)`` (the
+reference's relative 2e-2, the absolute term scaled to the tensor), and
+every other kernel bitwise.
 The last three lines are the card (``nvidia-smi``), the per-kernel JSON
 record and the result JSON.  Exits non-zero without a CUDA card, and when
 run outside the repository.
@@ -49,12 +64,20 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS = 67e12          # outside the tensor cores
 F64_FLOPS = 34e12          # outside the tensor cores
+BF16_FLOPS = 989e12        # tensor cores, dense
 
 MODEL_SPEC = "ozimmu_h-4:df32:fused"
 DGEMM_SPEC = "ozimmu_h-8:f64:fused"
 OZ2_MODEL_SPEC = "oz2_h-4:df32:fast2:fused"
 OZ2_DGEMM_SPEC = "oz2_h-8:f64:fast2:fused"
 OZ2_AUTO_SPEC = "oz2_h-auto:f64:fast2:prob:fused"
+SM_MODEL_SPEC = "ozimmu_sm_h-4:df32:fused"
+SM_DGEMM_SPEC = "ozimmu_sm_h-8:f64:fused"
+SM_PAIRWISE_SPEC = "ozimmu_sm_b-4:fused"
+ATTN = dict(B=1, L=4096, H=16, KV=8, D=128)   # internlm2-1.8b attention
+# bf16 flash outputs: the reference's relative 2e-2, and an absolute term
+# of one bf16 unit roundoff (2^-8) of the tensor's largest value
+BF16_RTOL, BF16_ATOL = 2e-2, 4e-3
 SLOTS, REQUESTS, PROMPT, GEN = 4, 8, 32, 16
 SEED = 0
 
@@ -100,6 +123,33 @@ def same(x, y) -> bool:
     return torch.equal(x, y)
 
 
+def close(x, y, tol: float):
+    """``(ok, max_abs_err, need)`` of two tensors or tuples.  f32 outputs:
+    ``|x - y| <= tol + tol * |y|`` everywhere (equal infinities agree), as
+    numpy's ``assert_allclose(rtol=tol, atol=tol)``.  bf16 outputs:
+    ``|x - y| <= BF16_RTOL * |y| + min(BF16_RTOL, BF16_ATOL * max|y|)``,
+    the absolute term following the tensor's own scale (never looser than
+    the reference's 2e-2).  ``need`` is the least ``BF16_ATOL`` that the
+    bf16 outputs pass with (None without one)."""
+    import torch
+    if isinstance(x, tuple):
+        res = [close(a, b, tol) for a, b in zip(x, y)]
+        needs = [r[2] for r in res if r[2] is not None]
+        return (all(r[0] for r in res), max(r[1] for r in res),
+                max(needs) if needs else None)
+    bf16 = x.dtype == torch.bfloat16
+    x, y = x.float(), y.float()
+    err = torch.where(x == y, torch.zeros_like(x), (x - y).abs())
+    if not bf16:
+        return bool((err <= tol + tol * y.abs()).all()), float(err.max()), \
+            None
+    top = float(y.abs().max())
+    ok = bool((err <= BF16_RTOL * y.abs()
+               + min(BF16_RTOL, BF16_ATOL * top)).all())
+    need = float((err - BF16_RTOL * y.abs()).clamp(min=0).max()) / top
+    return ok, float(err.max()), need
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels vs plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -110,8 +160,10 @@ def kernel_cases(dev):
     (the timed kernel call), ``library`` (a one-call PyTorch yardstick or
     None), and the bytes/operations the function must move/do."""
     import torch
-    from repro_torch.core.splitting import _pow2_ceil, compute_beta
+    from repro_torch.core.splitting import (_pow2_ceil, compute_beta,
+                                            compute_beta_sm)
     from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import group_gemm as gg
     from repro_torch.kernels import scale_accum as sa
     from repro_torch.kernels import split_fused as sf
@@ -122,10 +174,11 @@ def kernel_cases(dev):
     cases = []
 
     def add(kernel, label, run, plain, moved, ops_, peak, reps, bench=None,
-            library=None):
+            library=None, tol=None, no_library=None):
         cases.append(dict(kernel=kernel, label=label, run=run, plain=plain,
                           bench=bench or run, library=library, bytes=moved,
-                          ops=ops_, peak=peak, reps=reps))
+                          ops=ops_, peak=peak, reps=reps, tol=tol,
+                          no_library=no_library))
 
     def split_case(label, shape, dtype, k, axis, reps):
         x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
@@ -158,6 +211,72 @@ def kernel_cases(dev):
             lambda: gg.group_gemm_ref(da, db, ia, ib),
             B * (G * (m * n + n * p) + 4 * m * p), 2.0 * B * G * m * n * p,
             INT8_OPS_PER_S, reps, library=library)
+
+    def sm_gemm_case(label, m, n, p, k, reps):
+        """The sign-magnitude split's stored digits (slice 0 signed, the
+        trailing slices unsigned bytes) through the same kernel."""
+        dtype = f64 if k == 8 else f32
+        a = torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
+        w = torch.randn((n, p), generator=gen, device=dev, dtype=dtype)
+        beta = compute_beta_sm(n)
+        da = ops.split_fused(a, k, beta, mode="sm", axis=0).digits
+        db = ops.split_fused(w, k, beta, mode="sm", axis=1).digits
+        ia, ib = list(range(k)), list(range(k - 1, -1, -1))  # group g=k+1
+        ua, ub = [i > 0 for i in ia], [j > 0 for j in ib]
+        add("group_gemm", label,
+            lambda: gg.group_gemm(da, db, ia, ib, a_unsigned=ua,
+                                  b_unsigned=ub),
+            lambda: gg.group_gemm_ref(da, db, ia, ib, a_unsigned=ua,
+                                      b_unsigned=ub),
+            k * (m * n + n * p) + 4 * m * p, 2.0 * k * m * n * p,
+            INT8_OPS_PER_S, reps,
+            no_library="torch._int_mm multiplies signed int8 only; the "
+                       "unsigned trailing digits have no library call")
+
+    def flash_cases(label, dtype, *, L=None, window=None, q_offset=0,
+                    reps=5):
+        """Forward and backward at internlm2-1.8b's attention width on one
+        input; the library yardstick is SDPA (K/V expanded to H heads
+        beforehand, outside the timed call)."""
+        import torch.nn.functional as F
+        B, H, KV, D = ATTN["B"], ATTN["H"], ATTN["KV"], ATTN["D"]
+        L = L or ATTN["L"]
+        group = H // KV
+        q, k, v, do = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                       for sh in ((B * H, L, D), (B * KV, L, D),
+                                  (B * KV, L, D), (B * H, L, D)))
+        kw = dict(group=group, causal=True, window=window,
+                  q_offset=q_offset)
+        o, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+        mask = fa._mask(L, L, L, True, window, q_offset, dev)
+        seen = mask.sum(dim=1)
+        pairs = B * H * int(torch.where(seen > 0, seen, L).sum())
+        fwd_ops = 2.0 * pairs * (2 * D)
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        q4, ke, ve, do4 = (t.reshape(B, -1, L, D) for t in (
+            q, k.repeat_interleave(group, 0), v.repeat_interleave(group, 0),
+            do))
+        plain_causal = window is None and q_offset == 0
+        sdpa_kw = dict(is_causal=True) if plain_causal else \
+            dict(attn_mask=mask)
+        add("flash_attention_fwd", label,
+            lambda: fa.flash_attention_fwd(q, k, v, **kw),
+            lambda: fa.flash_attention_fwd_ref(q, k, v, **kw),
+            nbytes(q, k, v, o, lse), fwd_ops, peak, reps,
+            library=lambda: F.scaled_dot_product_attention(q4, ke, ve,
+                                                           **sdpa_kw),
+            tol=2e-5)
+        qg, kg, vg = (t.detach().clone().requires_grad_()
+                      for t in (q4, ke, ve))
+        out_g = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
+        add("flash_attention_bwd", label,
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+            lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+            2 * nbytes(q, k, v) + nbytes(o, lse, do), 2.5 * fwd_ops, peak,
+            max(1, reps // 2),
+            library=lambda: torch.autograd.grad(out_g, (qg, kg, vg), do4,
+                                                retain_graph=True),
+            tol=2e-4)
 
     def accum_case(kernel, label, m, p, dtype, reps):
         p32 = torch.randint(-2 ** 30, 2 ** 30, (m, p), generator=gen,
@@ -235,6 +354,10 @@ def kernel_cases(dev):
     gemm_case("decode scores (32 x 2x128x48) G=4", 2, 128, PROMPT + GEN, 4,
               50, batch=(SLOTS * 8,))
     gemm_case("DGEMM (4096^3) G=8", 4096, 4096, 4096, 8, 2)
+    sm_gemm_case("sign-magnitude decode lm_head (4x2048x92672) G=4", SLOTS,
+                 d, vocab, 4, 5)
+    sm_gemm_case("sign-magnitude DGEMM (4096^3) G=8", 4096, 4096, 4096, 8,
+                 2)
     accum_case("scale_accum", "decode lm_head (4x92672)", SLOTS, vocab, f32,
                50)
     accum_case("scale_accum", "prefill w_gate (128x8192)", SLOTS * PROMPT,
@@ -254,6 +377,15 @@ def kernel_cases(dev):
                f32, 50)
     unscale_case("DGEMM (4096x4096) f64", 4096, 4096, f64, 20)
     unscale_case("decode lm_head (4x92672) f32", SLOTS, vocab, f32, 50)
+    bf16 = torch.bfloat16
+    flash_cases("B1 L4096 H16 KV8 D128 causal f32", f32)
+    flash_cases("B1 L4096 H16 KV8 D128 causal bf16", bf16)
+    flash_cases("B1 L4096 H16 KV8 D128 causal window 1024 f32", f32,
+                window=1024)
+    flash_cases("B1 L4000 H16 KV8 D128 causal f32 (ragged tiles)", f32,
+                L=4000)
+    flash_cases("B1 L4096 H16 KV8 D128 causal q_offset -100 f32 (100 fully "
+                "masked rows)", f32, q_offset=-100)
     return cases
 
 
@@ -264,13 +396,16 @@ MAIN_CASE = {"split_fused": "decode lm_head A (4x2048) f32 k=4",
              "scale_accum_plain": "DGEMM (4096x4096) f64",
              "scale_accum_const": "decode lm_head (4x92672)",
              "scale_accum_const_plain": "DGEMM (4096x4096) int64 word f64",
-             "unscale": "decode lm_head (4x92672) f32"}
+             "unscale": "decode lm_head (4x92672) f32",
+             "flash_attention_fwd": "B1 L4096 H16 KV8 D128 causal f32",
+             "flash_attention_bwd": "B1 L4096 H16 KV8 D128 causal f32"}
 
 # the path whose launch count a kernel's record reports
 MAIN_PATH = {"split_fused": "serve", "group_gemm": "serve",
              "scale_accum": "serve", "scale_accum_plain": "dgemm",
              "scale_accum_const": "serve_oz2",
-             "scale_accum_const_plain": "dgemm_oz2", "unscale": "serve_oz2"}
+             "scale_accum_const_plain": "dgemm_oz2", "unscale": "serve_oz2",
+             "flash_attention_fwd": "flash", "flash_attention_bwd": "flash"}
 
 # why no single PyTorch call is a library yardstick for a kernel
 NO_LIBRARY = {
@@ -303,6 +438,10 @@ KERNELS = {
                                 "src/repro/kernels/scale_accum.py:246"),
     "unscale": ("src/repro_torch/kernels/csrc/scale_accum.cu",
                 "src/repro/kernels/scale_accum.py:197"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:86"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:215"),
 }
 
 
@@ -313,21 +452,34 @@ def phase_kernels(dev):
     for c in kernel_cases(dev):
         out_k, out_p = c["run"](), c["plain"]()
         torch.cuda.synchronize()
-        if not same(out_k, out_p):
+        if c["tol"] is None:
+            ok, err = same(out_k, out_p), 0.0
+            check = "bitwise ok"
+        else:
+            ok, err, need = close(out_k, out_p, c["tol"])
+            check = f"max|diff| {err:.2e} (rtol=atol={c['tol']:.0e}) ok" \
+                if need is None else \
+                f"max|diff| {err:.2e} (bf16: needs atol {need:.2e}*max|y| " \
+                f"<= {BF16_ATOL:.0e}; f32 lse rtol=atol={c['tol']:.0e}) ok"
+        if not ok:
             raise AssertionError(f"{c['kernel']} [{c['label']}]: kernel "
-                                 f"output is not bitwise equal to the plain "
-                                 f"version")
+                                 f"output differs from the plain version "
+                                 f"({'bitwise' if c['tol'] is None else err})")
         del out_k, out_p
         ms = time_ms(c["bench"], c["reps"])
         plain_ms = time_ms(c["plain"], max(1, c["reps"] // 5))
         lib = c["library"]
         lib_ms = None if lib is None else time_ms(lib, c["reps"])
         b_ms, b_by = bound_ms(c["bytes"], c["ops"], c["peak"])
-        results.setdefault(c["kernel"], []).append({
-            "label": c["label"], "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms})
-        log(f"[kernels] {c['kernel']:17s} {c['label']:42s} bitwise ok  "
+        rec = {"label": c["label"], "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms}
+        if c["no_library"]:
+            rec["library_none_reason"] = c["no_library"]
+        if c["tol"] is not None and need is not None:
+            rec["bf16_atol_needed"] = need
+        results.setdefault(c["kernel"], []).append(rec)
+        log(f"[kernels] {c['kernel']:17s} {c['label']:42s} {check}  "
             f"{ms:9.4f} ms  plain {plain_ms:9.4f} ms  bound {b_ms:8.4f} ms "
             f"({b_by})  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -356,20 +508,23 @@ def dgemm_inputs(dev):
     return (a, b), tuple(mats)
 
 
-def phase_dgemm(dev, spec, kernels, tag="dgemm"):
+def phase_dgemm(dev, spec, kernels, tag="dgemm", small_too=()):
     """``ozimmu_matmul`` under ``spec`` at n = 4096 against ``torch.matmul``
     in f64 (error <= 1e-8), after a small input that must equal the CPU
-    plain-version pipeline; every kernel in ``kernels`` must launch."""
+    plain-version pipeline (under ``spec`` and each of ``small_too``);
+    every kernel in ``kernels`` must launch."""
     import torch
     from repro_torch.core.ozimmu import ozimmu_matmul, parse_spec
     from repro_torch.kernels import LAUNCHES, reset_launches
     cfg = parse_spec(spec)
     (a, b), (A, B) = dgemm_inputs(dev)
-    small = ozimmu_matmul(a, b, cfg)
-    small_cpu = ozimmu_matmul(a.cpu(), b.cpu(), cfg)
-    if not same(small.cpu(), small_cpu):
-        raise AssertionError(f"{tag}: the card's fused pipeline differs from "
-                             f"the CPU plain-version pipeline")
+    for s in (spec,) + tuple(small_too):
+        small = ozimmu_matmul(a, b, parse_spec(s))
+        small_cpu = ozimmu_matmul(a.cpu(), b.cpu(), parse_spec(s))
+        if not same(small.cpu(), small_cpu):
+            raise AssertionError(f"{tag}: the card's pipeline under {s} "
+                                 f"differs from the CPU plain-version "
+                                 f"pipeline")
     n = A.shape[0]
     ozimmu_matmul(A, B, cfg)                  # warm-up
     torch.cuda.synchronize()
@@ -384,7 +539,8 @@ def phase_dgemm(dev, spec, kernels, tag="dgemm"):
     ref_ms = time_ms(lambda: torch.matmul(A, B), 3)
     log(f"[{tag}] {spec} n={n}: {dt * 1e3:.1f} ms (torch.matmul f64 "
         f"{ref_ms:.2f} ms); max|C - A@B| / max|A@B| = {err:.3e}; small "
-        f"input bitwise equal to the CPU pipeline; launches {counts}")
+        f"input bitwise equal to the CPU pipeline under "
+        f"{', '.join((spec,) + tuple(small_too))}; launches {counts}")
     if not math.isfinite(err) or err > 1e-8:
         raise AssertionError(f"{tag} error {err:.3e} above 1e-8")
     for name in kernels:
@@ -524,6 +680,63 @@ def phase_serve(dev, spec, kernels, tag="serve"):
     return counts, s
 
 
+# ---------------------------------------------------------------------------
+# phase 5: flash attention through the reference's entry point
+# ---------------------------------------------------------------------------
+
+def phase_flash(dev):
+    """``ops.flash_attention`` and the kernel-level forward -> backward
+    chain at internlm2-1.8b's attention width (f32, causal, GQA 16/8), held
+    to the port's model attention and to autograd of the naive oracle."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import attention_flash
+    B, L, H, KV, D = (ATTN[x] for x in ("B", "L", "H", "KV", "D"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev)
+               for sh in ((B, L, H, D), (B, L, KV, D), (B, L, KV, D)))
+    qt, kt, vt = (x.transpose(1, 2).reshape(-1, L, D) for x in (q, k, v))
+    dout = torch.randn((B * H, L, D), generator=gen, device=dev)
+    group = H // KV
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    o = ops.flash_attention(q, k, v, causal=True)
+    o_t, lse = fa.flash_attention_fwd(qt, kt, vt, group=group)
+    grads = fa.flash_attention_bwd(qt, kt, vt, o_t, lse, dout, group=group)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"flash path launched no {name} kernel")
+    if o.shape != q.shape or not bool(torch.isfinite(o).all()) or \
+            not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("flash outputs misshapen or not finite")
+    with torch.no_grad():
+        want = attention_flash(q, k, v, causal=True)
+    ok, err_model, _ = close(o, want, 3e-5)
+    if not ok:
+        raise AssertionError(f"ops.flash_attention differs from "
+                             f"layers.attention_flash by {err_model:.3e}")
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    ref = fa.flash_attention_ref(*leaves, group=group)
+    auto = torch.autograd.grad((ref * dout).sum(), leaves)
+    ok, err_grad, _ = close(tuple(grads), tuple(auto), 2e-4)
+    if not ok:
+        raise AssertionError(f"flash backward differs from autograd of the "
+                             f"naive oracle by {err_grad:.3e}")
+    log(f"[flash] B{B} L{L} H{H} KV{KV} D{D} causal f32: ops.flash_attention"
+        f" + forward + backward {dt * 1e3:.1f} ms; vs layers.attention_flash"
+        f" max|diff| {err_model:.3e} (<= 3e-5); (dq, dk, dv) vs autograd of "
+        f"the naive oracle max|diff| {err_grad:.3e} (<= 2e-4); launches "
+        f"{counts}")
+    del ref, auto, leaves, grads
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -566,12 +779,19 @@ def main() -> int:
         tag="dgemm_oz2")
     phase_dgemm_auto(dev, OZ2_AUTO_SPEC, ref)
     del ref
+    paths["dgemm_sm"], _ = phase_dgemm(
+        dev, SM_DGEMM_SPEC, ("split_fused", "group_gemm", "scale_accum_plain"),
+        tag="dgemm_sm", small_too=(SM_PAIRWISE_SPEC,))
     paths["serve"], _ = phase_serve(
         dev, MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"))
     paths["serve_oz2"], _ = phase_serve(
         dev, OZ2_MODEL_SPEC, ("split_fused", "group_gemm",
                               "scale_accum_const", "unscale"),
         tag="serve_oz2")
+    paths["serve_sm"], _ = phase_serve(
+        dev, SM_MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
+        tag="serve_sm")
+    paths["flash"] = phase_flash(dev)
 
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -20,10 +20,13 @@ High-precision accumulator modes: ``f64`` (paper-faithful; native on
 Hopper), ``f32`` and ``df32`` (two-float compensated accumulation, kept for
 parity with the reference).
 
-Every INT8 product goes through :func:`repro_torch.kernels.group_gemm.
-group_gemm`: on a CUDA tensor that is the hand-written kernel (CUDA has no
-int32 matmul), on a CPU tensor its plain version.  ``torch.mm`` on int8 CPU
-tensors would return int8 and wrap, so nothing here calls it.
+Every INT8 product is one call of :func:`slice_group_gemm`, which hands the
+digit stacks to :func:`repro_torch.kernels.group_gemm.group_gemm`: on a
+CUDA tensor that is the hand-written kernel (CUDA has no int32 matmul), on a
+CPU tensor its plain version.  ``torch.mm`` on int8 CPU tensors would return
+int8 and wrap, so nothing here calls it.  Sign-magnitude digits are
+multiplied as stored, the trailing slices as unsigned bytes; no widened
+copy is made.
 
 Hooks, as in the reference: ``group_gemm_fn(pairs)``, ``pair_gemm_fn(s, t)``
 and ``scale_accum_fn(prod, srow, scol, acc)`` replace the int8 products and
@@ -39,11 +42,10 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core.splitting import Split, compute_r, sm_decode_slice
+from repro_torch.core.splitting import Split, compute_r
+from repro_torch.kernels import group_gemm as _gg
 
 __all__ = [
-    "int8_gemm",
-    "gemm_slice",
     "matmul_naive",
     "matmul_group_ef",
     "matmul_oz2",
@@ -53,7 +55,7 @@ __all__ = [
     "oz2_num_highprec_adds",
     "oz2_num_chunks",
     "ladder_width",
-    "group_gemm_concat",
+    "slice_group_gemm",
     "DF32",
     "int32_to_df32",
 ]
@@ -61,20 +63,17 @@ __all__ = [
 _ACC_DTYPES = {"f64": torch.float64, "f32": torch.float32}
 
 
-def int8_gemm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
-    """(*batch, m, n) int8 @ (*batch, n, p) int8 -> (*batch, m, p) int32.
-
-    Exact barring overflow; runs as a one-pair group GEMM (the kernel on
-    CUDA, its plain version on the CPU)."""
-    from repro_torch.kernels.group_gemm import group_gemm
-    return group_gemm(a8[None], b8[None])
-
-
-def gemm_slice(sp: Split, i: int) -> torch.Tensor:
-    """Slice ``i`` (0-indexed) of a split, widened for the integer GEMM
-    (sign-magnitude digits widen to int16 values)."""
-    d = sp.digits[i]
-    return sm_decode_slice(d, i) if sp.signmag else d
+def slice_group_gemm(sa: Split, sb: Split,
+                     pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """sum over 1-indexed slice pairs (s, t) of A_s @ B_t in int32,
+    ``(*batch, m, p)``: one group GEMM that reads the slices in place from
+    the digit stacks (Alg. 6's INT32 group sum; one pair is Alg. 4's INT8
+    GEMM).  Sign-magnitude digits go in as stored, slices 2..k marked
+    unsigned."""
+    return _gg.group_gemm(sa.digits, sb.digits, [s - 1 for s, _ in pairs],
+                          [t - 1 for _, t in pairs],
+                          a_unsigned=[sa.signmag and s > 1 for s, _ in pairs],
+                          b_unsigned=[sb.signmag and t > 1 for _, t in pairs])
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +186,7 @@ def matmul_naive(sa: Split, sb: Split, *, accum: str = "f64",
     device = sa.digits.device
     pairs = _term_pairs(k)
     gemm = pair_gemm_fn or (
-        lambda s, t: int8_gemm(gemm_slice(sa, s - 1), gemm_slice(sb, t - 1)))
+        lambda s, t: slice_group_gemm(sa, sb, [(s, t)]))
     prods = [gemm(s, t) for s, t in pairs]
 
     if accum == "df32":
@@ -219,15 +218,6 @@ def _group_chunks(k: int, r: int):
             yield g, pairs[i:i + r]
 
 
-def group_gemm_concat(sa: Split, sb: Split, pairs) -> torch.Tensor:
-    """sum_{(s,t) in pairs} A_s @ B_t as ONE int8 GEMM over the
-    contraction-axis concatenation of the group's slices (the reference's
-    XLA realization of Alg. 6's INT32 group sum)."""
-    a_cat = torch.cat([gemm_slice(sa, s - 1) for s, _ in pairs], dim=-1)
-    b_cat = torch.cat([gemm_slice(sb, t - 1) for _, t in pairs], dim=-2)
-    return int8_gemm(a_cat, b_cat)
-
-
 def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
                     out_dtype=None, r: Optional[int] = None,
                     group_gemm_fn=None, partial: bool = False,
@@ -248,7 +238,7 @@ def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
     device = sa.digits.device
     if r is None:
         r = compute_r(n, beta)
-    gg = group_gemm_fn or (lambda pairs: group_gemm_concat(sa, sb, pairs))
+    gg = group_gemm_fn or (lambda pairs: slice_group_gemm(sa, sb, pairs))
     chunks = list(_group_chunks(k, r))
     prods = [gg(pairs) for _, pairs in chunks]
 
@@ -418,7 +408,7 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
     word_dtype = torch.int64 if use_i64 else torch.int32
     c = ladder_width(n, k, beta, digit_bits, 52 if use_i64 else 31)
 
-    gg = group_gemm_fn or (lambda pairs: group_gemm_concat(sa, sb, pairs))
+    gg = group_gemm_fn or (lambda pairs: slice_group_gemm(sa, sb, pairs))
     chunks = list(_oz2_chunks(k, r, fast))
     prods = [gg(pairs) for _, pairs in chunks]
     windows = _ladder_windows(chunks, c)

@@ -38,6 +38,7 @@ SOURCES: Dict[str, list] = {
     "split_fused": ["--fmad=false"],
     "group_gemm": [],
     "scale_accum": ["--fmad=false"],
+    "flash_attention": [],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
