@@ -12,7 +12,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    k = 4; decode m = slots, prefill m = slots x prompt length; plus the
    DGEMM shapes) against its plain PyTorch version on the same CUDA
    tensors: bitwise equal, with kernel, plain-version, bound and library
-   times.
+   times.  The group GEMM runs at every main-path shape (the DGEMM's
+   4096^3, the decode projections and LM head, batched decode attention
+   contractions, a middle m) on the route the wrapper picks, plus both
+   routes forced at m = 4..32 (the crossover); its times are device times
+   (CUDA-graph replay, B operands rotated past the L2 cache), with the
+   eager per-call time beside them.  Near-underflow rows and scales run
+   through the split and epilogue kernels, bitwise.
 3. DGEMM: ``ozimmu_matmul`` under ``ozimmu_h-8:f64:fused`` at n = 4096,
    error against ``torch.matmul`` in f64, plus a small input that must
    equal the CPU plain-version pipeline bit for bit.
@@ -37,7 +43,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    oracle (2e-4).
 
 The launch counts of phases 3-5 are zeroed just before each path runs and
-read just after; every kernel of a path must have launched.  Phase 2 holds
+read just after; every kernel of a path must have launched, and the group
+GEMM must have taken the route assigned to the path (large for the DGEMM,
+skinny for serving).  Phase 2 holds
 the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
 these), a bf16 output within ``2e-2 |y| + min(2e-2, 4e-3 max|y|)`` (the
@@ -49,6 +57,7 @@ run outside the repository.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -99,6 +108,37 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+_SIDE = {}
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` without the host's launch cost:
+    ``reps`` calls captured into one CUDA graph, replayed between CUDA
+    events (after warm-up calls that build the launch plans)."""
+    import torch
+    # one side stream for every capture: cuBLAS keeps a workspace per
+    # stream, so a fresh stream per call would pile them up
+    side = _SIDE.setdefault("stream", torch.cuda.Stream())
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -174,11 +214,13 @@ def kernel_cases(dev):
     cases = []
 
     def add(kernel, label, run, plain, moved, ops_, peak, reps, bench=None,
-            library=None, tol=None, no_library=None):
+            library=None, tol=None, no_library=None, graph=False,
+            library_exact=False):
         cases.append(dict(kernel=kernel, label=label, run=run, plain=plain,
                           bench=bench or run, library=library, bytes=moved,
                           ops=ops_, peak=peak, reps=reps, tol=tol,
-                          no_library=no_library))
+                          no_library=no_library, graph=graph,
+                          library_exact=library_exact))
 
     def split_case(label, shape, dtype, k, axis, reps):
         x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
@@ -191,47 +233,120 @@ def kernel_cases(dev):
             lambda: sf.split_fused_ref(x, inv, k=k, beta=beta, axis=axis),
             nbytes(x, inv) + k * x.numel(), 0.0, F32_FLOPS, reps)
 
-    def gemm_case(label, m, n, p, k, reps, batch=()):
+    def gemm_case(label, m, n, p, k, reps, batch=(), sm=False, route=None):
+        """The group g = k + 1 (all k pairs) of split digits, signed or the
+        sign-magnitude split's stored digits (slice 0 signed, the others
+        unsigned bytes), B K-major as the axis=1 split stores it.  Timed
+        with B rotated over copies that exceed the L2 cache, as a serve
+        step finds its weights; the library yardstick at m <= 16 is
+        torch._int_mm on A padded with zero rows to 32 (outside the timed
+        call), which computes the same first m rows."""
         dtype = f64 if k == 8 else f32
         a = torch.randn(batch + (m, n), generator=gen, device=dev,
                         dtype=dtype)
         w = torch.randn(batch + (n, p), generator=gen, device=dev,
                         dtype=dtype)
-        beta = compute_beta(n)
-        da = ops.split_fused(a, k, beta, axis=0).digits
-        db = ops.split_fused(w, k, beta, axis=1).digits
+        beta = compute_beta_sm(n) if sm else compute_beta(n)
+        mode = "sm" if sm else "rn_const"
+        da = ops.split_fused(a, k, beta, mode=mode, axis=0).digits
+        db = ops.split_fused(w, k, beta, mode=mode, axis=1).digits
         ia, ib = list(range(k)), list(range(k - 1, -1, -1))  # group g=k+1
-        library = None
-        if not batch and m > 16:
-            a_cat = torch.cat([da[i] for i in ia], dim=-1)
-            b_cat = torch.cat([db[j] for j in ib], dim=-2)
-            library = lambda: torch._int_mm(a_cat, b_cat)
+        ua, ub = [sm and i > 0 for i in ia], [sm and j > 0 for j in ib]
         B, G = math.prod(batch), k
-        add("group_gemm", label, lambda: gg.group_gemm(da, db, ia, ib),
-            lambda: gg.group_gemm_ref(da, db, ia, ib),
-            B * (G * (m * n + n * p) + 4 * m * p), 2.0 * B * G * m * n * p,
-            INT8_OPS_PER_S, reps, library=library)
-
-    def sm_gemm_case(label, m, n, p, k, reps):
-        """The sign-magnitude split's stored digits (slice 0 signed, the
-        trailing slices unsigned bytes) through the same kernel."""
-        dtype = f64 if k == 8 else f32
-        a = torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
-        w = torch.randn((n, p), generator=gen, device=dev, dtype=dtype)
-        beta = compute_beta_sm(n)
-        da = ops.split_fused(a, k, beta, mode="sm", axis=0).digits
-        db = ops.split_fused(w, k, beta, mode="sm", axis=1).digits
-        ia, ib = list(range(k)), list(range(k - 1, -1, -1))  # group g=k+1
-        ua, ub = [i > 0 for i in ia], [j > 0 for j in ib]
+        copies = [db] + [db.clone() for _ in range(
+            math.ceil(128e6 / db.numel()) - 1)]
+        turn = iter(range(1 << 62))
+        kw = dict(a_unsigned=ua, b_unsigned=ub)
+        # the crossover cases name their route (the wrapper's private
+        # launch); every other case goes through the public entry point
+        call = gg.group_gemm if route is None else \
+            functools.partial(gg._launch, which=route)
+        library = no_library = None
+        if sm:
+            no_library = ("torch._int_mm multiplies signed int8 only; the "
+                          "unsigned trailing digits have no library call")
+        elif batch:
+            no_library = "torch._int_mm takes one 2-D product, no batch"
+        else:
+            a_cat = torch.cat([da[i] for i in ia], dim=-1)
+            if m <= 16:   # _int_mm needs m > 16: zero rows, same first m
+                a_cat = torch.cat([a_cat, a_cat.new_zeros(
+                    (32 - m, a_cat.shape[1]))])
+            # B column-major (K-major, as the kernel reads it): the TN form
+            # on which cuBLASLt runs its int8 tensor-core kernels
+            b_cats = [torch.cat([c[j].transpose(-1, -2) for j in ib],
+                                dim=-1).t() for c in copies]
+            library = lambda: torch._int_mm(
+                a_cat, b_cats[next(turn) % len(b_cats)])[:m]
         add("group_gemm", label,
-            lambda: gg.group_gemm(da, db, ia, ib, a_unsigned=ua,
-                                  b_unsigned=ub),
+            lambda: call(da, db, ia, ib, **kw),
             lambda: gg.group_gemm_ref(da, db, ia, ib, a_unsigned=ua,
                                       b_unsigned=ub),
-            k * (m * n + n * p) + 4 * m * p, 2.0 * k * m * n * p,
-            INT8_OPS_PER_S, reps,
-            no_library="torch._int_mm multiplies signed int8 only; the "
-                       "unsigned trailing digits have no library call")
+            B * (G * (m * n + n * p) + 4 * m * p), 2.0 * B * G * m * n * p,
+            INT8_OPS_PER_S, reps, library=library, no_library=no_library,
+            bench=lambda: call(da, copies[next(turn) % len(copies)], ia, ib,
+                               **kw),
+            graph=True, library_exact=True)
+
+    def underflow_rows(dtype, m, n):
+        """Rows whose maxima sit near the bottom of the normal range (f32
+        1e-36, 4e-37, 1e-37; f64 1e-305, 1e-307) and a subnormal row,
+        among ordinary rows: their grids and scale products underflow."""
+        maxima = [1e-36, 4e-37, 1e-37] if dtype == f32 else [1e-305, 1e-307]
+        x = torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
+        for i, mx in enumerate(maxima):
+            x[i] = x[i] / x[i].abs().max() * mx
+        x[len(maxima)] = torch.finfo(dtype).tiny * torch.rand(
+            (n,), generator=gen, device=dev, dtype=dtype)
+        return x
+
+    def underflow_split_case(dtype, mode, axis):
+        x = underflow_rows(dtype, 64, 2048)
+        x = x if axis == 0 else x.T.contiguous()
+        n = x.shape[-1] if axis == 0 else x.shape[-2]
+        beta = compute_beta_sm(n) if mode == "sm" else compute_beta(n)
+        inv = ops.split_invgrid(x, beta, mode, axis)[1]
+        add("split_fused", f"near-underflow rows {str(dtype)[6:]} {mode} "
+            f"axis={axis} k=6",
+            lambda: sf.split_fused(x, inv, k=6, beta=beta, mode=mode,
+                                   axis=axis),
+            lambda: sf.split_fused_ref(x, inv, k=6, beta=beta, mode=mode,
+                                       axis=axis),
+            nbytes(x, inv) + 6 * x.numel(), 0.0, F32_FLOPS, 5)
+
+    def underflow_accum_case(dtype):
+        """Scales whose products with the int32 sums fall below the normal
+        range, and an accumulator just above it."""
+        itype, mant, bias = (torch.int32, 23, 127) if dtype == f32 else \
+            (torch.int64, 52, 1023)
+        emin = -150 if dtype == f32 else -1050
+
+        def pow2(lo, hi, shape):   # exact normal powers of two 2^[lo, hi)
+            e = torch.randint(lo, hi, shape, generator=gen, device=dev)
+            return ((e + bias).to(itype) << mant).view(dtype)
+
+        m, p = SLOTS, 8192
+        p32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (m, p), generator=gen,
+                            device=dev, dtype=torch.int32)
+        srow = pow2(emin // 2, emin // 2 + 20, (m,))
+        scol = pow2(emin // 2 - 20, emin // 2 + 2, (p,))
+        c = torch.randn((m, p), generator=gen, device=dev, dtype=dtype) * \
+            torch.finfo(dtype).tiny * 4
+        peak = F64_FLOPS if dtype == f64 else F32_FLOPS
+        add("scale_accum_plain", f"near-underflow scales (4x8192) "
+            f"{str(dtype)[6:]}",
+            lambda: sa.scale_accum_plain(p32, srow, scol, c.clone()),
+            lambda: sa.scale_accum_plain_ref(p32, srow, scol, c),
+            nbytes(p32, srow, scol) + 2 * nbytes(c), 3.0 * c.numel(), peak,
+            20)
+        if dtype == f32:
+            lo = c * 2.0 ** -20
+            add("scale_accum", "near-underflow scales (4x8192)",
+                lambda: sa.scale_accum(p32, srow, scol, c.clone(),
+                                       lo.clone()),
+                lambda: sa.scale_accum_ref(p32, srow, scol, c, lo),
+                nbytes(p32, srow, scol) + 4 * nbytes(c), 24.0 * c.numel(),
+                peak, 20)
 
     def flash_cases(label, dtype, *, L=None, window=None, q_offset=0,
                     reps=5):
@@ -347,17 +462,33 @@ def kernel_cases(dev):
     split_case("freeze w_gate B (2048x8192) f32 k=4 axis=1", (d, f), f32, 4,
                1, 10)
     split_case("DGEMM A (4096x4096) f64 k=8", (4096, 4096), f64, 8, 0, 5)
-    gemm_case("decode lm_head (4x2048x92672) G=4", SLOTS, d, vocab, 4, 5)
-    gemm_case("decode w_gate (4x2048x8192) G=4", SLOTS, d, f, 4, 20)
-    gemm_case("prefill w_gate (128x2048x8192) G=4", SLOTS * PROMPT, d, f, 4,
-              10)
+    kv = 1024                                 # 8 KV heads x head_dim 128
+    gemm_case("decode lm_head (4x2048x92672) G=4", SLOTS, d, vocab, 4, 10)
+    gemm_case("decode wq/wo (4x2048x2048) G=4", SLOTS, d, d, 4, 50)
+    gemm_case("decode wk/wv (4x2048x1024) G=4", SLOTS, d, kv, 4, 50)
+    gemm_case("decode w_gate/w_up (4x2048x8192) G=4", SLOTS, d, f, 4, 50)
+    gemm_case("decode w_down (4x8192x2048) G=4", SLOTS, f, d, 4, 50)
     gemm_case("decode scores (32 x 2x128x48) G=4", 2, 128, PROMPT + GEN, 4,
               50, batch=(SLOTS * 8,))
-    gemm_case("DGEMM (4096^3) G=8", 4096, 4096, 4096, 8, 2)
-    sm_gemm_case("sign-magnitude decode lm_head (4x2048x92672) G=4", SLOTS,
-                 d, vocab, 4, 5)
-    sm_gemm_case("sign-magnitude DGEMM (4096^3) G=8", 4096, 4096, 4096, 8,
-                 2)
+    gemm_case("decode p@v (32 x 2x48x128) G=4", 2, PROMPT + GEN, 128, 4,
+              50, batch=(SLOTS * 8,))
+    gemm_case("DGEMM (4096^3) G=8", 4096, 4096, 4096, 8, 5)
+    gemm_case("sign-magnitude decode lm_head (4x2048x92672) G=4", SLOTS,
+              d, vocab, 4, 10, sm=True)
+    gemm_case("sign-magnitude DGEMM (4096^3) G=8", 4096, 4096, 4096, 8, 5,
+              sm=True)
+    gemm_case("middle m (32x2048x8192) G=4", 32, d, f, 4, 20)
+    gemm_case("prefill-sized (128x2048x8192) G=4", SLOTS * PROMPT, d, f, 4,
+              20)
+    for mm in (4, 8, 16, 32):                 # the crossover, both routes
+        for rt in ("skinny", "large"):
+            gemm_case(f"crossover {rt} ({mm}x2048x8192) G=4", mm, d, f, 4,
+                      20, route=rt)
+    for dt in (f32, f64):
+        for md in ("rn_const", "sm"):
+            for ax in (0, 1):
+                underflow_split_case(dt, md, ax)
+        underflow_accum_case(dt)
     accum_case("scale_accum", "decode lm_head (4x92672)", SLOTS, vocab, f32,
                50)
     accum_case("scale_accum", "prefill w_gate (128x8192)", SLOTS * PROMPT,
@@ -410,7 +541,7 @@ MAIN_PATH = {"split_fused": "serve", "group_gemm": "serve",
 # why no single PyTorch call is a library yardstick for a kernel
 NO_LIBRARY = {
     "split_fused": "no one PyTorch call extracts k digits",
-    "group_gemm": "torch._int_mm needs m > 16",
+    "group_gemm": "torch._int_mm takes one signed 2-D product",
     "scale_accum": "no one PyTorch call does the int32 split and TwoSum",
     "scale_accum_plain": "convert and two scalings are separate calls",
     "scale_accum_const": "no one PyTorch call does the int32 split and "
@@ -447,11 +578,14 @@ KERNELS = {
 
 def phase_kernels(dev):
     import torch
-    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels import LAUNCHES, reset_launches
     results = {}
     for c in kernel_cases(dev):
+        before = dict(LAUNCHES)
         out_k, out_p = c["run"](), c["plain"]()
         torch.cuda.synchronize()
+        routes = [r for r in ("large", "skinny")
+                  if LAUNCHES[f"group_gemm_{r}"] > before[f"group_gemm_{r}"]]
         if c["tol"] is None:
             ok, err = same(out_k, out_p), 0.0
             check = "bitwise ok"
@@ -465,15 +599,30 @@ def phase_kernels(dev):
             raise AssertionError(f"{c['kernel']} [{c['label']}]: kernel "
                                  f"output differs from the plain version "
                                  f"({'bitwise' if c['tol'] is None else err})")
+        if c["library"] is not None and c["library_exact"] and \
+                not same(c["library"](), out_p):
+            raise AssertionError(f"{c['kernel']} [{c['label']}]: the library "
+                                 f"yardstick computes another function")
         del out_k, out_p
-        ms = time_ms(c["bench"], c["reps"])
-        plain_ms = time_ms(c["plain"], max(1, c["reps"] // 5))
+        # group GEMM: device times from CUDA-graph replay (its decode calls
+        # take less device time than the host needs to launch them), with
+        # the eager per-call time beside them
+        timer = graph_ms if c["graph"] else time_ms
+        ms = timer(c["bench"], c["reps"])
+        plain_ms = timer(c["plain"], max(1, c["reps"] // 5))
         lib = c["library"]
-        lib_ms = None if lib is None else time_ms(lib, c["reps"])
+        lib_ms = None if lib is None else timer(lib, c["reps"])
         b_ms, b_by = bound_ms(c["bytes"], c["ops"], c["peak"])
         rec = {"label": c["label"], "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms}
+               "library_ms": lib_ms, "bound_share": b_ms / ms}
+        extra = ""
+        if c["graph"]:
+            rec["timing"] = "cuda graph replay"
+            rec["eager_ms"] = time_ms(c["bench"], c["reps"])
+            rec["route"] = routes[0]
+            extra = (f"  route {routes[0]}, {100 * b_ms / ms:.0f}% of bound"
+                     f", eager {rec['eager_ms']:.4f} ms")
         if c["no_library"]:
             rec["library_none_reason"] = c["no_library"]
         if c["tol"] is not None and need is not None:
@@ -482,9 +631,54 @@ def phase_kernels(dev):
         log(f"[kernels] {c['kernel']:17s} {c['label']:42s} {check}  "
             f"{ms:9.4f} ms  plain {plain_ms:9.4f} ms  bound {b_ms:8.4f} ms "
             f"({b_by})  library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}{extra}")
     reset_launches()     # comparison launches do not count
     return results
+
+
+def wrapper_host_us(dev, reps=2000, turns=3):
+    """Host microseconds per group GEMM call at a decode shape (wk/wv: m 4,
+    n 2048, p 1024, G 4), with the launch plans cached per layout (the
+    wrapper as it runs) and with the cache emptied before every call (the
+    checks, route and C arguments rebuilt each time), in turns.  No sync
+    inside a loop: the call's device time (~0.008 ms) is below its host
+    time, so the launch queue never fills.  Medians over ``turns``."""
+    import statistics
+    import torch
+    from repro_torch.core.splitting import compute_beta
+    from repro_torch.kernels import ops, reset_launches
+    from repro_torch.kernels import group_gemm as gg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    a = torch.randn((SLOTS, 2048), generator=gen, device=dev)
+    w = torch.randn((2048, 1024), generator=gen, device=dev)
+    beta = compute_beta(2048)
+    da = ops.split_fused(a, 4, beta, axis=0).digits
+    db = ops.split_fused(w, 4, beta, axis=1).digits
+    ia, ib = [0, 1, 2, 3], [3, 2, 1, 0]
+
+    def per_call(clear, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if clear:
+                gg._PLANS.clear()
+            gg.group_gemm(da, db, ia, ib)
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    per_call(False, 50)
+    got = {"cached_plan": [], "plan_per_call": []}
+    for _ in range(turns):
+        got["cached_plan"].append(per_call(False, reps))
+        got["plan_per_call"].append(per_call(True, reps))
+    reset_launches()
+    res = {k: statistics.median(v) for k, v in got.items()}
+    log(f"[host] group GEMM wrapper, decode wk/wv G=4, {reps} calls x "
+        f"{turns} turns: {res['cached_plan']:.2f} us a call with the launch "
+        f"plans cached, {res['plan_per_call']:.2f} us rebuilding the plan "
+        f"every call (each turn: {got})")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +740,18 @@ def phase_dgemm(dev, spec, kernels, tag="dgemm", small_too=()):
     for name in kernels:
         if counts[name] <= 0:
             raise AssertionError(f"{tag} path launched no {name} kernel")
+    check_route(tag, counts, "large")
     return counts, ref
+
+
+def check_route(tag, counts, route):
+    """Every group GEMM of the path took ``route``; print the split."""
+    log(f"[{tag}] group GEMM launches by route: large "
+        f"{counts['group_gemm_large']}, skinny "
+        f"{counts['group_gemm_skinny']} of {counts['group_gemm']}")
+    if counts[f"group_gemm_{route}"] != counts["group_gemm"]:
+        raise AssertionError(f"{tag}: not every group GEMM took the {route} "
+                             f"route")
 
 
 def phase_dgemm_auto(dev, spec, ref):
@@ -576,9 +781,10 @@ def phase_dgemm_auto(dev, spec, ref):
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def phase_serve(dev, spec, kernels, tag="serve"):
+def phase_serve(dev, spec, kernels, tag="serve", trace=False):
     """Serve full-width internlm2-1.8b under ``spec``; every kernel in
-    ``kernels`` must launch."""
+    ``kernels`` must launch.  ``trace``: then measure the device's idle
+    share with a profiler trace (:func:`serve_trace`)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -591,6 +797,7 @@ def phase_serve(dev, spec, kernels, tag="serve"):
         f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; engine {spec}")
     model = api.get_model(cfg)
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = model.init(cfg, generator=gen, device=dev)
@@ -600,7 +807,9 @@ def phase_serve(dev, spec, kernels, tag="serve"):
     st = rt.split_cache.stats
     log(f"[{tag}] init + weight freeze {time.perf_counter() - t0:.1f} s: "
         f"{st.misses} weight splits, {st.cached_bytes / 1e9:.2f} GB resident"
-        f"; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        f"; device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB of it "
+        f"this phase's: weights, frozen digits, caches)")
 
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, size=PROMPT, dtype=np.int32)
@@ -621,6 +830,7 @@ def phase_serve(dev, spec, kernels, tag="serve"):
     for name in kernels:
         if counts[name] <= 0:
             raise AssertionError(f"{tag} path launched no {name} kernel")
+    check_route(tag, counts, "skinny")
     if s["requests"]["finished"] != REQUESTS or \
             s["tokens_generated"] != REQUESTS * GEN:
         raise AssertionError(f"{tag} finished {s['requests']} with "
@@ -675,9 +885,62 @@ def phase_serve(dev, spec, kernels, tag="serve"):
     if rel > 1e-3:
         raise AssertionError(f"{tag}: emulated prefill logits off by "
                              f"{rel:.3e}")
+    if trace:
+        serve_trace(rt, prompts, tag, s)
     del rt, params, emu, nat, cache
     torch.cuda.empty_cache()
     return counts, s
+
+
+def serve_trace(rt, prompts, tag, untraced):
+    """The device's idle share while serving: SLOTS more requests (prompt
+    8, 4 new tokens) through the same runtime under torch.profiler,
+    tracing the card only (CUPTI).  Busy time is the union of the kernel,
+    copy and set intervals, over the span from the first one's start to
+    the last one's end.  A model step is one decode step of the model:
+    every prefill call here and in ``untraced`` feeds whole prompts of one
+    length position by position (11 steps here, 94 in ``untraced``)."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rt.reset_metrics()
+    for p in prompts[:SLOTS]:
+        rt.submit(p[:8], 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s = rt.run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:     # tens of MB: not kept
+        out = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(out))
+        events = json.loads(out.read_text()).get("traceEvents", [])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    steps = s["prefill_calls"] * 8 + s["decode_steps"]
+    step_ms = s["elapsed_s"] / steps * 1e3
+    base_ms = untraced["elapsed_s"] / (
+        untraced["prefill_calls"] * PROMPT + untraced["decode_steps"]) * 1e3
+    if not spans:
+        log(f"[{tag}] trace: no device events recorded; the device's idle "
+            f"share is not measured")
+        return
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    span = spans[-1][1] - spans[0][0]
+    log(f"[{tag}] trace ({steps} model steps, {len(spans)} device "
+        f"operations, {len(spans) / steps:.0f} a step): device busy "
+        f"{busy / 1e3:.2f} of {span / 1e3:.2f} ms, idle share "
+        f"{1 - busy / span:.4f}; {busy / steps / 1e3:.3f} ms of device time "
+        f"and {step_ms:.2f} ms of wall time a step traced ({base_ms:.2f} ms "
+        f"a step in the untraced run)")
 
 
 # ---------------------------------------------------------------------------
@@ -770,6 +1033,7 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     kern = phase_kernels(dev)
+    host_us = wrapper_host_us(dev)
     paths = {}
     paths["dgemm"], _ = phase_dgemm(
         dev, DGEMM_SPEC, ("split_fused", "group_gemm", "scale_accum_plain"))
@@ -783,7 +1047,8 @@ def main() -> int:
         dev, SM_DGEMM_SPEC, ("split_fused", "group_gemm", "scale_accum_plain"),
         tag="dgemm_sm", small_too=(SM_PAIRWISE_SPEC,))
     paths["serve"], _ = phase_serve(
-        dev, MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"))
+        dev, MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
+        trace=True)
     paths["serve_oz2"], _ = phase_serve(
         dev, OZ2_MODEL_SPEC, ("split_fused", "group_gemm",
                               "scale_accum_const", "unscale"),
@@ -801,12 +1066,16 @@ def main() -> int:
             "replaces": replaces, "launches": paths[MAIN_PATH[name]][name],
             "main_path": MAIN_PATH[name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
+            **({"launches_by_route": {
+                p: {r: c[f"group_gemm_{r}"] for r in ("large", "skinny")}
+                for p, c in paths.items()}} if name == "group_gemm" else {}),
             "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
-            "case": main_rec["label"], "cases": kern[name]}
+            "case": main_rec["label"], "cases": kern[name],
+            **({"wrapper_host_us": host_us} if name == "group_gemm" else {})}
         if rec["library_ms"] is None:
             rec["library_none_reason"] = NO_LIBRARY[name]
         records.append(rec)

@@ -35,14 +35,24 @@ kernels of ``repro_torch.kernels.ops``); ``matmul_oz2`` takes
 ``scale_accum_fn(word, scale, acc)`` and ``unscale_fn(acc, ra, rb)``
 instead.  ``partial=True`` returns the unrounded accumulator.  The mesh
 ``product_reduce`` hook comes with the distributed slice of the port.
+
+Subnormals are flushed as the reference's XLA arithmetic flushes them
+(``splitting.ftz``): every epilogue reads subnormal scales and
+accumulators as zero and flushes each product, sum and narrowing
+conversion that can fall below the normal range, so products near the
+bottom of the exponent range round as the reference's do, on either
+device.  A scale made by multiplying powers of two is handed over
+unflushed where its consumer flushes it on the way in (the kernels and
+their plain versions do).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core.splitting import Split, compute_r
+from repro_torch.core.splitting import Split, _geo_exps, compute_r, ftz
 from repro_torch.kernels import group_gemm as _gg
 
 __all__ = [
@@ -87,15 +97,20 @@ class DF32(NamedTuple):
     lo: torch.Tensor
 
     def to_float(self, dtype=torch.float64) -> torch.Tensor:
-        return self.hi.to(dtype) + self.lo.to(dtype)
+        hi, lo = self.hi.to(dtype), self.lo.to(dtype)
+        if dtype == torch.float64:   # two f32 values: exact, never subnormal
+            return hi + lo
+        if dtype != torch.float32:   # narrowing
+            hi, lo = ftz(hi), ftz(lo)
+        return ftz(hi + lo)
 
 
 def _two_sum(a: torch.Tensor, b: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Knuth TwoSum: a + b = s + e exactly."""
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
+    """Knuth TwoSum: a + b = s + e exactly (each operation flushed)."""
+    s = ftz(a + b)
+    bb = ftz(s - a)
+    e = ftz(ftz(a - ftz(s - bb)) + ftz(b - bb))
     return s, e
 
 
@@ -108,7 +123,7 @@ def df32_zero(shape, device) -> DF32:
 
 def df32_add_df(c: DF32, x: DF32) -> DF32:
     hi, e = _two_sum(c.hi, x.hi)
-    lo = c.lo + e + x.lo
+    lo = ftz(ftz(c.lo + e) + x.lo)
     hi2, e2 = _two_sum(hi, lo)
     return DF32(hi2, e2)
 
@@ -124,8 +139,16 @@ def int32_to_df32(p: torch.Tensor) -> DF32:
 def _outer_scale(p: torch.Tensor, sa: torch.Tensor,
                  sb: torch.Tensor) -> torch.Tensor:
     """diag(sa) @ p @ diag(sb) per batch element, in the reference's
-    multiply order ``(p * sa) * sb``."""
-    return p * sa[..., :, None] * sb[..., None, :]
+    multiply order ``(p * sa) * sb`` (scales read as zero if subnormal)."""
+    return ftz(ftz(p * ftz(sa)[..., :, None]) * ftz(sb)[..., None, :])
+
+
+def _narrow(c: torch.Tensor, dtype) -> torch.Tensor:
+    """``c.to(dtype)``, flushing what a narrowing conversion leaves
+    subnormal (XLA's convert flushes)."""
+    out = c.to(dtype)
+    return out if out.dtype == c.dtype or dtype == torch.float64 else \
+        ftz(out)
 
 
 def _term_pairs(k: int) -> Sequence[Tuple[int, int]]:
@@ -150,7 +173,7 @@ def _scale_accum_df32(prod: torch.Tensor, srow: torch.Tensor,
 def _scale_accum_plain(prod: torch.Tensor, srow: torch.Tensor,
                        scol: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     """One plain-accumulator epilogue step in ``acc.dtype`` (f64/f32)."""
-    return acc + _outer_scale(prod.to(acc.dtype), srow, scol)
+    return ftz(acc + _outer_scale(prod.to(acc.dtype), srow, scol))
 
 
 def num_highprec_adds(k: int, r: int, group_ef: bool) -> int:
@@ -203,12 +226,20 @@ def matmul_naive(sa: Split, sb: Split, *, accum: str = "f64",
     for (s, t), prod in zip(pairs, prods):
         c = fn(prod, sa.scale[s - 1].to(acc_dtype),
                sb.scale[t - 1].to(acc_dtype), c)
-    return c if partial else c.to(out_dtype)
+    return c if partial else _narrow(c, out_dtype)
 
 
 # ---------------------------------------------------------------------------
 # Alg. 6/7 — group-wise error-free accumulation
 # ---------------------------------------------------------------------------
+
+def _group_rows(base_a: torch.Tensor, beta: int, k: int) -> torch.Tensor:
+    """The row scales ``base_a * 2^(-beta*g)`` of groups g = 2..k+1 in one
+    multiply, ``(k, *batch, m)`` (row g-2 for group g); exact powers of two,
+    left for the epilogue to flush."""
+    exps = _geo_exps(beta, k + 1, base_a.dtype, base_a.device)[1:]
+    return base_a[None] * exps.reshape((k,) + (1,) * base_a.ndim)
+
 
 def _group_chunks(k: int, r: int):
     """Yield (g, [(s, t), ...]) chunks of size <= r per anti-diagonal group."""
@@ -246,20 +277,20 @@ def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
     if accum == "df32":
         fn = scale_accum_fn or _scale_accum_df32
         acc = df32_zero(out_shape, device)
-        base_a = sa.base.to(torch.float32)
+        srows = _group_rows(sa.base.to(torch.float32), beta, k)
         base_b = sb.base.to(torch.float32)
         for (g, _), prod in zip(chunks, prods):
-            acc = fn(prod, base_a * (2.0 ** (-beta * g)), base_b, acc)
+            acc = fn(prod, srows[g - 2], base_b, acc)
         return acc if partial else acc.to_float(out_dtype)
 
     acc_dtype = _ACC_DTYPES[accum]
     fn = scale_accum_fn or _scale_accum_plain
     c = torch.zeros(out_shape, dtype=acc_dtype, device=device)
-    base_a = sa.base.to(acc_dtype)
+    srows = _group_rows(sa.base.to(acc_dtype), beta, k)
     base_b = sb.base.to(acc_dtype)
     for (g, _), prod in zip(chunks, prods):
-        c = fn(prod, base_a * (2.0 ** (-beta * g)), base_b, c)
-    return c if partial else c.to(out_dtype)
+        c = fn(prod, srows[g - 2], base_b, c)
+    return c if partial else _narrow(c, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -328,14 +359,29 @@ def oz2_num_chunks(k: int, r: int, fast: bool) -> int:
     return sum(1 for _ in _oz2_chunks(k, r, fast))
 
 
-def _oz2_scale(gbase_a: torch.Tensor, gbase_b: torch.Tensor, beta: int,
-               g: int, dtype) -> torch.Tensor:
-    """(*batch,) scalar scale ``gbaseA * gbaseB * 2^(-beta*g)``, the group
-    exponent split over the two bases (in the reference's order) so that
-    neither factor underflows on its own; every factor is a power of two."""
-    ea = 2.0 ** (-beta * (g // 2))
-    eb = 2.0 ** (-beta * (g - g // 2))
-    return (gbase_a.to(dtype) * ea) * (gbase_b.to(dtype) * eb)
+@functools.lru_cache(maxsize=None)
+def _oz2_exps(beta: int, gs: Tuple[int, ...], dtype: torch.dtype,
+              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two halves ``2^(-beta*(g//2))`` and ``2^(-beta*(g - g//2))`` of
+    each group exponent in ``gs``, on ``device`` once per key."""
+    ea = [2.0 ** (-beta * (g // 2)) for g in gs]
+    eb = [2.0 ** (-beta * (g - g // 2)) for g in gs]
+    return (torch.tensor(ea, dtype=dtype, device=device),
+            torch.tensor(eb, dtype=dtype, device=device))
+
+
+def _oz2_scales(gbase_a: torch.Tensor, gbase_b: torch.Tensor, beta: int,
+                gs: Sequence[int], dtype) -> torch.Tensor:
+    """``(len(gs), *batch)`` scalar scales ``gbaseA * gbaseB * 2^(-beta*g)``
+    of the ladder windows topped by the groups ``gs``, the group exponent
+    split over the two bases (in the reference's order) so that neither
+    factor underflows on its own; every factor is a power of two, and each
+    factor is flushed as the reference's (the product is left to the
+    epilogue, which flushes it on the way in)."""
+    ea, eb = _oz2_exps(beta, tuple(gs), dtype, gbase_a.device)
+    shape = (len(gs),) + (1,) * gbase_a.ndim
+    return ftz(gbase_a.to(dtype)[None] * ea.reshape(shape)) * \
+        ftz(gbase_b.to(dtype)[None] * eb.reshape(shape))
 
 
 def _oz2_accum_df32(word: torch.Tensor, scale: torch.Tensor,
@@ -343,15 +389,15 @@ def _oz2_accum_df32(word: torch.Tensor, scale: torch.Tensor,
     """One ladder-window df32 step: ``acc += scale * float(word)`` with the
     exact low-8-bit int32 split."""
     term = int32_to_df32(word)
-    s = scale[..., None, None]
-    return df32_add_df(acc, DF32(term.hi * s, term.lo * s))
+    s = ftz(scale)[..., None, None]
+    return df32_add_df(acc, DF32(ftz(term.hi * s), ftz(term.lo * s)))
 
 
 def _oz2_accum_plain(word: torch.Tensor, scale: torch.Tensor,
                      acc: torch.Tensor) -> torch.Tensor:
     """One ladder-window plain step in ``acc.dtype`` (f64: the int64 word
     converts exactly by the 52-bit word budget)."""
-    return acc + word.to(acc.dtype) * scale[..., None, None]
+    return ftz(acc + ftz(word.to(acc.dtype) * ftz(scale)[..., None, None]))
 
 
 def _oz2_unscale(acc, ra: torch.Tensor, rb: torch.Tensor):
@@ -426,26 +472,27 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
     def unscale(acc):
         if not fast2:
             return acc
-        ra = sa.base * (1.0 / sa.gbase[..., None])
+        ra = sa.base * (1.0 / sa.gbase[..., None])   # powers of two
         rb = sb.base * (1.0 / sb.gbase[..., None])
         return (unscale_fn or _oz2_unscale)(acc, ra, rb)
 
+    tops = [window[-1][1] for window in windows]
     if accum == "df32":
         fn = scale_accum_fn or _oz2_accum_df32
         acc = df32_zero(out_shape, device)
-        for window in windows:
-            word, g_hi = fold(window)
-            acc = fn(word, _oz2_scale(sa.gbase, sb.gbase, beta, g_hi,
-                                      torch.float32), acc)
+        scales = _oz2_scales(sa.gbase, sb.gbase, beta, tops, torch.float32)
+        for i, window in enumerate(windows):
+            word, _ = fold(window)
+            acc = fn(word, scales[i], acc)
         acc = unscale(acc)
         return acc if partial else acc.to_float(out_dtype)
 
     acc_dtype = _ACC_DTYPES[accum]
     fn = scale_accum_fn or _oz2_accum_plain
     acc = torch.zeros(out_shape, dtype=acc_dtype, device=device)
-    for window in windows:
-        word, g_hi = fold(window)
-        acc = fn(word, _oz2_scale(sa.gbase, sb.gbase, beta, g_hi,
-                                  acc_dtype), acc)
+    scales = _oz2_scales(sa.gbase, sb.gbase, beta, tops, acc_dtype)
+    for i, window in enumerate(windows):
+        word, _ = fold(window)
+        acc = fn(word, scales[i], acc)
     acc = unscale(acc)
-    return acc if partial else acc.to(out_dtype)
+    return acc if partial else _narrow(acc, out_dtype)

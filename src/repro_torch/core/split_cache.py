@@ -81,10 +81,14 @@ def stack_leading(sp: Split, nstack: int) -> Split:
     stack) axes come before the k axis — ``digits (*stack, k, n, p)``,
     ``scale (*stack, k, p)`` — so indexing the stack yields one layer's
     split.  A storage layout for wrappers, not an operand for the
-    accumulate routines."""
+    accumulate routines.  Column-scale digits keep the split's K-major
+    storage (``(*stack, k, p, n)``, seen transposed): one copy, in the
+    layout the card's group GEMM reads."""
     if nstack == 0:
         return sp
-    return Split(torch.movedim(sp.digits, 0, nstack).contiguous(),
+    flip = (lambda d: d.transpose(-1, -2)) if sp.axis == 1 else \
+        (lambda d: d)
+    return Split(flip(torch.movedim(flip(sp.digits), 0, nstack).contiguous()),
                  torch.movedim(sp.scale, 0, nstack).contiguous(),
                  sp.base, sp.beta, sp.axis, gbase=sp.gbase,
                  signmag=sp.signmag)

@@ -36,13 +36,23 @@ Every split returns a :class:`Split` with the reference's convention
 with ``scale[s] = base * 2^(-beta*(s+1))`` (0-indexed s).  All arithmetic is
 power-of-two scaling, rounding to representable grids and exact residual
 subtraction, so the digits are bit-identical to the reference's.  Exponents
-come from ``torch.frexp``, never ``log2``; powers of two are built from their
-bit pattern (:func:`_exp2i`), which is exact for normal and subnormal
-results on every device.
+and powers of two are read from and built from bit patterns, never
+``log2``, which is exact on every device.
 
 Float-to-int8 conversion saturates and maps NaN to 0 (:func:`to_int8`), as
-XLA's conversion does: a row whose maximum is subnormal has an infinite
-reciprocal grid, and the reference's digits for it are the saturated values.
+XLA's conversion does.
+
+Subnormals: the reference's XLA arithmetic runs with flush-to-zero and
+denormals-are-zero (on its CPU as on the TPU), so every multiply, divide,
+add and subtract treats a subnormal operand as zero and returns zero for a
+subnormal result, and a comparison with zero holds for a subnormal; ``abs``,
+``max`` and ``frexp`` do not flush.  The port runs IEEE arithmetic on both
+devices and flushes explicitly (:func:`ftz`) at those operations, so a row
+whose grid underflows (f32 maxima below about 2^(beta k - 126)) splits as
+the reference's does.  For the B operand (``axis=1``) the digit stack is
+stored K-major (:func:`kmajor_stack`): each column's n contraction digits
+are contiguous, as the card's int8 group GEMM reads them; the logical shape
+and values stay the reference's.
 """
 from __future__ import annotations
 
@@ -70,6 +80,8 @@ __all__ = [
     "sm_decode_slice",
     "reconstruct",
     "to_int8",
+    "ftz",
+    "kmajor_stack",
 ]
 
 
@@ -77,7 +89,8 @@ class Split(NamedTuple):
     """k int8 slices of a (possibly batched) matrix plus per-slice scales.
 
     Attributes:
-      digits: ``(k, *batch, m, n)`` int8 slice matrices.
+      digits: ``(k, *batch, m, n)`` int8 slice matrices (for ``axis=1``
+              a transposed view of K-major storage, :func:`kmajor_stack`).
       scale:  ``(k, *batch, r)`` per-slice power-of-two scales (r = rows for
               ``axis=0``, columns for ``axis=1``).
       base:   ``(*batch, r)`` geometric base, ``scale[s] = base *
@@ -165,6 +178,26 @@ def to_int8(d: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(d, nan=0.0).clamp(-128.0, 127.0).to(torch.int8)
 
 
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """XLA's flush to zero: a subnormal becomes a zero of its sign (NaN and
+    infinities pass).  Applied to arithmetic results that can fall below
+    the normal range, and to operands that can be subnormal (denormals are
+    zero); every consumer of a scale flushes it on the way in, so a
+    product of powers of two feeding one is left to it."""
+    return x * (x.abs() >= torch.finfo(x.dtype).tiny)
+
+
+def kmajor_stack(digits, axis: int) -> torch.Tensor:
+    """Stack k digit slices ``(*batch, m, n)`` into ``(k, *batch, m, n)``.
+    For ``axis=1`` (the B operand) the storage is ``(k, *batch, n_cols,
+    n_rows)``, returned as its transposed view: the contraction runs
+    contiguous, as the int8 group GEMM reads it on the card."""
+    if axis == 0:
+        return torch.stack(digits)
+    return torch.stack([d.transpose(-1, -2) for d in digits]
+                       ).transpose(-1, -2)
+
+
 def _rowmax(a: torch.Tensor, axis: int) -> torch.Tensor:
     """max_j |a_ij| along the non-scale matrix axis; shape (*batch, r)."""
     return a.abs().amax(dim=-1 if axis == 0 else -2)
@@ -178,35 +211,34 @@ _FLOAT_BITS = {torch.float32: (23, 127, torch.int32),
                torch.float64: (52, 1023, torch.int64)}
 
 
-def _exp2i(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """2^e for an integer tensor ``e``, built from the bit pattern of the
-    result (exact, subnormal results included; 0 below the subnormal range,
-    inf above the normal range)."""
-    mbits, bias, itype = _FLOAT_BITS[dtype]
-    e = e.to(itype)
-    emin = 1 - bias
-    normal = (e + bias).clamp(min=1, max=2 * bias + 1) << mbits
-    sub = torch.ones_like(e) << (e - (emin - mbits)).clamp(min=0,
-                                                          max=mbits - 1)
-    bits = torch.where(e >= emin, normal,
-                       torch.where(e >= emin - mbits, sub,
-                                   torch.zeros_like(e)))
-    return bits.view(dtype)
+def _exponent(x: torch.Tensor):
+    """``(biased exponent field, fraction bits nonzero)`` of ``x >= 0``
+    (a row maximum), read from its bit pattern, and the field's all-ones
+    value (infinity and NaN)."""
+    mbits, bias, itype = _FLOAT_BITS[x.dtype]
+    bits = x.view(itype)
+    return bits >> mbits, (bits & ((1 << mbits) - 1)) != 0, 2 * bias + 1
 
 
 def _pow2_floor(x: torch.Tensor) -> torch.Tensor:
-    """2^floor(log2 x) elementwise (x > 0); 1.0 where x == 0."""
-    _, e = torch.frexp(x)  # x = m * 2^e, m in [0.5, 1)
-    out = _exp2i(e - 1, x.dtype)
-    return torch.where(x == 0, torch.ones_like(x), out)
+    """2^floor(log2 x) elementwise for ``x >= 0``, as the reference's
+    frexp/ldexp give it: 1.0 where x is 0 or subnormal (its ``x == 0``
+    under denormals-are-zero), 0.5 for infinity and NaN.  Built from the
+    bit pattern: exact, and a handful of operations."""
+    mbits = _FLOAT_BITS[x.dtype][0]
+    expo, _, top = _exponent(x)
+    out = torch.where(expo == 0, 1.0, (expo << mbits).view(x.dtype))
+    return torch.where(expo == top, 0.5, out)
 
 
 def _pow2_ceil(x: torch.Tensor) -> torch.Tensor:
-    """2^ceil(log2 x) elementwise (x > 0); 1.0 where x == 0."""
-    m, e = torch.frexp(x)
-    e = torch.where(m == 0.5, e - 1, e)  # exact powers of two
-    out = _exp2i(e, x.dtype)
-    return torch.where(x == 0, torch.ones_like(x), out)
+    """2^ceil(log2 x) elementwise for ``x >= 0``: 1.0 where x is 0,
+    subnormal, infinity or NaN (the reference's frexp/ldexp); infinity
+    above the largest power of two."""
+    mbits = _FLOAT_BITS[x.dtype][0]
+    expo, frac, top = _exponent(x)
+    out = ((expo + frac) << mbits).view(x.dtype)
+    return torch.where((expo == 0) | (expo == top), 1.0, out)
 
 
 def _bcast(v: torch.Tensor, axis: int) -> torch.Tensor:
@@ -227,7 +259,7 @@ def _geo_exps(beta: int, k: int, dtype: torch.dtype,
 def _geo_scales(base: torch.Tensor, beta: int, k: int) -> torch.Tensor:
     """scale[s] = base * 2^(-beta*(s+1)), shape (k, *batch, r)."""
     exps = _geo_exps(beta, k, base.dtype, base.device)
-    return base[None] * exps.reshape((k,) + (1,) * base.ndim)
+    return ftz(base[None] * exps.reshape((k,) + (1,) * base.ndim))
 
 
 def split_bitmask(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
@@ -239,7 +271,7 @@ def split_bitmask(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
     rowmax = _rowmax(a, axis)
     if rowmax_reduce is not None:
         rowmax = rowmax_reduce(rowmax)
-    base = 2.0 * _pow2_floor(rowmax)
+    base = 2.0 * _pow2_floor(rowmax)     # a normal power of two
     digits = _bitmask_extract(a, base, beta, k, axis)
     return Split(digits, _geo_scales(base, beta, k), base, beta, axis)
 
@@ -247,21 +279,22 @@ def split_bitmask(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
 def _bitmask_extract(a, base, beta: int, k: int, axis: int) -> torch.Tensor:
     """The Alg. 3 truncation loop; returns ``(k, *batch, m, n)`` int8."""
     two_beta = 2.0 ** beta
-    r = a * _bcast(1.0 / base, axis)
+    r = ftz(ftz(a) * _bcast(ftz(1.0 / base), axis))
     digits = []
     for _ in range(k):
-        r = r * two_beta
+        r = ftz(r * two_beta)
         d = torch.trunc(r)
-        r = r - d
+        r = ftz(r - d)
         digits.append(to_int8(d))
-    return torch.stack(digits)
+    return kmajor_stack(digits, axis)
 
 
 def _rn_extract(r, grid, axis: int):
-    """One round-to-nearest-even extraction: (slice_value, new_residual)."""
+    """One round-to-nearest-even extraction: (slice_value, new_residual).
+    ``r`` and ``grid`` are flushed already."""
     g = _bcast(grid, axis)
-    s = torch.round(r * (1.0 / g)) * g
-    return s, r - s
+    s = ftz(torch.round(ftz(r * ftz(1.0 / g))) * g)
+    return s, ftz(r - s)
 
 
 def split_rn(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
@@ -281,12 +314,13 @@ def split_rn(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
         rowmax = _rowmax(r, axis)
         if rowmax_reduce is not None:
             rowmax = rowmax_reduce(rowmax)
-        grid = _pow2_ceil(rowmax) * grid_factor
-        s, r = _rn_extract(r, grid, axis)
-        d = s * _bcast(1.0 / grid, axis)
+        grid = ftz(_pow2_ceil(rowmax) * grid_factor)
+        s, r = _rn_extract(ftz(r), grid, axis)
+        d = ftz(s * _bcast(ftz(1.0 / grid), axis))
         digits.append(to_int8(d))
         scales.append(grid)
-    return Split(torch.stack(digits), torch.stack(scales), None, beta, axis)
+    return Split(kmajor_stack(digits, axis), torch.stack(scales), None, beta,
+                 axis)
 
 
 def split_rn_const(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
@@ -299,24 +333,24 @@ def split_rn_const(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
     rowmax = _rowmax(a, axis)
     if rowmax_reduce is not None:
         rowmax = rowmax_reduce(rowmax)
-    mu = _pow2_ceil(rowmax) * (2.0 ** (1 - beta))
+    mu = ftz(_pow2_ceil(rowmax) * (2.0 ** (1 - beta)))
     digits = _rn_const_extract(a, mu, beta, k, axis)
-    base = mu * (2.0 ** beta)
+    base = mu * (2.0 ** beta)            # mu is 0 or normal
     return Split(digits, _geo_scales(base, beta, k), base, beta, axis)
 
 
 def _rn_const_extract(a, mu, beta: int, k: int, axis: int) -> torch.Tensor:
     """The Alg. 8 RN loop against the first grid ``mu``."""
     two_beta = 2.0 ** beta
-    r = a
+    r = ftz(a)
     grid = mu
     digits = []
     for _ in range(k):
         s, r = _rn_extract(r, grid, axis)
-        d = s * _bcast(1.0 / grid, axis)
+        d = ftz(s * _bcast(ftz(1.0 / grid), axis))
         digits.append(to_int8(d))
-        grid = grid * (1.0 / two_beta)
-    return torch.stack(digits)
+        grid = ftz(grid * (1.0 / two_beta))
+    return kmajor_stack(digits, axis)
 
 
 def split_sm(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
@@ -330,7 +364,7 @@ def split_sm(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
     rowmax = _rowmax(a, axis)
     if rowmax_reduce is not None:
         rowmax = rowmax_reduce(rowmax)
-    anchor = 2.0 * _pow2_floor(rowmax)
+    anchor = 2.0 * _pow2_floor(rowmax)   # a normal power of two
     digits = _sm_extract(a, anchor, beta, k, axis)
     base = 2.0 * anchor
     return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
@@ -342,17 +376,17 @@ def _sm_extract(a, anchor, beta: int, k: int, axis: int) -> torch.Tensor:
     clamp on the trailing digits, stored mod 2^8)."""
     two_beta = 2.0 ** beta
     dmax = 2.0 ** beta - 1.0
-    r = a * _bcast(1.0 / anchor, axis)
-    r = r * (2.0 ** (beta - 1))
+    r = ftz(ftz(a) * _bcast(ftz(1.0 / anchor), axis))
+    r = ftz(r * (2.0 ** (beta - 1)))
     d = torch.floor(r)
-    r = r - d
+    r = ftz(r - d)
     digits = [to_int8(d)]
     for _ in range(k - 1):
-        r = r * two_beta
+        r = ftz(r * two_beta)
         d = torch.clamp(torch.floor(r), max=dmax)
-        r = r - d
+        r = ftz(r - d)
         digits.append(to_int8(torch.where(d > 127.0, d - 256.0, d)))
-    return torch.stack(digits)
+    return kmajor_stack(digits, axis)
 
 
 def _global_base(a: torch.Tensor, axis: int,
@@ -377,9 +411,9 @@ def split_oz2(a: torch.Tensor, k: int, *, beta: Optional[int] = None,
     if beta is None:
         beta = compute_beta(_contract_len(a, axis))
     gmax = _global_base(a, axis, rowmax_reduce)
-    mu = _pow2_ceil(gmax) * (2.0 ** (1 - beta))
+    mu = ftz(_pow2_ceil(gmax) * (2.0 ** (1 - beta)))
     digits = _rn_const_extract(a, mu, beta, k, axis)
-    base = mu * (2.0 ** beta)
+    base = mu * (2.0 ** beta)            # mu is 0 or normal
     return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
                  gbase=base[..., 0])
 

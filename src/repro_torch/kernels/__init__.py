@@ -19,11 +19,13 @@ each beside its plain PyTorch version:
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.  :data:`LAUNCHES` counts kernel launches
 (one per launch, nowhere else), so a run can show which kernels it went
-through.
+through; the group GEMM also counts each launch under its route
+(``group_gemm_large`` / ``group_gemm_skinny``).
 """
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"split_fused": 0, "group_gemm": 0,
+                            "group_gemm_large": 0, "group_gemm_skinny": 0,
                             "scale_accum": 0, "scale_accum_plain": 0,
                             "scale_accum_const": 0,
                             "scale_accum_const_plain": 0, "unscale": 0,

@@ -130,7 +130,12 @@ def check(err: int, kernel: str) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a raw handle."""
+    """The current CUDA stream of ``t``'s device, as a raw handle (through
+    PyTorch's raw-stream query where the build has it: a launch wrapper
+    pays this on every call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

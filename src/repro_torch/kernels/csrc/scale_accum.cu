@@ -25,7 +25,10 @@
 // Every add and multiply is an explicit round-to-nearest intrinsic
 // (__fadd_rn, __fmul_rn, ...), which the compiler never contracts into a
 // fused multiply-add, and the file is also compiled with --fmad=false: an
-// FMA inside TwoSum would change its rounding and break bit parity.
+// FMA inside TwoSum would change its rounding and break bit parity.  Each
+// also flushes subnormal operands and results to zero (ftz below), as the
+// reference's XLA arithmetic does: scale products near the bottom of the
+// exponent range then round as the reference's do.
 //
 // The accumulators are updated IN PLACE.  The wrappers only pass buffers the
 // caller owns (the accumulators allocated by the accumulate routines).
@@ -36,25 +39,36 @@
 // design is one fused pass instead of the separate passes of convert,
 // scalings and add; threads grid-stride over the flat batch so
 // neighbouring threads touch neighbouring addresses.
+#include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+// a subnormal becomes a zero of its sign (NaN and infinities pass)
+__device__ __forceinline__ float ftz(float x) {
+  return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x;
+}
+__device__ __forceinline__ double ftz(double x) {
+  return fabs(x) < DBL_MIN ? copysign(0.0, x) : x;
+}
+
+// every operation reads subnormal operands as zero and flushes a subnormal
+// result, as the reference's XLA arithmetic does
 __device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
+  return ftz(__fadd_rn(ftz(a), ftz(b)));
 }
 __device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
+  return ftz(__dadd_rn(ftz(a), ftz(b)));
 }
 __device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
+  return ftz(__fsub_rn(ftz(a), ftz(b)));
 }
 __device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
+  return ftz(__fmul_rn(ftz(a), ftz(b)));
 }
 __device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
+  return ftz(__dmul_rn(ftz(a), ftz(b)));
 }
 __device__ __forceinline__ float to_t(int v, float) {
   return __int2float_rn(v);

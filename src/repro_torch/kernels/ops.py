@@ -17,11 +17,12 @@ import torch
 from repro_torch.core.accumulate import DF32, slice_group_gemm
 from repro_torch.core.splitting import (Split, _geo_scales, _global_base,
                                         _pow2_ceil, _pow2_floor, _rowmax,
-                                        _with_fast2_gbase)
+                                        _with_fast2_gbase, ftz)
 from repro_torch.kernels import scale_accum as _sa
 from repro_torch.kernels import split_fused as _sf
 
-__all__ = ["split_fused", "group_gemm", "scale_accum_update",
+__all__ = ["split_fused", "split_invgrid", "group_gemm",
+           "scale_accum_update",
            "oz2_scale_accum_update", "oz2_unscale_update",
            "flash_attention"]
 
@@ -29,6 +30,30 @@ __all__ = ["split_fused", "group_gemm", "scale_accum_update",
 _KERNEL_MODE = {"bitmask": "bitmask", "oz2_bitmask": "bitmask",
                 "oz2_bitmask_fast2": "bitmask", "rn_const": "rn_const",
                 "oz2_rn": "rn_const", "oz2_rn_fast2": "rn_const", "sm": "sm"}
+
+
+def split_invgrid(a: torch.Tensor, beta: int, mode: str, axis: int):
+    """``(base, invgrid)`` of a fused split: the per-row (``axis=0``) or
+    per-column base and the reciprocal first grid the kernel multiplies
+    by, derived as the reference does.  Only the first RN grid ``mu`` can
+    underflow, and it is flushed as the reference's (``splitting.ftz``);
+    the bases are normal powers of two, and a subnormal ``invgrid`` is
+    read as zero by the split kernel and its plain version."""
+    kmode = _KERNEL_MODE[mode]
+    rowmax = (_global_base(a, axis, None) if mode in ("oz2_rn", "oz2_bitmask")
+              else _rowmax(a, axis))
+    if kmode == "bitmask":
+        base = 2.0 * _pow2_floor(rowmax)
+        invgrid = (2.0 ** beta) / base  # 1/grid_1, grid_1 = base*2^-beta
+    elif kmode == "rn_const":
+        mu = ftz(_pow2_ceil(rowmax) * (2.0 ** (1 - beta)))
+        base = mu * (2.0 ** beta)
+        invgrid = 1.0 / mu
+    else:
+        anchor = 2.0 * _pow2_floor(rowmax)
+        base = 2.0 * anchor
+        invgrid = (2.0 ** (beta - 1)) / anchor
+    return base, invgrid
 
 
 def split_fused(a: torch.Tensor, k: int, beta: int, *,
@@ -48,22 +73,9 @@ def split_fused(a: torch.Tensor, k: int, beta: int, *,
     if mode not in _KERNEL_MODE:
         raise ValueError(f"fused splitting supports {sorted(_KERNEL_MODE)}"
                          f", got {mode!r}")
-    kmode = _KERNEL_MODE[mode]
-    rowmax = (_global_base(a, axis, None) if mode in ("oz2_rn", "oz2_bitmask")
-              else _rowmax(a, axis))
-    if kmode == "bitmask":
-        base = 2.0 * _pow2_floor(rowmax)
-        invgrid = (2.0 ** beta) / base  # 1/grid_1, grid_1 = base*2^-beta
-    elif kmode == "rn_const":
-        mu = _pow2_ceil(rowmax) * (2.0 ** (1 - beta))
-        base = mu * (2.0 ** beta)
-        invgrid = 1.0 / mu
-    else:
-        anchor = 2.0 * _pow2_floor(rowmax)
-        base = 2.0 * anchor
-        invgrid = (2.0 ** (beta - 1)) / anchor
-    digits = _sf.split_fused(a, invgrid, k=k, beta=beta, mode=kmode,
-                             axis=axis)
+    base, invgrid = split_invgrid(a, beta, mode, axis)
+    digits = _sf.split_fused(a, invgrid, k=k, beta=beta,
+                             mode=_KERNEL_MODE[mode], axis=axis)
     sp = Split(digits, _geo_scales(base, beta, k), base, beta, axis,
                gbase=base[..., 0] if mode in ("oz2_rn", "oz2_bitmask")
                else None, signmag=(mode == "sm"))

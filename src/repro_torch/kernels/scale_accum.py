@@ -25,6 +25,11 @@ tensor, read by the kernel: no host sync).  The CUDA accumulate paths
 update the accumulators IN PLACE and return them; callers pass only
 buffers they own (the accumulate routines allocate theirs per
 contraction).  ``unscale`` and the plain versions return new tensors.
+
+Subnormals: every float operand is read as zero if subnormal and every
+multiply, add and subtract flushes a subnormal result to zero, as the
+reference's XLA arithmetic does (``splitting.ftz``); kernels and plain
+versions alike.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.splitting import ftz
 from repro_torch.kernels import LAUNCHES, _build
 
 __all__ = ["scale_accum", "scale_accum_ref", "scale_accum_plain",
@@ -50,9 +56,9 @@ _ARGS_UNSCALE = [_p, _p, _p, _p, _ll, _ll, _ll, _i, _p]
 
 
 def _two_sum(a, b):
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
+    s = ftz(a + b)
+    bb = ftz(s - a)
+    e = ftz(ftz(a - ftz(s - bb)) + ftz(b - bb))
     return s, e
 
 
@@ -62,17 +68,19 @@ def scale_accum_ref(p32, srow, scol, c_hi, c_lo
     ``accumulate._scale_accum_df32`` operation sequence."""
     p_hi = (p32 >> 8) << 8
     p_lo = p32 - p_hi
-    sr, sc = srow[..., :, None], scol[..., None, :]
-    x_hi = p_hi.to(torch.float32) * sr * sc
-    x_lo = p_lo.to(torch.float32) * sr * sc
-    hi, err = _two_sum(c_hi, x_hi)
-    lo = c_lo + err + x_lo
+    sr, sc = ftz(srow)[..., :, None], ftz(scol)[..., None, :]
+    x_hi = ftz(ftz(p_hi.to(torch.float32) * sr) * sc)
+    x_lo = ftz(ftz(p_lo.to(torch.float32) * sr) * sc)
+    hi, err = _two_sum(ftz(c_hi), x_hi)
+    lo = ftz(ftz(ftz(c_lo) + err) + x_lo)
     return _two_sum(hi, lo)
 
 
 def scale_accum_plain_ref(p32, srow, scol, c) -> torch.Tensor:
     """Plain version of the plain-accumulator epilogue, in c's dtype."""
-    return c + p32.to(c.dtype) * srow[..., :, None] * scol[..., None, :]
+    x = ftz(ftz(p32.to(c.dtype) * ftz(srow)[..., :, None]) *
+            ftz(scol)[..., None, :])
+    return ftz(ftz(c) + x)
 
 
 def _launch_args(p32, srow, scol, accs, dtype, kernel):
@@ -147,20 +155,21 @@ def scale_accum_const_ref(word, s, c_hi, c_lo
     ``accumulate._oz2_accum_df32`` operation sequence."""
     p_hi = (word >> 8) << 8
     p_lo = word - p_hi
-    sv = s[..., None, None]
-    hi, err = _two_sum(c_hi, p_hi.to(torch.float32) * sv)
-    lo = c_lo + err + p_lo.to(torch.float32) * sv
+    sv = ftz(s)[..., None, None]
+    hi, err = _two_sum(ftz(c_hi), ftz(p_hi.to(torch.float32) * sv))
+    lo = ftz(ftz(ftz(c_lo) + err) + ftz(p_lo.to(torch.float32) * sv))
     return _two_sum(hi, lo)
 
 
 def scale_accum_const_plain_ref(word, s, c) -> torch.Tensor:
     """Plain version of the oz2 plain window, in c's dtype."""
-    return c + word.to(c.dtype) * s[..., None, None]
+    return ftz(ftz(c) + ftz(word.to(c.dtype) * ftz(s)[..., None, None]))
 
 
 def unscale_ref(x, srow, scol) -> torch.Tensor:
     """Plain version of the fast2 unscale, ``(x * srow) * scol``."""
-    return x * srow[..., :, None] * scol[..., None, :]
+    return ftz(ftz(ftz(x) * ftz(srow)[..., :, None]) *
+               ftz(scol)[..., None, :])
 
 
 def _check_const(word, s, accs, dtype, word_dtypes, kernel):

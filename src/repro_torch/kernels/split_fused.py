@@ -8,18 +8,23 @@ are emitted from registers.  Modes ``bitmask`` (trunc), ``rn_const``
 2^8); f32 or f64 input.
 
 The reciprocal grid is per row (``axis=0``, the A operand) or per column
-(``axis=1``, the B operand): the kernel indexes it through strides, so the
-B side needs no transpose in or out.  :func:`split_fused` launches the
+(``axis=1``, the B operand).  The B stack is written K-major (storage
+``(k, *batch, C, R)``, returned as the transposed view, as
+``splitting.kmajor_stack`` makes it): the kernel transposes through shared
+memory on the way out.  Every product and difference flushes a subnormal
+result to zero, and ``a``'s subnormals count as zero, as the reference's
+arithmetic does (``splitting.ftz``).  :func:`split_fused` launches the
 kernel for a CUDA tensor and runs :func:`split_fused_ref` for a CPU
 tensor; nothing else falls back.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from repro_torch.core.splitting import to_int8
+from repro_torch.core.splitting import ftz, kmajor_stack, to_int8
 from repro_torch.kernels import LAUNCHES, _build
 
 __all__ = ["split_fused", "split_fused_ref", "MODES"]
@@ -27,7 +32,7 @@ __all__ = ["split_fused", "split_fused_ref", "MODES"]
 MODES = {"bitmask": 0, "rn_const": 1, "sm": 2}
 
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGS = [_p, _p, _p, _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _p]
+_ARGS = [_p, _p, _p, _ll, _ll, _ll, _i, _i, _i, _i, _p]
 
 
 def _check(a: torch.Tensor, invgrid: torch.Tensor, mode: str, axis: int):
@@ -54,28 +59,28 @@ def split_fused_ref(a: torch.Tensor, invgrid: torch.Tensor, *, k: int,
     _check(a, invgrid, mode, axis)
     two_beta = 2.0 ** beta
     inv = invgrid[..., :, None] if axis == 0 else invgrid[..., None, :]
-    r = a * inv
+    r = ftz(ftz(a) * ftz(inv))
     outs = []
     if mode == "bitmask":
         for _ in range(k):
             d = torch.trunc(r)
             outs.append(to_int8(d))
-            r = (r - d) * two_beta
+            r = ftz(ftz(r - d) * two_beta)
     elif mode == "sm":
         dmax = 2.0 ** beta - 1.0
         d = torch.floor(r)
         outs.append(to_int8(d))
-        r = (r - d) * two_beta
+        r = ftz(ftz(r - d) * two_beta)
         for _ in range(1, k):
             d = torch.clamp(torch.floor(r), max=dmax)
             outs.append(to_int8(torch.where(d > 127.0, d - 256.0, d)))
-            r = (r - d) * two_beta
+            r = ftz(ftz(r - d) * two_beta)
     else:
         for _ in range(k):
             d = torch.round(r)
             outs.append(to_int8(d))
-            r = (r - d) * two_beta
-    return torch.stack(outs)
+            r = ftz(ftz(r - d) * two_beta)
+    return kmajor_stack(outs, axis)
 
 
 def split_fused(a: torch.Tensor, invgrid: torch.Tensor, *, k: int, beta: int,
@@ -90,16 +95,17 @@ def split_fused(a: torch.Tensor, invgrid: torch.Tensor, *, k: int, beta: int,
     _check(a, invgrid, mode, axis)
     a = a.contiguous()
     inv = invgrid.contiguous()
-    R, C = a.shape[-2], a.shape[-1]
-    out = torch.empty((k,) + tuple(a.shape), dtype=torch.int8,
+    batch, (R, C) = tuple(a.shape[:-2]), tuple(a.shape[-2:])
+    # axis 1: K-major storage (k, *batch, C, R), returned transposed
+    store = (R, C) if axis == 0 else (C, R)
+    out = torch.empty((k,) + batch + store, dtype=torch.int8,
                       device=a.device)
-    sb, sr, sc = (R, 1, 0) if axis == 0 else (C, 0, 1)
     name = {torch.float32: "split_fused_f32",
             torch.float64: "split_fused_f64"}[a.dtype]
     fn = _build.function("split_fused", name, _ARGS)
     LAUNCHES["split_fused"] += 1
-    _build.check(fn(a.data_ptr(), inv.data_ptr(), out.data_ptr(), a.numel(),
-                    R, C, sb, sr, sc, k, beta, MODES[mode],
+    _build.check(fn(a.data_ptr(), inv.data_ptr(), out.data_ptr(),
+                    math.prod(batch), R, C, k, beta, MODES[mode], axis,
                     _build.stream(a)), "split_fused")
-    return out
+    return out if axis == 0 else out.transpose(-1, -2)
 

@@ -48,15 +48,25 @@ def test_split_fused_kernel(dev, mode, dtype, axis):
                                              axis=axis))
 
 
+def _stack_a(g, dev, k, batch, m, n):
+    return torch.randint(-128, 128, (k,) + batch + (m, n), generator=g,
+                         device=dev, dtype=torch.int8)
+
+
+def _stack_b(g, dev, k, batch, n, p):
+    """A B digit stack as the axis=1 split stores it: K-major storage
+    (k, *batch, p, n) seen as (k, *batch, n, p)."""
+    return torch.randint(-128, 128, (k,) + batch + (p, n), generator=g,
+                         device=dev, dtype=torch.int8).transpose(-1, -2)
+
+
 @pytest.mark.parametrize("G", [1, 3])
 @pytest.mark.parametrize("batch", [(), (5,)])
 def test_group_gemm_kernel(dev, G, batch):
     from repro_torch.kernels.group_gemm import group_gemm, group_gemm_ref
     g = torch.Generator(device=dev).manual_seed(1)
-    da = torch.randint(-128, 128, (4,) + batch + (67, 131), generator=g,
-                       device=dev, dtype=torch.int8)
-    db = torch.randint(-128, 128, (4,) + batch + (131, 45), generator=g,
-                       device=dev, dtype=torch.int8)
+    da = _stack_a(g, dev, 4, batch, 67, 131)
+    db = _stack_b(g, dev, 4, batch, 131, 45)
     ia, ib = list(range(G)), list(range(G - 1, -1, -1))
     assert torch.equal(group_gemm(da, db, ia, ib),
                        group_gemm_ref(da, db, ia, ib))
@@ -69,13 +79,13 @@ def test_group_gemm_kernel_sign_magnitude(dev, G, batch):
     bytes) in every signedness form, extremes included."""
     from repro_torch.kernels.group_gemm import group_gemm, group_gemm_ref
     g = torch.Generator(device=dev).manual_seed(6)
-    da = torch.randint(-128, 128, (4,) + batch + (67, 131), generator=g,
-                       device=dev, dtype=torch.int8)
-    db = torch.randint(-128, 128, (4,) + batch + (131, 45), generator=g,
-                       device=dev, dtype=torch.int8)
+    da = _stack_a(g, dev, 4, batch, 67, 131)
+    db = _stack_b(g, dev, 4, batch, 131, 45)
     for d in (da, db):
-        d.view(4, -1)[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
-        d.view(4, -1)[1:, :2] = torch.tensor([-1, 0], dtype=torch.int8)
+        first = d[(0,) + (0,) * len(batch)]
+        first[:2, 0] = torch.tensor([-128, 127], dtype=torch.int8)
+        rest = d[(slice(1, None),) + (0,) * len(batch)]
+        rest[:, :2, 0] = torch.tensor([-1, 0], dtype=torch.int8)
     ia, ib = list(range(G)), list(range(G - 1, -1, -1))
     ua, ub = [i > 0 for i in ia], [j > 0 for j in ib]
     assert torch.equal(
@@ -86,6 +96,90 @@ def test_group_gemm_kernel_sign_magnitude(dev, G, batch):
                    b_unsigned=[True] * G),
         group_gemm_ref(da, db, ia, ib, a_unsigned=[True] * G,
                        b_unsigned=[True] * G))
+
+
+# (label, batch, m, n, p, route the wrapper must take).  n keeps
+# G n 255^2 < 2^31 at G = 32 for the unsigned forms.
+GEMM_SHAPES = [
+    ("dgemm-like", (), 200, 320, 130, "large"),
+    ("batched large", (3,), 130, 256, 200, "large"),
+    ("mid m", (), 32, 512, 300, "large"),
+    ("decode m4", (), 4, 1024, 700, "skinny"),
+    ("decode attention m2", (32,), 2, 128, 48, "skinny"),
+    ("decode m1 ragged p", (), 1, 96, 33, "skinny"),
+    ("unaligned n", (2,), 13, 70, 9, "skinny"),
+    ("unaligned large m", (), 150, 100, 77, "skinny"),
+]
+FORMS = {"signed": lambda g: (False, False),
+         "sign-magnitude": lambda g: (g % 4 > 0, (g + 1) % 4 > 0),
+         "unsigned A": lambda g: (True, False),
+         "unsigned B": lambda g: (False, True)}
+
+
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=[s[0] for s in
+                                                     GEMM_SHAPES])
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_group_gemm_routes(dev, shape, G, form):
+    """Both routes bitwise against the plain version: ragged m/n/p, G up
+    to MAX_G, batched and not, every signedness form, slices picked out
+    of order; the wrapper takes the route its rule names."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.group_gemm import group_gemm, group_gemm_ref
+    _, batch, m, n, p, want = shape
+    g = torch.Generator(device=dev).manual_seed(G * 7 + m)
+    k = 6
+    da = _stack_a(g, dev, k, batch, m, n)
+    db = _stack_b(g, dev, k, batch, n, p)
+    ia = [i % k for i in range(G)]
+    ib = [(5 * i + 1) % k for i in range(G)]
+    ua, ub = zip(*(FORMS[form](i) for i in range(G)))
+    before = dict(LAUNCHES)
+    got = group_gemm(da, db, ia, ib, a_unsigned=ua, b_unsigned=ub)
+    assert LAUNCHES[f"group_gemm_{want}"] == before[f"group_gemm_{want}"] + 1
+    assert torch.equal(got, group_gemm_ref(da, db, ia, ib, a_unsigned=ua,
+                                           b_unsigned=ub))
+
+
+@pytest.mark.parametrize("route", ["large", "skinny"])
+def test_group_gemm_forced_route_mid_m(dev, route):
+    """The crossover region (m = 16..64) runs right on either route."""
+    from repro_torch.kernels.group_gemm import _launch, group_gemm_ref
+    g = torch.Generator(device=dev).manual_seed(9)
+    for m in (16, 17, 48, 64):
+        da = _stack_a(g, dev, 4, (), m, 256)
+        db = _stack_b(g, dev, 4, (), 256, 257)
+        assert torch.equal(_launch(da, db, which=route),
+                           group_gemm_ref(da, db))
+
+
+@pytest.mark.parametrize("p", [1000, 8192, 20000, 92672])
+def test_group_gemm_split_over_contraction(dev, p):
+    """Decode shapes (m = 4, n = 2048, G = 4) from w_gate to the LM head's
+    width: the fewer column tiles, the more blocks split the (pair, chunk)
+    units (16, 8, 4 and 1 splits here), and the atomicAdd combination is
+    bitwise the plain version's."""
+    from repro_torch.kernels.group_gemm import group_gemm, group_gemm_ref
+    g = torch.Generator(device=dev).manual_seed(10)
+    da = _stack_a(g, dev, 4, (), 4, 2048)
+    db = _stack_b(g, dev, 4, (), 2048, p)
+    ia, ib = [0, 1, 2, 3], [3, 2, 1, 0]
+    assert torch.equal(group_gemm(da, db, ia, ib),
+                       group_gemm_ref(da, db, ia, ib))
+
+
+def test_group_gemm_takes_kmajor_only(dev):
+    """A p-contiguous B raises on the card; a K-major copy of it (a
+    transposed view of (K, p, n) storage) is taken."""
+    from repro_torch.kernels.group_gemm import group_gemm, group_gemm_ref
+    g = torch.Generator(device=dev).manual_seed(11)
+    da = _stack_a(g, dev, 2, (), 8, 64)
+    db = torch.randint(-128, 128, (2, 64, 40), generator=g, device=dev,
+                       dtype=torch.int8)
+    with pytest.raises(ValueError, match="K-major"):
+        group_gemm(da, db)
+    dk = db.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert torch.equal(group_gemm(da, dk), group_gemm_ref(da, db))
 
 
 FLASH = [  # BKV, group, Lq, Lk, D, Dv, causal, window, q_offset, lk
@@ -206,6 +300,99 @@ def test_fused_pipeline_equals_cpu(dev, spec):
     a = a * torch.pow(2.0, torch.randint(-10, 10, (45, 1), generator=g,
                                          device=dev)).to(dtype)
     b = torch.randn((300, 33), generator=g, device=dev, dtype=dtype)
+    cfg = parse_spec(spec)
+    assert _same(ozimmu_matmul(a, b, cfg).cpu(),
+                 ozimmu_matmul(a.cpu(), b.cpu(), cfg))
+
+
+def _near_underflow(g, dev, dtype, m, n):
+    """Rows whose maxima sit near the bottom of the normal range (f32
+    1e-36, 4e-37, 1e-37; f64 1e-305, 1e-307) plus a subnormal row, among
+    ordinary rows: their grids and scale products underflow."""
+    tiny = torch.finfo(dtype).tiny
+    maxima = [1e-36, 4e-37, 1e-37] if dtype == torch.float32 else \
+        [1e-305, 1e-307]
+    a = torch.randn((m, n), generator=g, device=dev, dtype=dtype)
+    for i, mx in enumerate(maxima):
+        a[i] = a[i] / a[i].abs().max() * mx
+    a[len(maxima)] = tiny * torch.rand((n,), generator=g, device=dev,
+                                       dtype=dtype)
+    return a
+
+
+@pytest.mark.parametrize("mode", ["bitmask", "rn_const", "sm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_split_fused_kernel_underflow(dev, mode, dtype, axis):
+    """Near-underflow rows: the kernel flushes where its plain version
+    does (bitwise), through the whole Split of ops.split_fused too."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = _near_underflow(g, dev, dtype, 9, 70)
+    a = a if axis == 0 else a.T.contiguous()
+    beta = 8 if mode == "sm" else 7
+    sp = ops.split_fused(a, 6, beta, mode=mode, axis=axis)
+    ref = ops.split_fused(a.cpu(), 6, beta, mode=mode, axis=axis)
+    assert torch.equal(sp.digits.cpu(), ref.digits)
+    assert _same(sp.scale.cpu(), ref.scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_epilogue_kernels_underflow(dev, dtype):
+    """Scale products that fall below the normal range, and subnormal
+    accumulator operands: every epilogue kernel flushes as its plain
+    version does."""
+    from repro_torch.kernels import scale_accum as sa
+    g = torch.Generator(device=dev).manual_seed(13)
+    itype, mant, bias = (torch.int32, 23, 127) if dtype == torch.float32 \
+        else (torch.int64, 52, 1023)
+
+    def pow2(lo, hi, shape):  # exact normal powers of two 2^[lo, hi)
+        e = torch.randint(lo, hi, shape, generator=g, device=dev)
+        return ((e + bias).to(itype) << mant).view(dtype)
+
+    emin = -150 if dtype == torch.float32 else -1050
+    p32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, 17, 41), generator=g,
+                        device=dev, dtype=torch.int32)
+    srow = pow2(emin // 2, emin // 2 + 20, (2, 17))
+    scol = pow2(emin // 2 - 20, emin // 2 + 2, (2, 41))
+    c = torch.randn((2, 17, 41), generator=g, device=dev, dtype=dtype) * \
+        torch.finfo(dtype).tiny * 4
+    assert _same(sa.scale_accum_plain(p32, srow, scol, c.clone()),
+                 sa.scale_accum_plain_ref(p32, srow, scol, c))
+    assert _same(sa.unscale(c, srow, scol), sa.unscale_ref(c, srow, scol))
+    s = pow2(emin + 30, emin + 40, (2,))
+    assert _same(sa.scale_accum_const_plain(p32, s, c.clone()),
+                 sa.scale_accum_const_plain_ref(p32, s, c))
+    if dtype == torch.float32:
+        lo = c * 2.0 ** -20
+        hi_k, lo_k = sa.scale_accum(p32, srow, scol, c.clone(), lo.clone())
+        hi_r, lo_r = sa.scale_accum_ref(p32, srow, scol, c, lo)
+        assert _same(hi_k, hi_r) and _same(lo_k, lo_r)
+        hi_k, lo_k = sa.scale_accum_const(p32, s, c.clone(), lo.clone())
+        hi_r, lo_r = sa.scale_accum_const_ref(p32, s, c, lo)
+        assert _same(hi_k, hi_r) and _same(lo_k, lo_r)
+
+
+@pytest.mark.parametrize("spec", ["ozimmu_h-4:df32:fused",
+                                  "ozimmu_h-8:f64:fused",
+                                  "oz2_h-4:df32:fast2:fused",
+                                  "ozimmu_sm_h-4:df32:fused",
+                                  "ozimmu_h-4:df32"])
+def test_pipeline_underflow_equals_cpu(dev, spec):
+    """A row of A and a column of B scaled toward the bottom of the range
+    (products near 1e-40 in f32, 1e-300 in f64): the card equals the CPU
+    pipeline bit for bit, fused and library paths alike."""
+    from repro_torch.core.ozimmu import ozimmu_matmul, parse_spec
+    g = torch.Generator(device=dev).manual_seed(14)
+    f64 = ":f64" in spec
+    dtype = torch.float64 if f64 else torch.float32
+    a = torch.randn((12, 96), generator=g, device=dev, dtype=dtype)
+    b = torch.randn((96, 10), generator=g, device=dev, dtype=dtype)
+    for i, s in enumerate([1e-150, 1e-290, 1e-300] if f64 else
+                          [1e-20, 1e-30]):
+        a[i] *= s
+        b[:, i] *= s
     cfg = parse_spec(spec)
     assert _same(ozimmu_matmul(a, b, cfg).cpu(),
                  ozimmu_matmul(a.cpu(), b.cpu(), cfg))

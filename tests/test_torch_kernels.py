@@ -7,8 +7,6 @@ kernel run in interpret mode (``repro.kernels.ops.INTERPRET``), on the same
 numpy inputs.  The split wrapper (row maxima, bases, reciprocal grids,
 axis 1, batch) is covered through ``ops.split_fused`` of both packages.
 """
-import contextlib
-
 import numpy as np
 import pytest
 
@@ -40,21 +38,6 @@ def _assert_bitwise(a, b):
     np.testing.assert_array_equal(_bits(a), _bits(b))
 
 
-@contextlib.contextmanager
-def _reference_flush():
-    """The reference's XLA CPU arithmetic flushes subnormal operands and
-    results to zero (so does the TPU): a subnormal row's grid underflows
-    and its digits come out 0.  PyTorch's flush-denormal mode reproduces
-    that on the CPU.  On the card the kernels and their plain versions
-    both keep IEEE subnormals (nvcc without -ftz) and agree with each
-    other there."""
-    torch.set_flush_denormal(True)
-    try:
-        yield
-    finally:
-        torch.set_flush_denormal(False)
-
-
 def _hostile(rng, m, n, dtype):
     """Rows of tests/test_oracle.py's hostile grid: a zero row, a
     subnormal row, a wide exponent spread, sign-flipped rows."""
@@ -81,9 +64,8 @@ def test_split_fused_plain_bitwise(mode, dtype, axis):
         a = np.ascontiguousarray(a.T)
     beta = 8 if mode == "sm" else 7
     ref = jops.split_fused(jnp.asarray(a), 4, beta, mode=mode, axis=axis)
-    with _reference_flush():
-        out = tops.split_fused(torch.from_numpy(a), 4, beta, mode=mode,
-                               axis=axis)
+    out = tops.split_fused(torch.from_numpy(a), 4, beta, mode=mode,
+                           axis=axis)
     _assert_bitwise(out.digits, ref.digits)
     _assert_bitwise(out.scale, ref.scale)
     _assert_bitwise(out.base, ref.base)

@@ -28,8 +28,7 @@ from repro_torch.core import splitting as P_split
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import scale_accum as P_sa
 from tests.conftest import make_phi_matrix
-from tests.test_torch_kernels import _assert_bitwise, _hostile, \
-    _reference_flush
+from tests.test_torch_kernels import _assert_bitwise, _hostile
 
 torch.set_num_threads(1)
 
@@ -64,11 +63,11 @@ def _assert_split(out, ref):
 @pytest.mark.parametrize("axis", [0, 1])
 def test_splitter_bitwise(name, dtype, axis):
     """Library splitters, batched, on hostile rows (the subnormal row
-    under the reference's flush-to-zero arithmetic)."""
+    under the reference's flush-to-zero arithmetic, which the port
+    flushes explicitly)."""
     a = _batched_hostile(dtype, axis)
     ref = getattr(R_split, name)(jnp.asarray(a), 4, axis=axis)
-    with _reference_flush():
-        out = getattr(P_split, name)(torch.from_numpy(a), 4, axis=axis)
+    out = getattr(P_split, name)(torch.from_numpy(a), 4, axis=axis)
     _assert_split(out, ref)
 
 
@@ -83,9 +82,8 @@ def test_split_fused_oz2_modes_bitwise(mode, dtype, axis):
     a = _batched_hostile(dtype, axis)
     for x in (a[0], a):
         ref = jops.split_fused(jnp.asarray(x), 4, 7, mode=mode, axis=axis)
-        with _reference_flush():
-            out = tops.split_fused(torch.from_numpy(x), 4, 7, mode=mode,
-                                   axis=axis)
+        out = tops.split_fused(torch.from_numpy(x), 4, 7, mode=mode,
+                               axis=axis)
         _assert_split(out, ref)
 
 
