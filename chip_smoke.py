@@ -40,7 +40,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    internlm2-1.8b's attention width (B 1, L 4096, H 16, KV 8, D 128,
    causal) against the port's ``layers.attention_flash`` (3e-5), and the
    kernel-level forward -> backward chain against autograd of the naive
-   oracle (2e-4).
+   oracle (2e-4), both in f32 (the 3xTF32 route); then the same in bf16
+   (the wgmma route), held to the bf16 bound against the f32 route's
+   results on the same (bf16-rounded) inputs.
 
 The launch counts of phases 3-5 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
@@ -50,7 +52,9 @@ the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
 these), a bf16 output within ``2e-2 |y| + min(2e-2, 4e-3 max|y|)`` (the
 reference's relative 2e-2, the absolute term scaled to the tensor), and
-every other kernel bitwise.
+every other kernel bitwise; every flash case prints its route and must
+take its dtype's (bf16 ``wgmma``, f32 ``tf32x3``), and the f32 cases'
+bound is at the 3xTF32 rate (495 / 3 TFLOP/s).
 The last three lines are the card (``nvidia-smi``), the per-kernel JSON
 record and the result JSON.  Exits non-zero without a CUDA card, and when
 run outside the repository.
@@ -74,6 +78,7 @@ INT8_OPS_PER_S = 1979e12
 F32_FLOPS = 67e12          # outside the tensor cores
 F64_FLOPS = 34e12          # outside the tensor cores
 BF16_FLOPS = 989e12        # tensor cores, dense
+TF32X3_FLOPS = 495e12 / 3  # f32 products as three TF32 tensor-core products
 
 MODEL_SPEC = "ozimmu_h-4:df32:fused"
 DGEMM_SPEC = "ozimmu_h-8:f64:fused"
@@ -215,12 +220,13 @@ def kernel_cases(dev):
 
     def add(kernel, label, run, plain, moved, ops_, peak, reps, bench=None,
             library=None, tol=None, no_library=None, graph=False,
-            library_exact=False):
+            library_exact=False, flash_route=None):
         cases.append(dict(kernel=kernel, label=label, run=run, plain=plain,
                           bench=bench or run, library=library, bytes=moved,
                           ops=ops_, peak=peak, reps=reps, tol=tol,
                           no_library=no_library, graph=graph,
-                          library_exact=library_exact))
+                          library_exact=library_exact,
+                          flash_route=flash_route))
 
     def split_case(label, shape, dtype, k, axis, reps):
         x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
@@ -367,7 +373,8 @@ def kernel_cases(dev):
         seen = mask.sum(dim=1)
         pairs = B * H * int(torch.where(seen > 0, seen, L).sum())
         fwd_ops = 2.0 * pairs * (2 * D)
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        # the route's tensor-core rate: bf16 wgmma, or f32 as 3xTF32
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
         q4, ke, ve, do4 = (t.reshape(B, -1, L, D) for t in (
             q, k.repeat_interleave(group, 0), v.repeat_interleave(group, 0),
             do))
@@ -380,7 +387,7 @@ def kernel_cases(dev):
             nbytes(q, k, v, o, lse), fwd_ops, peak, reps,
             library=lambda: F.scaled_dot_product_attention(q4, ke, ve,
                                                            **sdpa_kw),
-            tol=2e-5)
+            tol=2e-5, flash_route=fa.route(dtype))
         qg, kg, vg = (t.detach().clone().requires_grad_()
                       for t in (q4, ke, ve))
         out_g = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
@@ -391,7 +398,7 @@ def kernel_cases(dev):
             max(1, reps // 2),
             library=lambda: torch.autograd.grad(out_g, (qg, kg, vg), do4,
                                                 retain_graph=True),
-            tol=2e-4)
+            tol=2e-4, flash_route=fa.route(dtype))
 
     def accum_case(kernel, label, m, p, dtype, reps):
         p32 = torch.randint(-2 ** 30, 2 ** 30, (m, p), generator=gen,
@@ -509,14 +516,14 @@ def kernel_cases(dev):
     unscale_case("DGEMM (4096x4096) f64", 4096, 4096, f64, 20)
     unscale_case("decode lm_head (4x92672) f32", SLOTS, vocab, f32, 50)
     bf16 = torch.bfloat16
-    flash_cases("B1 L4096 H16 KV8 D128 causal f32", f32)
-    flash_cases("B1 L4096 H16 KV8 D128 causal bf16", bf16)
-    flash_cases("B1 L4096 H16 KV8 D128 causal window 1024 f32", f32,
-                window=1024)
-    flash_cases("B1 L4000 H16 KV8 D128 causal f32 (ragged tiles)", f32,
-                L=4000)
-    flash_cases("B1 L4096 H16 KV8 D128 causal q_offset -100 f32 (100 fully "
-                "masked rows)", f32, q_offset=-100)
+    for dt, name, reps in ((f32, "f32", 5), (bf16, "bf16", 20)):
+        flash_cases(f"B1 L4096 H16 KV8 D128 causal {name}", dt, reps=reps)
+        flash_cases(f"B1 L4096 H16 KV8 D128 causal window 1024 {name}", dt,
+                    window=1024, reps=reps)
+        flash_cases(f"B1 L4000 H16 KV8 D128 causal {name} (ragged tiles)",
+                    dt, L=4000, reps=reps)
+        flash_cases(f"B1 L4096 H16 KV8 D128 causal q_offset -100 {name} "
+                    f"(100 fully masked rows)", dt, q_offset=-100, reps=reps)
     return cases
 
 
@@ -586,6 +593,13 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         routes = [r for r in ("large", "skinny")
                   if LAUNCHES[f"group_gemm_{r}"] > before[f"group_gemm_{r}"]]
+        flash_routes = [r for r in ("wgmma", "tf32x3")
+                        if LAUNCHES[f"flash_{r}"] > before[f"flash_{r}"]]
+        if c["flash_route"] is not None and \
+                flash_routes != [c["flash_route"]]:
+            raise AssertionError(f"{c['kernel']} [{c['label']}]: launched on "
+                                 f"route(s) {flash_routes}, not "
+                                 f"{c['flash_route']}")
         if c["tol"] is None:
             ok, err = same(out_k, out_p), 0.0
             check = "bitwise ok"
@@ -623,6 +637,10 @@ def phase_kernels(dev):
             rec["route"] = routes[0]
             extra = (f"  route {routes[0]}, {100 * b_ms / ms:.0f}% of bound"
                      f", eager {rec['eager_ms']:.4f} ms")
+        if c["flash_route"] is not None:
+            rec["route"] = c["flash_route"]
+            extra = (f"  route {c['flash_route']}, {100 * b_ms / ms:.1f}% "
+                     f"of bound")
         if c["no_library"]:
             rec["library_none_reason"] = c["no_library"]
         if c["tol"] is not None and need is not None:
@@ -949,8 +967,11 @@ def serve_trace(rt, prompts, tag, untraced):
 
 def phase_flash(dev):
     """``ops.flash_attention`` and the kernel-level forward -> backward
-    chain at internlm2-1.8b's attention width (f32, causal, GQA 16/8), held
-    to the port's model attention and to autograd of the naive oracle."""
+    chain at internlm2-1.8b's attention width (causal, GQA 16/8).  In f32
+    (the 3xTF32 route) they are held to the port's model attention and to
+    autograd of the naive oracle; in bf16 (the wgmma route) to the bf16
+    bound against the f32 route on the same bf16-rounded inputs.  Both
+    routes must have launched both kernels."""
     import torch
     from repro_torch.kernels import LAUNCHES, ops, reset_launches
     from repro_torch.kernels import flash_attention as fa
@@ -959,43 +980,69 @@ def phase_flash(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     q, k, v = (torch.randn(sh, generator=gen, device=dev)
                for sh in ((B, L, H, D), (B, L, KV, D), (B, L, KV, D)))
-    qt, kt, vt = (x.transpose(1, 2).reshape(-1, L, D) for x in (q, k, v))
     dout = torch.randn((B * H, L, D), generator=gen, device=dev)
     group = H // KV
+
+    def chain(q, k, v, dout):
+        qt, kt, vt = (x.transpose(1, 2).reshape(-1, L, D) for x in (q, k, v))
+        o = ops.flash_attention(q, k, v, causal=True)
+        o_t, lse = fa.flash_attention_fwd(qt, kt, vt, group=group)
+        grads = fa.flash_attention_bwd(qt, kt, vt, o_t, lse, dout,
+                                       group=group)
+        return o, (qt, kt, vt), grads
+
+    bf16 = torch.bfloat16
+    q16, k16, v16, do16 = (x.to(bf16) for x in (q, k, v, dout))
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    o = ops.flash_attention(q, k, v, causal=True)
-    o_t, lse = fa.flash_attention_fwd(qt, kt, vt, group=group)
-    grads = fa.flash_attention_bwd(qt, kt, vt, o_t, lse, dout, group=group)
+    o, leaves, grads = chain(q, k, v, dout)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o16, _, grads16 = chain(q16, k16, v16, do16)
+    torch.cuda.synchronize()
+    dt16 = time.perf_counter() - t0
     counts = dict(LAUNCHES)
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "flash_wgmma",
+                 "flash_tf32x3"):
         if counts[name] <= 0:
             raise AssertionError(f"flash path launched no {name} kernel")
-    if o.shape != q.shape or not bool(torch.isfinite(o).all()) or \
-            not all(bool(torch.isfinite(g).all()) for g in grads):
-        raise AssertionError("flash outputs misshapen or not finite")
+    for x in (o, o16) + tuple(grads) + tuple(grads16):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("flash outputs not finite")
+    if o.shape != q.shape or o16.shape != q.shape or o16.dtype != bf16:
+        raise AssertionError("flash outputs misshapen")
     with torch.no_grad():
         want = attention_flash(q, k, v, causal=True)
     ok, err_model, _ = close(o, want, 3e-5)
     if not ok:
         raise AssertionError(f"ops.flash_attention differs from "
                              f"layers.attention_flash by {err_model:.3e}")
-    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    leaves = [x.detach().clone().requires_grad_() for x in leaves]
     ref = fa.flash_attention_ref(*leaves, group=group)
     auto = torch.autograd.grad((ref * dout).sum(), leaves)
     ok, err_grad, _ = close(tuple(grads), tuple(auto), 2e-4)
     if not ok:
         raise AssertionError(f"flash backward differs from autograd of the "
                              f"naive oracle by {err_grad:.3e}")
-    log(f"[flash] B{B} L{L} H{H} KV{KV} D{D} causal f32: ops.flash_attention"
-        f" + forward + backward {dt * 1e3:.1f} ms; vs layers.attention_flash"
-        f" max|diff| {err_model:.3e} (<= 3e-5); (dq, dk, dv) vs autograd of "
-        f"the naive oracle max|diff| {err_grad:.3e} (<= 2e-4); launches "
-        f"{counts}")
     del ref, auto, leaves, grads
+    # the f32 route on the same bf16-rounded inputs is what the bf16 route
+    # is held to (these launches come after the path's counts were read)
+    o32, _, grads32 = chain(*(x.float() for x in (q16, k16, v16, do16)))
+    ok, err16, need = close((o16,) + tuple(grads16), (o32,) + tuple(grads32),
+                            None)
+    if not ok:
+        raise AssertionError(f"bf16 flash differs from the f32 route by "
+                             f"{err16:.3e} (needs atol {need:.2e} max|y|)")
+    log(f"[flash] B{B} L{L} H{H} KV{KV} D{D} causal: f32 (3xTF32) "
+        f"ops.flash_attention + forward + backward {dt * 1e3:.1f} ms, vs "
+        f"layers.attention_flash max|diff| {err_model:.3e} (<= 3e-5), "
+        f"(dq, dk, dv) vs autograd of the naive oracle max|diff| "
+        f"{err_grad:.3e} (<= 2e-4); bf16 (wgmma) the same {dt16 * 1e3:.1f} "
+        f"ms, vs the f32 route max|diff| {err16:.3e} (needs atol "
+        f"{need:.2e} max|y| <= {BF16_ATOL:.0e}); launches {counts}")
+    del o32, grads32, grads16
     torch.cuda.empty_cache()
     return counts
 
@@ -1032,6 +1079,14 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
 
+    from repro_torch.kernels import flash_attention as fa
+    for dt in (torch.bfloat16, torch.float32):
+        log(f"[flash] route {fa.route(dt)} ({str(dt)[6:]}) at D = Dv = "
+            f"{ATTN['D']}: " + "; ".join(
+                f"{name} {r['registers']} registers, {r['spill_bytes']} "
+                f"spilled bytes a thread, {r['smem_bytes']} bytes of shared "
+                f"memory and {r['threads']} threads a block"
+                for name, r in fa.resources(dt, ATTN["D"], ATTN["D"]).items()))
     kern = phase_kernels(dev)
     host_us = wrapper_host_us(dev)
     paths = {}

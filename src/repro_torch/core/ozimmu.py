@@ -18,12 +18,14 @@ The named variants and the spec grammar are the reference's:
 
 Every spec parses exactly as in the reference (same configs, same error
 texts), and every variant executes, with a fixed or an ``auto`` k, on the
-plain path and on the ``:fused`` kernel path.  Two exceptions remain:
+plain path and on the ``:fused`` kernel path.  One exception remains:
 ``@mesh`` specs raise ``NotImplementedError`` at execution (the
-distributed slice), and on CUDA the sign-magnitude variants raise in the
-group GEMM, whose widened-digit form is not ported yet.  ``auto`` k
-probes the operands of every call (PyTorch is eager); a call with a
-frozen B split adopts the k the split cache froze (the static plan).
+distributed slice; ``check_supported``).  On CUDA every variant runs, the
+sign-magnitude ones included: the group GEMM takes their stored digits
+with their signedness.  ``auto`` k probes the operands of an eager call;
+inside ``plan.static_plan()`` (the serving runtime's steps) it takes the
+static plan, as the reference's jitted calls do, and a call with a frozen
+B split adopts the k the split cache froze (the static plan).
 
 Two entry points: ``ozimmu_matmul(a, b, cfg)`` (rank 2) and
 ``ozimmu_dot_general(a, b, dimension_numbers, cfg)``, the emulated
@@ -335,7 +337,8 @@ def _bmm_impl(a: torch.Tensor, b: torch.Tensor, cfg: OzimmuConfig,
             cfg = cfg.with_(k=int(rhs_presplit.digits.shape[0]),
                             auto_k=False)
         else:
-            # eager: the planner probes the operands
+            # eager: the planner probes the operands (outside a
+            # plan.static_plan() scope)
             from repro_torch.core import plan
             cfg = cfg.with_(k=plan.auto_k(a, b, cfg), auto_k=False)
     if rhs_presplit is not None:

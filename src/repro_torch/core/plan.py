@@ -85,12 +85,22 @@ window adds (``accumulate.oz2_num_highprec_adds``), and an eps model in
 which the two probed operand gaps combine as ``max`` instead of sum (the
 OS-II constant-scaling analysis — each truncation term carries only its
 own operand's spread; the other operand enters via its RMS).
+
+**Static scope.**  The reference probes only concrete operands: inside a
+``jax.jit`` trace (its serving step) every ``auto`` contraction takes the
+static mantissa-coverage plan.  PyTorch has no trace, so
+:func:`static_plan` stands in for one: inside it ``plan_contraction``
+ignores the operands and records ``probed=False``, as a traced call does
+in the reference (``ServingRuntime`` runs its steps inside it).  Eager
+calls outside keep probing, as the reference's eager calls do.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -105,7 +115,8 @@ from repro_torch.core.splitting import beta_for, compute_r, digit_bits
 __all__ = ["DEFAULT_TARGET_EPS", "DEFAULT_DELTA", "Plan",
            "plan_contraction", "auto_k", "operand_gap_bits", "lambda_bits",
            "choose_k", "describe_config",
-           "PlanDecision", "PlanLedger", "get_ledger", "choose_k_bits"]
+           "PlanDecision", "PlanLedger", "get_ledger", "choose_k_bits",
+           "static_plan"]
 
 # ~f64-faithful: at or below the elementwise relative error a plain FP64
 # GEMM measures on the paper's phi-matrix grid (1e-11..7e-12 there), with
@@ -500,13 +511,33 @@ def _cfg_cost_key(cfg, beta: int) -> Tuple[str, bool, int, int]:
             digit_bits(cfg.split, beta), _word_bits(cfg))
 
 
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def static_plan():
+    """Resolve every ``auto`` contraction inside the block with the static
+    plan, as the reference's planner does for traced operands (its jitted
+    serving step).  Nests; per thread."""
+    _SCOPE.depth = getattr(_SCOPE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _SCOPE.depth -= 1
+
+
+def _in_static_scope() -> bool:
+    return getattr(_SCOPE, "depth", 0) > 0
+
+
 def plan_contraction(cfg, m: int, n: int, p: int, *,
                      a=None, b=None, _record: bool = True) -> Plan:
     """Resolve the execution plan for ``(m, n) @ (n, p)`` under ``cfg``
     (an :class:`repro_torch.core.ozimmu.OzimmuConfig`).
 
     With operands ``a``/``b`` and ``cfg.auto_k``, the accuracy probe picks
-    k; absent operands give the static mantissa-coverage plan.  Fixed-k
+    k; absent operands, or a call inside :func:`static_plan`, give the
+    static mantissa-coverage plan.  Fixed-k
     configs just get the cost accounting.  The oz2 variants are planned against the OS-II
     error model (max-of-gaps, see :func:`choose_k`) and costed with their
     own pair/ladder accounting.
@@ -520,7 +551,7 @@ def plan_contraction(cfg, m: int, n: int, p: int, *,
         mantissa = _MANTISSA[a.dtype]
     gap_a = gap_b = None
     probed = False
-    if a is not None and b is not None:
+    if a is not None and b is not None and not _in_static_scope():
         gap_a = operand_gap_bits(a, axis=0)
         gap_b = operand_gap_bits(b, axis=1)
         probed = True

@@ -20,7 +20,9 @@ A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.  :data:`LAUNCHES` counts kernel launches
 (one per launch, nowhere else), so a run can show which kernels it went
 through; the group GEMM also counts each launch under its route
-(``group_gemm_large`` / ``group_gemm_skinny``).
+(``group_gemm_large`` / ``group_gemm_skinny``), and each flash-attention
+launch under its route (``flash_wgmma`` for bf16, ``flash_tf32x3`` for
+f32).
 """
 from typing import Dict
 
@@ -30,7 +32,8 @@ LAUNCHES: Dict[str, int] = {"split_fused": 0, "group_gemm": 0,
                             "scale_accum_const": 0,
                             "scale_accum_const_plain": 0, "unscale": 0,
                             "flash_attention_fwd": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0, "flash_wgmma": 0,
+                            "flash_tf32x3": 0}
 
 
 def reset_launches() -> None:

@@ -10,6 +10,15 @@ q_offset`` and the sliding ``window`` (``k > q + q_offset - window``), all
 with the reference's finite sentinel ``-1e30``, so a row whose every key is
 masked averages v uniformly over the tensor's keys.
 
+Two routes on the card, picked from the dtype before the launch
+(:func:`route`): bf16 runs on ``wgmma`` (the bf16 tensor cores, f32 sums;
+the scale applied to the f32 scores, P rounded to bf16 for PV and dV, dS
+carried as two bf16 terms), f32 on 3xTF32 ``mma.sync`` (each operand split
+into a rounded and a truncated tf32 term, three products with f32 sums).
+Each launch counts once under its kernel (``LAUNCHES["flash_attention_fwd"]``
+/ ``["flash_attention_bwd"]``) and once under its route
+(``["flash_wgmma"]`` / ``["flash_tf32x3"]``).
+
 The reference takes its TPU tile sizes ``qc``/``kc`` and needs lengths that
 are their multiples (``ops.flash_attention`` pads); these functions take any
 lengths, and the CUDA kernels pick their own tiles and mask their ragged
@@ -31,7 +40,8 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 
-__all__ = ["flash_attention_fwd", "flash_attention_bwd",
+__all__ = ["flash_attention_fwd", "flash_attention_bwd", "route",
+           "resources",
            "flash_attention_fwd_ref", "flash_attention_bwd_ref",
            "flash_attention_ref", "NEG_INF"]
 
@@ -166,6 +176,43 @@ def _check(q, k, v, group, name, *more):
                          f"{MAX_D}, got D={D}, Dv={Dv}")
 
 
+def resources(dtype: torch.dtype, D: int = MAX_D, Dv: int = MAX_D
+              ) -> dict:
+    """The launch resources of the route's three kernels for head dims D,
+    Dv (built on first use): registers and spilled bytes a thread, shared
+    memory and threads a block, as the CUDA runtime reports them."""
+    fn = _build.function("flash_attention", "flash_attention_resources",
+                         [_i, _i, _i, _i, ctypes.POINTER(_i)])
+    res = {}
+    for which, name in enumerate(("forward", "dq", "dk/dv")):
+        out = (_i * 4)()
+        _build.check(fn(_DTYPES[dtype], D, Dv, which, out),
+                     "flash_attention_resources")
+        res[name] = dict(registers=out[0], smem_bytes=out[1],
+                         threads=out[2], spill_bytes=out[3])
+    return res
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernels' route for ``dtype`` on the card: ``"wgmma"`` (bf16) or
+    ``"tf32x3"`` (f32)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash attention kernels take float32 or "
+                         f"bfloat16, got {dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as the kernels' copies need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _count(kernel: str, dtype: torch.dtype) -> None:
+    LAUNCHES[kernel] += 1
+    LAUNCHES["flash_" + route(dtype)] += 1
+
+
 def _mask_args(q, k, v, group, causal, window, q_offset, lk):
     BH, Lq, D = q.shape
     Lk, Dv = k.shape[1], v.shape[2]
@@ -182,14 +229,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused flash-attention forward: ``(o, lse)`` as
     :func:`flash_attention_fwd_ref`.  q, k, v share one dtype (f32 or bf16
-    on CUDA); head dims are multiples of 4 up to 128."""
+    on CUDA, each on its :func:`route`); head dims are multiples of 4 up
+    to 128."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, group=group, causal=causal,
                                        window=window, q_offset=q_offset,
                                        lk=lk)
     _build.require_cuda(q, "flash_attention_fwd")
     _check(q, k, v, group, "flash_attention_fwd")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _ready(q), _ready(k), _ready(v)
     BH, Lq, _ = q.shape
     o = torch.empty((BH, Lq, v.shape[2]), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, Lq, 1), dtype=torch.float32, device=q.device)
@@ -197,7 +245,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o, lse
     fn = _build.function("flash_attention", "flash_attention_fwd",
                          _FWD_ARGS)
-    LAUNCHES["flash_attention_fwd"] += 1
+    _count("flash_attention_fwd", q.dtype)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     lse.data_ptr(),
                     *_mask_args(q, k, v, group, causal, window, q_offset,
@@ -217,7 +265,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk and dv per key tile, the group summed in registers, no atomics).
     ``delta = rowsum(dout * out)`` is one PyTorch op, as the reference
     computes it outside its kernels.  Each kernel adds one to
-    ``LAUNCHES["flash_attention_bwd"]`` (two per call)."""
+    ``LAUNCHES["flash_attention_bwd"]`` and to its route's count (two per
+    call)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, group=group,
                                        causal=causal, window=window,
@@ -231,15 +280,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"lse {tuple(lse.shape)}, dout "
                          f"{tuple(dout.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    q, k, v, dout = (_ready(t) for t in (q, k, v, dout))
     lse = lse.to(torch.float32).contiguous()
-    delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+    # out converts to f32 inside the product (exactly), as the reference's
+    # out.astype(f32) does
+    delta = (dout.to(torch.float32) * out).sum(dim=-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     fn = _build.function("flash_attention", "flash_attention_bwd",
                          _BWD_ARGS)
     args = _mask_args(q, k, v, group, causal, window, q_offset, lk)
     for which in (0, 1):
-        LAUNCHES["flash_attention_bwd"] += 1
+        _count("flash_attention_bwd", q.dtype)
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args,

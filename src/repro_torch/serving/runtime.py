@@ -22,6 +22,11 @@ every projection weight's int8 digit slices once, and every step consumes
 the wrapped tree — B-side splitting drops out of the steps entirely,
 bit-identical to the unwrapped path.
 
+Both steps run inside ``plan.static_plan()``: an ``auto`` spec resolves
+every contraction to the static plan, as the reference's jitted steps do
+(its planner probes only concrete operands), and never syncs the host to
+probe.
+
 The block-paged KV pool (``page_block``) and the prefix cache come with
 the paged-KV slice of the port and raise until then.
 """
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import plan
 from repro_torch.core.engine import presplit_trace_counts
 from repro_torch.models import api
 from repro_torch.serving import presplit as presplit_mod
@@ -131,9 +137,10 @@ class ServingRuntime:
 
     @torch.no_grad()
     def _decode(self, toks: np.ndarray, cur: np.ndarray) -> np.ndarray:
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cfg, self.cache, self._tensor(toks),
-            self._tensor(cur))
+        with plan.static_plan():
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cfg, self.cache, self._tensor(toks),
+                self._tensor(cur))
         return self._argmax(logits)
 
     @torch.no_grad()
@@ -149,9 +156,11 @@ class ServingRuntime:
         toks_d, curs_d = self._tensor(toks), self._tensor(curs)
         before = self.cache
         cache, logits = before, None
-        for i in range(Lb):
-            logits, cache = self.model.decode_step(
-                self.params, self.cfg, cache, toks_d[:, i:i + 1], curs_d[i])
+        with plan.static_plan():
+            for i in range(Lb):
+                logits, cache = self.model.decode_step(
+                    self.params, self.cfg, cache, toks_d[:, i:i + 1],
+                    curs_d[i])
         self.cache = self.ops.select_slots(cache, before,
                                            self._tensor(newmask))
         return self._argmax(logits)

@@ -187,6 +187,10 @@ FLASH = [  # BKV, group, Lq, Lk, D, Dv, causal, window, q_offset, lk
     (1, 4, 37, 100, 32, 8, False, None, 0, 90),
     (2, 2, 130, 130, 64, 64, True, 17, 0, None),
     (1, 2, 40, 40, 128, 128, True, None, -9, None),    # fully masked rows
+    (2, 2, 50, 61, 20, 12, True, 5, 3, None),          # D, Dv not 8-aligned
+    (1, 2, 4000, 4000, 128, 128, True, None, 0, None),  # ragged main width
+    (1, 2, 1000, 1000, 128, 128, True, 300, 0, None),   # window
+    (1, 2, 500, 500, 128, 128, True, None, -100, None),  # fully masked rows
 ]
 
 
@@ -198,7 +202,9 @@ def test_flash_attention_kernels(dev, case, dtype):
     reference's tolerances in f32 (2e-5 forward, 2e-4 backward; lse is f32
     in both dtypes and held to them).  A bf16 output is held to the
     reference's relative 2e-2 with an absolute term of one bf16 unit
-    roundoff (4e-3) of its largest value, at most 2e-2."""
+    roundoff (4e-3) of its largest value, at most 2e-2.  Every launch
+    counts under its dtype's route (bf16 ``wgmma``, f32 ``tf32x3``)."""
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import flash_attention as fa
     BKV, group, Lq, Lk, D, Dv, causal, window, q_offset, lk = case
     g = torch.Generator(device=dev).manual_seed(7)
@@ -207,12 +213,16 @@ def test_flash_attention_kernels(dev, case, dtype):
                              (BKV, Lk, Dv), (BKV * group, Lq, Dv)))
     kw = dict(group=group, causal=causal, window=window, q_offset=q_offset,
               lk=lk)
+    routes = {r: LAUNCHES[r] for r in ("flash_wgmma", "flash_tf32x3")}
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
     o_r, lse_r = fa.flash_attention_fwd_ref(q, k, v, **kw)
     _assert_flash_close(o, o_r, 2e-5)
     _assert_flash_close(lse, lse_r, 2e-5)
     got = fa.flash_attention_bwd(q, k, v, o_r, lse_r, do, **kw)
     want = fa.flash_attention_bwd_ref(q, k, v, o_r, lse_r, do, **kw)
+    mine = "flash_" + fa.route(dtype)
+    for r, n in routes.items():
+        assert LAUNCHES[r] - n == (3 if r == mine else 0), r
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         _assert_flash_close(a, b, 2e-4)

@@ -167,3 +167,165 @@ def test_wrappers_take_plain_version_only_on_cpu():
     lse = torch.empty((2, 8, 1), device="meta")
     with pytest.raises(RuntimeError, match="runs on cuda"):
         P_fa.flash_attention_bwd(q, q, q, q, lse, q)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' rounding, emulated in plain PyTorch and held to the
+# reference's Pallas kernels before any card run.
+#
+# bf16 route (wgmma): bf16 x bf16 products summed in f32, the scale applied
+# to S after the product (bf16 operands cannot carry the reference's f32
+# ``q * scale``); online softmax over key tiles, P rounded to bf16 for PV
+# while l sums the f32 p; in the backward P is rounded to bf16 for dV,
+# and dS is carried as two bf16 terms, hi = bf16(dS) and lo = bf16(dS -
+# hi), each through its own product (one bf16 term fails the bf16 bound
+# on dq and dk where fully masked rows give p = 1 on every key).
+# f32 route (3xTF32): each f32 operand split as hi = rna_tf32(x), lo =
+# trunc_tf32(x - hi), every product formed as hi.hi + hi.lo + lo.hi with
+# f32 sums; q is scaled in f32 before its split, as the reference scales.
+# ---------------------------------------------------------------------------
+
+_F32 = torch.float32
+
+
+def _bits_round(x, *, nearest):
+    """x rounded to tf32 (10 mantissa bits): to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``) or truncated (what the tensor core
+    keeps of an f32 register)."""
+    b = x.contiguous().view(torch.int32)
+    if nearest:
+        b = b + 0x1000
+    return (b & ~0x1FFF).view(_F32)
+
+
+def _split_tf32(x):
+    hi = _bits_round(x, nearest=True)
+    return hi, _bits_round(x - hi, nearest=False)
+
+
+def _mm(a, b, route):
+    """a @ b as the route's tensor cores form it."""
+    if route == "bf16":
+        return torch.matmul(a.to(torch.bfloat16).to(_F32),
+                            b.to(torch.bfloat16).to(_F32))
+    ah, al = _split_tf32(a)
+    bh, bl = _split_tf32(b)
+    return (torch.matmul(ah, bh) + torch.matmul(ah, bl)) + \
+        torch.matmul(al, bh)
+
+
+def _emu_scores(q, k, group, causal, window, q_offset, route):
+    """Masked f32 scores (BH, Lq, Lk) as the route computes them."""
+    D = q.shape[-1]
+    scale = float(D) ** -0.5
+    kg = k.repeat_interleave(group, dim=0).to(_F32)
+    if route == "bf16":
+        s = _mm(q.to(_F32), kg.transpose(-1, -2), route) * scale
+    else:
+        s = _mm(q.to(_F32) * scale, kg.transpose(-1, -2), route)
+    mask = P_fa._mask(q.shape[1], k.shape[1], k.shape[1], causal, window,
+                      q_offset, q.device)
+    return s.masked_fill(~mask, P_fa.NEG_INF)
+
+
+def _emu_fwd(q, k, v, group, causal, window, q_offset, route, bk):
+    """Online softmax over key tiles of ``bk`` keys."""
+    s = _emu_scores(q, k, group, causal, window, q_offset, route)
+    vg = v.repeat_interleave(group, dim=0).to(_F32)
+    BH, Lq, Lk = s.shape
+    m = torch.full((BH, Lq, 1), P_fa.NEG_INF)
+    l = torch.zeros((BH, Lq, 1))
+    acc = torch.zeros((BH, Lq, v.shape[-1]))
+    for k0 in range(0, Lk, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pv = p.to(torch.bfloat16).to(_F32) if route == "bf16" else p
+        acc = acc * corr + _mm(pv, vg[:, k0:k0 + bk], route)
+        m = m_new
+    lc = torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(lc), torch.full_like(l, np.inf))
+    return (acc / lc).to(q.dtype), lse
+
+
+def _emu_bwd(q, k, v, out, lse, dout, group, causal, window, q_offset,
+             route):
+    scale = float(q.shape[-1]) ** -0.5
+    s = _emu_scores(q, k, group, causal, window, q_offset, route)
+    p = torch.exp(s - lse)
+    do = dout.to(_F32)
+    kg = k.repeat_interleave(group, dim=0).to(_F32)
+    vg = v.repeat_interleave(group, dim=0).to(_F32)
+    delta = (do * out.to(_F32)).sum(-1, keepdim=True)
+    ds = p * (_mm(do, vg.transpose(-1, -2), route) - delta)
+    if route == "bf16":
+        p = p.to(torch.bfloat16).to(_F32)
+        hi = ds.to(torch.bfloat16).to(_F32)
+        lo = (ds - hi).to(torch.bfloat16).to(_F32)
+        qf = q.to(_F32)
+        dq = (torch.matmul(hi, kg) + torch.matmul(lo, kg)) * scale
+        dkg = (torch.matmul(hi.transpose(-1, -2), qf) +
+               torch.matmul(lo.transpose(-1, -2), qf)) * scale
+    else:
+        dq = _mm(ds, kg, route) * scale
+        dkg = _mm(ds.transpose(-1, -2), q.to(_F32) * scale, route)
+    dvg = _mm(p.transpose(-1, -2), do, route)
+    BKV = k.shape[0]
+    dk = dkg.reshape((BKV, group) + dkg.shape[1:]).sum(1)
+    dv = dvg.reshape((BKV, group) + dvg.shape[1:]).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _assert_route_close(got, want, route, tol):
+    """The card test's bounds: bf16 outputs within 2e-2 |y| + min(2e-2,
+    4e-3 max|y|); f32 within ``tol`` (2e-5 forward, 2e-4 backward)."""
+    got = torch.as_tensor(np.asarray(got, np.float32))
+    want = torch.as_tensor(np.array(want, np.float32))
+    if route == "bf16":
+        atol = min(2e-2, 4e-3 * float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=atol)
+    else:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+EMU_CASES = [  # BKV, group, L, D, causal, window, q_offset
+    (1, 2, 256, 128, True, None, 0),
+    (2, 2, 200, 64, True, 37, 0),           # window, ragged key tiles
+    (1, 4, 96, 32, False, None, 0),         # non-causal GQA
+    (1, 2, 136, 128, True, None, -9),       # fully masked rows
+]
+
+
+@pytest.mark.parametrize("case", EMU_CASES)
+@pytest.mark.parametrize("route", ["bf16", "tf32x3"])
+def test_kernel_rounding_matches_reference_kernels(case, route):
+    """Each CUDA route's rounding (emulated above) against the reference's
+    Pallas forward and backward in interpret mode, on the same numpy
+    inputs: bf16 inputs for the bf16 route, f32 for 3xTF32."""
+    BKV, group, L, D, causal, window, q_offset = case
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if route == "bf16"
+                else (jnp.float32, torch.float32))
+    rng = np.random.default_rng(5)
+    shapes = ((BKV * group, L, D), (BKV, L, D), (BKV, L, D),
+              (BKV * group, L, D))
+    pairs = [_pair(rng.standard_normal(s), jdt, tdt) for s in shapes]
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = pairs
+    kw = dict(group=group, causal=causal, window=window, q_offset=q_offset)
+    jo, jlse = J_fa.flash_attention_fwd(jq, jk, jv, qc=L, kc=L, **kw)
+    bk = 128 if route == "bf16" else 64   # the forward kernels' key tiles
+    to, tlse = _emu_fwd(tq, tk, tv, group, causal, window, q_offset, route,
+                        bk)
+    _assert_route_close(_f32(to), jo, route, 2e-5)
+    _close(tlse.numpy(), jlse, 2e-5)
+    # the backward from the reference's forward, as the card test does
+    tout = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(tdt)
+    tl = torch.from_numpy(np.array(jlse))
+    jg = J_fa.flash_attention_bwd(jq, jk, jv, jo, jlse, jdo, qc=L, kc=L,
+                                  **kw)
+    tg = _emu_bwd(tq, tk, tv, tout, tl, tdo, group, causal, window,
+                  q_offset, route)
+    for t, j in zip(tg, jg):
+        assert tuple(t.shape) == tuple(j.shape)
+        _assert_route_close(_f32(t), j, route, 2e-4)

@@ -281,3 +281,64 @@ def test_launcher_serves_and_prints_plan(spec, capsys):
     cfg = P_configs.get_config("internlm2_1_8b", smoke=True)
     assert lines[0] == (f"[serve] engine {spec}: " + plan.describe_config(
         ozimmu.parse_spec(spec), cfg.d_model, cfg.d_model, cfg.d_model))
+
+
+def test_auto_k_serving_takes_the_reference_static_plan(ref_params):
+    """``ozimmu_h-auto:df32`` served by both runtimes: the reference's
+    steps are jitted, so its planner sees tracers and takes the static
+    mantissa-coverage plan for every contraction.  The port's runtime runs
+    its steps inside ``plan.static_plan()``: every decision it records
+    there is static, each contraction shape resolves the reference's k,
+    the greedy tokens are equal, and the prefill logits of the runtimes'
+    step (teacher-forced, the frozen weight splits) agree to the f32
+    bound above."""
+    from repro.core import plan as R_plan
+    from repro.serving import ServingRuntime as RRuntime
+    from repro_torch.core import plan as P_plan
+    from repro_torch.serving import ServingRuntime
+    spec = "ozimmu_h-auto:df32"
+    rparams, nparams = ref_params
+    rcfg = R_configs.get_config("internlm2_1_8b", smoke=True,
+                                engine_spec=spec, dtype="float32")
+    pcfg = P_configs.get_config("internlm2_1_8b", smoke=True,
+                                engine_spec=spec + ":fused",
+                                dtype="float32")
+    prompts = [_tokens(rcfg.vocab, (8,), seed=s) for s in range(3)]
+
+    def contractions(ledger):
+        return [d for d in ledger.entries() if d.source == "contraction"]
+
+    R_plan.get_ledger().clear()
+    rrt = RRuntime(rcfg, rparams, slots=2, max_len=32)
+    refs = rrt.generate([p.copy() for p in prompts], 4)
+    ref_k = {(d.m, d.n, d.p): d.k for d in contractions(R_plan.get_ledger())}
+    assert ref_k and not any(d.probed for d in
+                             contractions(R_plan.get_ledger()))
+
+    prt = ServingRuntime(pcfg, params_from_numpy(nparams, device="cpu"),
+                         slots=2, max_len=32, device="cpu")
+    P_plan.get_ledger().clear()
+    outs = prt.generate([p.copy() for p in prompts], 4)
+    mine = contractions(P_plan.get_ledger())
+    assert mine and not any(d.probed for d in mine)
+    port_k = {(d.m, d.n, d.p): d.k for d in mine}
+    assert port_k == ref_k
+    for o, r in zip(outs, refs):
+        np.testing.assert_array_equal(o, r)
+
+    rm, pm = R_api.get_model(rcfg), P_api.get_model(pcfg)
+    step = jax.jit(lambda p, c, t, n: rm.decode_step(p, rcfg, c, t, n))
+    toks = np.stack(prompts[:2])
+    rc = rm.init_cache(rcfg, 2, 16)
+    pc = pm.init_cache(pcfg, 2, 16, device="cpu")
+    P_plan.get_ledger().clear()
+    for i in range(toks.shape[1]):
+        cur = np.asarray([i + 1, i + 1], np.int32)
+        rl, rc = step(rrt.params, rc, jnp.asarray(toks[:, i:i + 1]),
+                      jnp.asarray(cur))
+        with P_plan.static_plan(), torch.no_grad():
+            pl, pc = pm.decode_step(prt.params, pcfg, pc,
+                                    torch.from_numpy(toks[:, i:i + 1]),
+                                    torch.from_numpy(cur))
+        assert _rel(pl.numpy(), np.asarray(rl)) <= 1e-4
+    assert not any(d.probed for d in contractions(P_plan.get_ledger()))
