@@ -15,10 +15,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    times.  The group GEMM runs at every main-path shape (the DGEMM's
    4096^3, the decode projections and LM head, batched decode attention
    contractions, a middle m) on the route the wrapper picks, plus both
-   routes forced at m = 4..32 (the crossover); its times are device times
-   (CUDA-graph replay, B operands rotated past the L2 cache), with the
-   eager per-call time beside them.  Near-underflow rows and scales run
-   through the split and epilogue kernels, bitwise.
+   routes forced at m = 4..32 (the crossover).  The one-launch split
+   (``ops.split_fused``: row maxima, grids, scales and digits) runs on
+   decode A rows, the batched attention B operands, the w_gate freeze and
+   both DGEMM operands; the one-launch df32 epilogue
+   (``scale_accum.scale_accum_chunks``) on the decode contractions' four
+   chunk products.  The group GEMM's, the split's and the epilogue's times
+   are device times (CUDA-graph replay; the group GEMM's B operands
+   rotated past the L2 cache), with the eager per-call time beside them.
+   Near-underflow rows (every split mode) and scales run through the split
+   and epilogue kernels, bitwise.  Neither the split's nor the epilogue's
+   wrapper may run a PyTorch operation on the card besides its output
+   allocations and views (checked under a dispatch mode).
 3. DGEMM: ``ozimmu_matmul`` under ``ozimmu_h-8:f64:fused`` at n = 4096,
    error against ``torch.matmul`` in f64, plus a small input that must
    equal the CPU plain-version pipeline bit for bit.
@@ -47,7 +55,12 @@ Phases (each raises on failure, so any failure exits non-zero):
 The launch counts of phases 3-5 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
 GEMM must have taken the route assigned to the path (large for the DGEMM,
-skinny for serving).  Phase 2 holds
+skinny for serving).  A serve run must count exactly one split launch per
+split operand (24 layers x 11 + the LM head a model step), four group
+GEMMs per contraction (24 x 9 + 1 a step) and, under the df32 group-EF
+specs, one epilogue launch per contraction; its trace splits the device
+operations of a step by kernel into split, group GEMM, epilogue and
+other.  Phase 2 holds
 the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
 these), a bf16 output within ``2e-2 |y| + min(2e-2, 4e-3 max|y|)`` (the
@@ -205,13 +218,12 @@ def kernel_cases(dev):
     (the timed kernel call), ``library`` (a one-call PyTorch yardstick or
     None), and the bytes/operations the function must move/do."""
     import torch
-    from repro_torch.core.splitting import (_pow2_ceil, compute_beta,
-                                            compute_beta_sm)
+    from repro_torch.core.ozimmu import canonical_rhs
+    from repro_torch.core.splitting import compute_beta, compute_beta_sm
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import group_gemm as gg
     from repro_torch.kernels import scale_accum as sa
-    from repro_torch.kernels import split_fused as sf
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     d, f, vocab = 2048, 8192, 92672          # padded vocab (multiple of 256)
@@ -228,16 +240,34 @@ def kernel_cases(dev):
                           library_exact=library_exact,
                           flash_route=flash_route))
 
-    def split_case(label, shape, dtype, k, axis, reps):
+    def whole_split(x, k, beta, mode, axis):
+        """``(run, plain, bytes)`` of the one-launch split of ``x``: the
+        Split's fields as a tuple; bytes read x once and write the digits,
+        bases, scales (and gbase)."""
+        def fields(sp):
+            return tuple(t for t in (sp.digits, sp.scale, sp.base, sp.gbase)
+                         if t is not None)
+        r = x.shape[-2] if axis == 0 else x.shape[-1]
+        rows = math.prod(x.shape[:-2]) * r
+        moved = nbytes(x) + k * x.numel() + \
+            (k + 1) * rows * x.element_size()
+        return (lambda: fields(ops.split_fused(x, k, beta, mode=mode,
+                                               axis=axis)),
+                lambda: fields(ops.split_fused_ref(x, k, beta, mode=mode,
+                                                   axis=axis)),
+                moved)
+
+    def split_case(label, shape, dtype, k, axis, reps, dnums=None):
+        """``dnums``: ``x`` is the attention's KV cache (slots, L, KV, D),
+        split as the B operand ``canonical_rhs`` makes of it under these
+        dimension numbers: a permuted view, read through its strides."""
         x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
-        n = shape[-1] if axis == 0 else shape[-2]
-        beta = compute_beta(n)
-        rowmax = x.abs().amax(dim=-1 if axis == 0 else -2)
-        inv = 1.0 / (_pow2_ceil(rowmax) * (2.0 ** (1 - beta)))
-        add("split_fused", label,
-            lambda: sf.split_fused(x, inv, k=k, beta=beta, axis=axis),
-            lambda: sf.split_fused_ref(x, inv, k=k, beta=beta, axis=axis),
-            nbytes(x, inv) + k * x.numel(), 0.0, F32_FLOPS, reps)
+        if dnums is not None:
+            x = canonical_rhs(x, dnums)[0]
+        beta = compute_beta(x.shape[-1] if axis == 0 else x.shape[-2])
+        run, plain, moved = whole_split(x, k, beta, "rn_const", axis)
+        add("split_fused", label, run, plain, moved, 0.0, F32_FLOPS, reps,
+            graph=True)
 
     def gemm_case(label, m, n, p, k, reps, batch=(), sm=False, route=None):
         """The group g = k + 1 (all k pairs) of split digits, signed or the
@@ -294,31 +324,27 @@ def kernel_cases(dev):
                                **kw),
             graph=True, library_exact=True)
 
-    def underflow_rows(dtype, m, n):
+    def underflow_rows(dtype, m, n, g):
         """Rows whose maxima sit near the bottom of the normal range (f32
         1e-36, 4e-37, 1e-37; f64 1e-305, 1e-307) and a subnormal row,
         among ordinary rows: their grids and scale products underflow."""
         maxima = [1e-36, 4e-37, 1e-37] if dtype == f32 else [1e-305, 1e-307]
-        x = torch.randn((m, n), generator=gen, device=dev, dtype=dtype)
+        x = torch.randn((m, n), generator=g, device=dev, dtype=dtype)
         for i, mx in enumerate(maxima):
             x[i] = x[i] / x[i].abs().max() * mx
         x[len(maxima)] = torch.finfo(dtype).tiny * torch.rand(
-            (n,), generator=gen, device=dev, dtype=dtype)
+            (n,), generator=g, device=dev, dtype=dtype)
         return x
 
     def underflow_split_case(dtype, mode, axis):
-        x = underflow_rows(dtype, 64, 2048)
+        x = underflow_rows(dtype, 64, 2048,
+                           gen)
         x = x if axis == 0 else x.T.contiguous()
         n = x.shape[-1] if axis == 0 else x.shape[-2]
         beta = compute_beta_sm(n) if mode == "sm" else compute_beta(n)
-        inv = ops.split_invgrid(x, beta, mode, axis)[1]
+        run, plain, moved = whole_split(x, 6, beta, mode, axis)
         add("split_fused", f"near-underflow rows {str(dtype)[6:]} {mode} "
-            f"axis={axis} k=6",
-            lambda: sf.split_fused(x, inv, k=6, beta=beta, mode=mode,
-                                   axis=axis),
-            lambda: sf.split_fused_ref(x, inv, k=6, beta=beta, mode=mode,
-                                       axis=axis),
-            nbytes(x, inv) + 6 * x.numel(), 0.0, F32_FLOPS, 5)
+            f"axis={axis} k=6", run, plain, moved, 0.0, F32_FLOPS, 5)
 
     def underflow_accum_case(dtype):
         """Scales whose products with the int32 sums fall below the normal
@@ -347,12 +373,17 @@ def kernel_cases(dev):
             20)
         if dtype == f32:
             lo = c * 2.0 ** -20
-            add("scale_accum", "near-underflow scales (4x8192)",
+            add("scale_accum", "near-underflow scales (4x8192) one chunk",
                 lambda: sa.scale_accum(p32, srow, scol, c.clone(),
                                        lo.clone()),
                 lambda: sa.scale_accum_ref(p32, srow, scol, c, lo),
                 nbytes(p32, srow, scol) + 4 * nbytes(c), 24.0 * c.numel(),
                 peak, 20)
+            prods = [p32] + [torch.randint(
+                -2 ** 31, 2 ** 31 - 1, (m, p), generator=gen,
+                device=dev, dtype=torch.int32) for _ in range(3)]
+            chunks_case("near-underflow scales (4x8192) C=4", prods, srow,
+                        scol, 20)
 
     def flash_cases(label, dtype, *, L=None, window=None, q_offset=0,
                     reps=5):
@@ -399,6 +430,32 @@ def kernel_cases(dev):
             library=lambda: torch.autograd.grad(out_g, (qg, kg, vg), do4,
                                                 retain_graph=True),
             tol=2e-4, flash_route=fa.route(dtype))
+
+    def chunks_case(label, prods, base_a, base_b, reps, beta=7):
+        """The whole df32 epilogue of a contraction over its chunk
+        products (groups 2..C+1, one chunk a group, as k = C at decode):
+        bytes read the products and write the f32 result once."""
+        groups = list(range(2, len(prods) + 2))
+        out_bytes = prods[0].numel() * 4
+        add("scale_accum", label,
+            lambda: sa.scale_accum_chunks(prods, groups, base_a, base_b,
+                                          beta),
+            lambda: sa.scale_accum_chunks_ref(prods, groups, base_a, base_b,
+                                              beta),
+            nbytes(*prods, base_a, base_b) + out_bytes,
+            24.0 * len(prods) * prods[0].numel(), F32_FLOPS, reps,
+            graph=True)
+
+    def decode_chunks_case(m, p, reps):
+        g = gen
+        prods = [torch.randint(-2 ** 30, 2 ** 30, (m, p), generator=g,
+                               device=dev, dtype=torch.int32)
+                 for _ in range(4)]
+        base_a = torch.pow(2.0, torch.randint(-20, 0, (m,), generator=g,
+                                              device=dev)).to(f32)
+        base_b = torch.pow(2.0, torch.randint(-6, 2, (p,), generator=g,
+                                              device=dev)).to(f32)
+        chunks_case(f"decode ({m}x{p}) C=4", prods, base_a, base_b, reps)
 
     def accum_case(kernel, label, m, p, dtype, reps):
         p32 = torch.randint(-2 ** 30, 2 ** 30, (m, p), generator=gen,
@@ -462,13 +519,23 @@ def kernel_cases(dev):
             lambda: sa.unscale_ref(x, ra, rb), nbytes(ra, rb) + 2 * nbytes(x),
             2.0 * x.numel(), F64_FLOPS if dtype == f64 else F32_FLOPS, reps)
 
-    split_case("decode lm_head A (4x2048) f32 k=4", (SLOTS, d), f32, 4, 0,
-               50)
+    ctx = PROMPT + GEN                        # the decode cache length
+    split_case("decode A (4x2048) f32 k=4", (SLOTS, d), f32, 4, 0, 50)
+    split_case("decode A (4x8192) f32 k=4", (SLOTS, f), f32, 4, 0, 50)
     split_case("prefill A (128x2048) f32 k=4", (SLOTS * PROMPT, d), f32, 4,
                0, 50)
+    # the attention's einsums "bkgd,bskd->bkgs" and "bkgs,bskd->bkgd"
+    split_case(f"decode scores B (4x8 x 128x{ctx} cache view) f32 k=4 "
+               f"axis=1", (SLOTS, ctx, 8, 128), f32, 4, 1, 50,
+               dnums=(((3,), (3,)), ((0, 1), (0, 2))))
+    split_case(f"decode p@v B (4x8 x {ctx}x128 cache view) f32 k=4 axis=1",
+               (SLOTS, ctx, 8, 128), f32, 4, 1, 50,
+               dnums=(((3,), (1,)), ((0, 1), (0, 2))))
     split_case("freeze w_gate B (2048x8192) f32 k=4 axis=1", (d, f), f32, 4,
                1, 10)
     split_case("DGEMM A (4096x4096) f64 k=8", (4096, 4096), f64, 8, 0, 5)
+    split_case("DGEMM B (4096x4096) f64 k=8 axis=1", (4096, 4096), f64, 8,
+               1, 5)
     kv = 1024                                 # 8 KV heads x head_dim 128
     gemm_case("decode lm_head (4x2048x92672) G=4", SLOTS, d, vocab, 4, 10)
     gemm_case("decode wq/wo (4x2048x2048) G=4", SLOTS, d, d, 4, 50)
@@ -492,14 +559,17 @@ def kernel_cases(dev):
             gemm_case(f"crossover {rt} ({mm}x2048x8192) G=4", mm, d, f, 4,
                       20, route=rt)
     for dt in (f32, f64):
-        for md in ("rn_const", "sm"):
+        for md in ("bitmask", "rn_const", "sm", "oz2_bitmask_fast2",
+                   "oz2_rn_fast2", "oz2_bitmask", "oz2_rn"):
             for ax in (0, 1):
                 underflow_split_case(dt, md, ax)
         underflow_accum_case(dt)
-    accum_case("scale_accum", "decode lm_head (4x92672)", SLOTS, vocab, f32,
-               50)
-    accum_case("scale_accum", "prefill w_gate (128x8192)", SLOTS * PROMPT,
-               f, f32, 50)
+    accum_case("scale_accum", "decode lm_head (4x92672) one chunk", SLOTS,
+               vocab, f32, 50)
+    accum_case("scale_accum", "prefill w_gate (128x8192) one chunk",
+               SLOTS * PROMPT, f, f32, 50)
+    for width in (vocab, d, f):
+        decode_chunks_case(SLOTS, width, 50)
     accum_case("scale_accum_plain", "DGEMM (4096x4096) f64", 4096, 4096, f64,
                20)
     accum_case("scale_accum_plain", "decode w_gate (4x8192) f32", SLOTS, f,
@@ -527,10 +597,10 @@ def kernel_cases(dev):
     return cases
 
 
-# the first case of each kernel is the one its top-level record reports
-MAIN_CASE = {"split_fused": "decode lm_head A (4x2048) f32 k=4",
+# the case of each kernel that its top-level record reports
+MAIN_CASE = {"split_fused": "decode A (4x2048) f32 k=4",
              "group_gemm": "decode lm_head (4x2048x92672) G=4",
-             "scale_accum": "decode lm_head (4x92672)",
+             "scale_accum": "decode (4x92672) C=4",
              "scale_accum_plain": "DGEMM (4096x4096) f64",
              "scale_accum_const": "decode lm_head (4x92672)",
              "scale_accum_const_plain": "DGEMM (4096x4096) int64 word f64",
@@ -634,9 +704,11 @@ def phase_kernels(dev):
         if c["graph"]:
             rec["timing"] = "cuda graph replay"
             rec["eager_ms"] = time_ms(c["bench"], c["reps"])
-            rec["route"] = routes[0]
-            extra = (f"  route {routes[0]}, {100 * b_ms / ms:.0f}% of bound"
-                     f", eager {rec['eager_ms']:.4f} ms")
+            extra = (f"  {100 * b_ms / ms:.0f}% of bound, eager "
+                     f"{rec['eager_ms']:.4f} ms")
+            if routes:
+                rec["route"] = routes[0]
+                extra = f"  route {routes[0]}," + extra
         if c["flash_route"] is not None:
             rec["route"] = c["flash_route"]
             extra = (f"  route {c['flash_route']}, {100 * b_ms / ms:.1f}% "
@@ -646,12 +718,71 @@ def phase_kernels(dev):
         if c["tol"] is not None and need is not None:
             rec["bf16_atol_needed"] = need
         results.setdefault(c["kernel"], []).append(rec)
-        log(f"[kernels] {c['kernel']:17s} {c['label']:42s} {check}  "
+        log(f"[kernels] {c['kernel']:17s} {c['label']:46s} {check}  "
             f"{ms:9.4f} ms  plain {plain_ms:9.4f} ms  bound {b_ms:8.4f} ms "
             f"({b_by})  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}{extra}")
+    no_torch_ops(dev)
     reset_launches()     # comparison launches do not count
     return results
+
+
+# what a one-launch wrapper may dispatch: its output allocations and views
+ALLOC_OR_VIEW = {"aten.empty.memory_format", "aten.transpose.int"}
+
+
+def no_torch_ops(dev):
+    """The split and the df32 epilogue run on the card as their kernels
+    alone: under a dispatch mode, ``ops.split_fused`` (A and B sides, the
+    main path's modes; the attention's B operands as the permuted KV-cache
+    views serving passes) and ``ops.scale_accum_contraction`` dispatch no
+    PyTorch operation but their output allocations and views."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core.ozimmu import canonical_rhs
+    from repro_torch.kernels import ops
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    a = torch.randn((SLOTS, 2048), device=dev)
+    prods = [torch.zeros((SLOTS, 2048), dtype=torch.int32, device=dev)
+             for _ in range(4)]
+    ones = torch.ones((SLOTS,), device=dev), torch.ones((2048,), device=dev)
+    calls = [(f"split {mode} axis={axis}",
+              lambda mode=mode, axis=axis: ops.split_fused(
+                  a, 4, 7, mode=mode, axis=axis))
+             for mode in ("rn_const", "sm", "oz2_rn_fast2")
+             for axis in (0, 1)]
+    cache = torch.randn((SLOTS, PROMPT + GEN, 8, 128), device=dev)
+    for name, dn in (("scores", (((3,), (3,)), ((0, 1), (0, 2)))),
+                     ("p@v", (((3,), (1,)), ((0, 1), (0, 2))))):
+        view = canonical_rhs(cache, dn)[0]
+        assert not view.is_contiguous()
+        calls += [(f"split {mode} {name} B (KV-cache view)",
+                   lambda mode=mode, view=view: ops.split_fused(
+                       view, 4, 7, mode=mode, axis=1))
+                  for mode in ("rn_const", "sm")]
+    calls.append(("df32 epilogue C=4", lambda: ops.scale_accum_contraction(
+        prods, [2, 3, 4, 5], *ones, 7)))
+    for name, fn in calls:
+        fn()
+        with Record() as rec:
+            fn()
+        extra = set(rec.ops) - ALLOC_OR_VIEW
+        if extra:
+            raise AssertionError(f"{name}: the wrapper ran PyTorch "
+                                 f"operations on the card: {sorted(extra)}")
+    log(f"[kernels] no PyTorch operation besides allocations and views "
+        f"around the split (rn_const, sm, oz2_rn_fast2; both axes; the "
+        f"attention's B operands as KV-cache views) or the df32 epilogue "
+        f"on the card")
 
 
 def wrapper_host_us(dev, reps=2000, turns=3):
@@ -849,6 +980,20 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False):
         if counts[name] <= 0:
             raise AssertionError(f"{tag} path launched no {name} kernel")
     check_route(tag, counts, "skinny")
+    # per model step: one split launch per split operand (the A side of 7
+    # projections a layer and the LM head's, both sides of the two
+    # attention products), 4 group GEMMs per contraction (k = 4: one chunk
+    # a group), and under df32 group-EF one epilogue launch a contraction
+    steps = s["prefill_calls"] * PROMPT + s["decode_steps"]
+    contractions = cfg.n_layers * 9 + 1
+    want = {"split_fused": steps * (cfg.n_layers * 11 + 1),
+            "group_gemm": steps * contractions * 4}
+    if "scale_accum" in kernels:
+        want["scale_accum"] = steps * contractions
+    got = {name: counts[name] for name in want}
+    log(f"[{tag}] {steps} model steps: launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
     if s["requests"]["finished"] != REQUESTS or \
             s["tokens_generated"] != REQUESTS * GEN:
         raise AssertionError(f"{tag} finished {s['requests']} with "
@@ -932,10 +1077,10 @@ def serve_trace(rt, prompts, tag, untraced):
         out = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(out))
         events = json.loads(out.read_text()).get("traceEvents", [])
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in events
-                   if e.get("ph") == "X" and e.get("cat") in
-                   ("kernel", "gpu_memcpy", "gpu_memset"))
+                   for e in ops)
     steps = s["prefill_calls"] * 8 + s["decode_steps"]
     step_ms = s["elapsed_s"] / steps * 1e3
     base_ms = untraced["elapsed_s"] / (
@@ -959,6 +1104,36 @@ def serve_trace(rt, prompts, tag, untraced):
         f"{1 - busy / span:.4f}; {busy / steps / 1e3:.3f} ms of device time "
         f"and {step_ms:.2f} ms of wall time a step traced ({base_ms:.2f} ms "
         f"a step in the untraced run)")
+    by = {}
+    for e in ops:
+        cls = trace_class(e)
+        n, us = by.get(cls, (0, 0.0))
+        by[cls] = (n + 1, us + float(e["dur"]))
+    log(f"[{tag}] trace by kernel, a model step: " + "; ".join(
+        f"{cls} {by.get(cls, (0, 0.0))[0] / steps:.1f} operations, "
+        f"{by.get(cls, (0, 0.0))[1] / steps / 1e3:.3f} ms"
+        for cls in TRACE_CLASSES))
+
+
+TRACE_CLASSES = ("split", "group GEMM", "epilogue", "other (PyTorch)",
+                 "memset/memcpy")
+
+
+def trace_class(event) -> str:
+    """The port's kernel a traced device operation belongs to, by its
+    name (the kernels' names in ``kernels/csrc``), else PyTorch's own
+    kernels, or a memset/memcpy (the skinny group GEMM zeroes its output
+    with one)."""
+    if event.get("cat") != "kernel":
+        return "memset/memcpy"
+    name = event.get("name", "")
+    if "split_rows" in name or "split_cols" in name:
+        return "split"
+    if "skinny::" in name or "large::" in name:
+        return "group GEMM"
+    if "scale_accum" in name or "unscale_kernel" in name:
+        return "epilogue"
+    return "other (PyTorch)"
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,12 @@ and ``scale_accum_fn(prod, srow, scol, acc)`` replace the int8 products and
 the convert+scale+add epilogue (the ``:fused`` pipeline substitutes the
 kernels of ``repro_torch.kernels.ops``); ``matmul_oz2`` takes
 ``scale_accum_fn(word, scale, acc)`` and ``unscale_fn(acc, ra, rb)``
-instead.  ``partial=True`` returns the unrounded accumulator.  The mesh
-``product_reduce`` hook comes with the distributed slice of the port.
+instead, and ``matmul_group_ef`` takes ``epilogue_fn`` for its df32
+accumulator: the whole epilogue of a contraction in one call (default
+:func:`df32_epilogue`; the reference has no such hook, its per-chunk
+epilogue runs inside one jitted program).  ``partial=True``
+returns the unrounded accumulator.  The mesh ``product_reduce`` hook comes
+with the distributed slice of the port.
 
 Subnormals are flushed as the reference's XLA arithmetic flushes them
 (``splitting.ftz``): every epilogue reads subnormal scales and
@@ -58,6 +62,7 @@ from repro_torch.kernels import group_gemm as _gg
 __all__ = [
     "matmul_naive",
     "matmul_group_ef",
+    "df32_epilogue",
     "matmul_oz2",
     "num_highprec_adds",
     "oz2_groups",
@@ -233,12 +238,27 @@ def matmul_naive(sa: Split, sb: Split, *, accum: str = "f64",
 # Alg. 6/7 — group-wise error-free accumulation
 # ---------------------------------------------------------------------------
 
-def _group_rows(base_a: torch.Tensor, beta: int, k: int) -> torch.Tensor:
-    """The row scales ``base_a * 2^(-beta*g)`` of groups g = 2..k+1 in one
-    multiply, ``(k, *batch, m)`` (row g-2 for group g); exact powers of two,
-    left for the epilogue to flush."""
-    exps = _geo_exps(beta, k + 1, base_a.dtype, base_a.device)[1:]
-    return base_a[None] * exps.reshape((k,) + (1,) * base_a.ndim)
+def _group_rows(base_a: torch.Tensor, beta: int, gmax: int) -> torch.Tensor:
+    """The row scales ``base_a * 2^(-beta*g)`` of groups g = 1..gmax in one
+    multiply, ``(gmax, *batch, m)`` (row g-1 for group g); exact powers of
+    two, left for the epilogue to flush."""
+    exps = _geo_exps(beta, gmax, base_a.dtype, base_a.device)
+    return base_a[None] * exps.reshape((gmax,) + (1,) * base_a.ndim)
+
+
+def df32_epilogue(prods, groups, base_a: torch.Tensor, base_b: torch.Tensor,
+                  beta: int, *, partial: bool = False,
+                  out_dtype=torch.float32) -> Union[torch.Tensor, DF32]:
+    """The df32 epilogue of a group-EF contraction: from a zero accumulator,
+    one compensated step per chunk product ``prods[i]`` of group
+    ``groups[i]`` (row scale ``base_a * 2^(-beta*g)``, column scale
+    ``base_b``), then the conversion to ``out_dtype`` unless ``partial``.
+    The default of ``matmul_group_ef``'s ``epilogue_fn`` hook."""
+    acc = df32_zero(prods[0].shape, prods[0].device)
+    srows = _group_rows(base_a, beta, max(groups))
+    for g, prod in zip(groups, prods):
+        acc = _scale_accum_df32(prod, srows[g - 1], base_b, acc)
+    return acc if partial else acc.to_float(out_dtype)
 
 
 def _group_chunks(k: int, r: int):
@@ -252,11 +272,15 @@ def _group_chunks(k: int, r: int):
 def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
                     out_dtype=None, r: Optional[int] = None,
                     group_gemm_fn=None, partial: bool = False,
-                    scale_accum_fn: Optional[Callable] = None
+                    scale_accum_fn: Optional[Callable] = None,
+                    epilogue_fn: Optional[Callable] = None
                     ) -> Union[torch.Tensor, DF32]:
     """Group-wise error-free accumulation (Alg. 6; Alg. 7 when r >= k).
     Needs geometric slice scales: every pair of group g carries
-    ``baseA (x) baseB * 2^(-beta*g)``."""
+    ``baseA (x) baseB * 2^(-beta*g)``.  The df32 accumulator runs its
+    whole epilogue through ``epilogue_fn`` (:func:`df32_epilogue`'s
+    signature and result; the ``:fused`` pipeline's one-launch kernel), the
+    f32/f64 ones one ``scale_accum_fn`` step per chunk."""
     assert sa.axis == 0 and sb.axis == 1
     if sa.base is None or sb.base is None:
         raise ValueError("group-EF accumulation needs geometric slice scales "
@@ -275,21 +299,18 @@ def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
 
     # The 2^(-beta*g) group exponent folds into the row scale (exact).
     if accum == "df32":
-        fn = scale_accum_fn or _scale_accum_df32
-        acc = df32_zero(out_shape, device)
-        srows = _group_rows(sa.base.to(torch.float32), beta, k)
-        base_b = sb.base.to(torch.float32)
-        for (g, _), prod in zip(chunks, prods):
-            acc = fn(prod, srows[g - 2], base_b, acc)
-        return acc if partial else acc.to_float(out_dtype)
+        return (epilogue_fn or df32_epilogue)(
+            prods, [g for g, _ in chunks], sa.base.to(torch.float32),
+            sb.base.to(torch.float32), beta, partial=partial,
+            out_dtype=out_dtype)
 
     acc_dtype = _ACC_DTYPES[accum]
     fn = scale_accum_fn or _scale_accum_plain
     c = torch.zeros(out_shape, dtype=acc_dtype, device=device)
-    srows = _group_rows(sa.base.to(acc_dtype), beta, k)
+    srows = _group_rows(sa.base.to(acc_dtype), beta, k + 1)
     base_b = sb.base.to(acc_dtype)
     for (g, _), prod in zip(chunks, prods):
-        c = fn(prod, srows[g - 2], base_b, c)
+        c = fn(prod, srows[g - 1], base_b, c)
     return c if partial else _narrow(c, out_dtype)
 
 

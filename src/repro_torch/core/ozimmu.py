@@ -247,6 +247,7 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
     """Single-device emulated batched matmul on canonical operands."""
     sa, sb = split_operands(a, b, cfg, rhs_presplit=rhs_presplit)
     group_gemm_fn = scale_accum_fn = pair_gemm_fn = unscale_fn = None
+    epilogue_fn = None
     if cfg.use_pallas:
         from repro_torch.kernels import ops as kops
         if cfg.accumulate == "naive":
@@ -260,6 +261,10 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
                               if cfg.accumulate == "oz2"
                               else kops.scale_accum_update)
             unscale_fn = kops.oz2_unscale_update
+            if cfg.accum_dtype == "df32":
+                # group-EF df32: the contraction's whole epilogue in one
+                # launch
+                epilogue_fn = kops.scale_accum_contraction
     if cfg.accumulate == "naive":
         return accumulate.matmul_naive(
             sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype,
@@ -276,7 +281,7 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
     return accumulate.matmul_group_ef(
         sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype, r=r,
         group_gemm_fn=group_gemm_fn, partial=partial,
-        scale_accum_fn=scale_accum_fn)
+        scale_accum_fn=scale_accum_fn, epilogue_fn=epilogue_fn)
 
 
 def _check_presplit(a: torch.Tensor, b_shape, cfg: OzimmuConfig,

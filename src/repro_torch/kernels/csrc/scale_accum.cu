@@ -2,7 +2,15 @@
 //
 // Replaces five TPU kernels of repro/kernels/scale_accum.py:
 //   * scale_accum       (body _scale_accum_kernel): the df32 accumulator
-//       (hi, lo) += srow * float(P32) * scol, compensated;
+//       (hi, lo) += srow * float(P32) * scol, compensated.  On the card
+//       one launch runs the whole df32 epilogue of a group-EF contraction
+//       (scale_accum_chunks): every chunk product, in the reference's
+//       order, from a zero accumulator kept in registers, with the row
+//       scale base_a * 2^(-beta g) of each chunk's group g formed in the
+//       kernel, and the result written once, as ftz(hi + lo) (the f32
+//       DF32.to_float) or as (hi, lo).  The single-chunk entry
+//       (scale_accum_df32: the accumulator read in and updated in place)
+//       is its C = 1 case;
 //   * scale_accum_plain (body _scale_accum_plain_kernel): the plain
 //       accumulator c += float(P32) * srow * scol in c's dtype (f32 or f64;
 //       Hopper runs the f64 accumulator natively, unlike the TPU);
@@ -22,23 +30,29 @@
 //   p_hi = (p >> 8) << 8 (arithmetic shift: written p & ~0xFF), p_lo = p - p_hi
 //   x_hi = (float(p_hi) * srow) * scol,  x_lo = (float(p_lo) * srow) * scol
 //   (hi, err) = TwoSum(hi, x_hi);  lo = (lo + err) + x_lo;  (hi, lo) = TwoSum(hi, lo)
-// Every add and multiply is an explicit round-to-nearest intrinsic
-// (__fadd_rn, __fmul_rn, ...), which the compiler never contracts into a
-// fused multiply-add, and the file is also compiled with --fmad=false: an
-// FMA inside TwoSum would change its rounding and break bit parity.  Each
-// also flushes subnormal operands and results to zero (ftz below), as the
+// Every add and multiply is an explicit round-to-nearest operation (the
+// f32 sums as PTX add.rn.ftz / sub.rn.ftz, the rest as intrinsics such as
+// __fmul_rn), which the compiler never contracts into a fused
+// multiply-add, and the file is also compiled with --fmad=false: an FMA
+// inside TwoSum would change its rounding and break bit parity.  Each also
+// flushes subnormal operands and results to zero (ftz below), as the
 // reference's XLA arithmetic does: scale products near the bottom of the
 // exponent range then round as the reference's do.
 //
-// The accumulators are updated IN PLACE.  The wrappers only pass buffers the
-// caller owns (the accumulators allocated by the accumulate routines).
+// The per-window accumulators are updated IN PLACE.  The wrappers only pass
+// buffers the caller owns (the accumulators allocated by the accumulate
+// routines).
 //
 // Bound on the H100: bytes (an elementwise pass: per element, 4 bytes of
 // P32, or 4/8 of the ladder word, plus a read and a write of the
 // accumulator, against ~20 flops; unscale reads x and writes out).  The
 // design is one fused pass instead of the separate passes of convert,
 // scalings and add; threads grid-stride over the flat batch so
-// neighbouring threads touch neighbouring addresses.
+// neighbouring threads touch neighbouring addresses.  The whole-contraction
+// df32 epilogue reads the C chunk products and writes the result once:
+// 4 C + 4 bytes an element (20 at C = 4, against 20 C for C single-chunk
+// launches plus the zeroing and the final conversion), with 16-byte loads
+// and stores of 4 elements a thread where the shapes allow.
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,21 +68,35 @@ __device__ __forceinline__ double ftz(double x) {
 }
 
 // every operation reads subnormal operands as zero and flushes a subnormal
-// result, as the reference's XLA arithmetic does
+// result, as the reference's XLA arithmetic does.  The f32 add and
+// subtract are one PTX instruction each (.ftz does both flushes): the
+// exact sum of two normal floats is a multiple of 2^-149, so a sum below
+// the normal range is exact before the flush, and add.rn.ftz equals
+// ftz(__fadd_rn(ftz(a), ftz(b))) for every input, signs of zero included.
 __device__ __forceinline__ float add_rn(float a, float b) {
-  return ftz(__fadd_rn(ftz(a), ftz(b)));
+  float d;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ double add_rn(double a, double b) {
   return ftz(__dadd_rn(ftz(a), ftz(b)));
 }
 __device__ __forceinline__ float sub_rn(float a, float b) {
-  return ftz(__fsub_rn(ftz(a), ftz(b)));
+  float d;
+  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return ftz(__fmul_rn(ftz(a), ftz(b)));
 }
 __device__ __forceinline__ double mul_rn(double a, double b) {
   return ftz(__dmul_rn(ftz(a), ftz(b)));
+}
+// a product of operands already flushed (or integers): the result's flush
+// only.  Products keep the explicit flush: a product can round up to the
+// smallest normal from below it, where a hardware flush might differ.
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  return ftz(__fmul_rn(a, b));
 }
 __device__ __forceinline__ float to_t(int v, float) {
   return __int2float_rn(v);
@@ -83,37 +111,111 @@ __device__ __forceinline__ double to_t(long long v, double) {
   return __ll2double_rn(v);
 }
 
-__global__ void scale_accum_kernel(const int32_t* __restrict__ p32,
-                                   const float* __restrict__ srow,
-                                   const float* __restrict__ scol,
-                                   float* __restrict__ hi,
-                                   float* __restrict__ lo, long long total,
-                                   long long m, long long pc) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// (hi, lo) += (xhi, xlo): TwoSum(hi, xhi), the low parts added, then the
+// full TwoSum renormalisation
+__device__ __forceinline__ void df32_add(float& hi, float& lo, float xhi,
+                                         float xlo) {
+  const float a = hi;
+  const float s = add_rn(a, xhi);
+  const float bb = sub_rn(s, a);
+  const float err = add_rn(sub_rn(a, sub_rn(s, bb)), sub_rn(xhi, bb));
+  const float l = add_rn(add_rn(lo, err), xlo);
+  const float s2 = add_rn(s, l);
+  const float bb2 = sub_rn(s2, s);
+  hi = s2;
+  lo = add_rn(sub_rn(s, sub_rn(s2, bb2)), sub_rn(l, bb2));
+}
+
+// 2^e in f32 as the conversion of the double 2^e rounds it (subnormal
+// below the normal range, zero below that; e <= 127)
+__device__ __forceinline__ float pow2f(int e) {
+  if (e >= -126) return __uint_as_float((uint32_t)(e + 127) << 23);
+  if (e >= -149) return __uint_as_float(1u << (e + 149));
+  return 0.0f;
+}
+
+constexpr int MAX_CHUNKS = 16;   // chunk products a launch
+
+// The chunk products of a contraction with their groups, by value.
+struct Chunks {
+  const int32_t* p[MAX_CHUNKS];
+  int g[MAX_CHUNKS];
+  int n;
+  int beta;
+};
+
+// The whole df32 epilogue of a contraction: for every element, the chunks
+// in order, each (hi, lo) += sr_g * float(P) * sc with the exact low-8-bit
+// split, where sr_g = ftz(base_a * 2^(-beta g)) and sc = base_b (flushed
+// on read).  READ: start from (hi_in, lo_in) instead of +0.  SUM: write
+// ftz(hi + lo) to hi_out; else write hi_out and lo_out (in place allowed:
+// each element is read and written by one thread).  VEC = 4: four elements
+// of one row a thread, 16-byte loads and stores (p % 4 == 0, aligned).
+template <int VEC, bool READ, bool SUM>
+__global__ void __launch_bounds__(256)
+    scale_accum_chunks_kernel(const Chunks ch,
+                              const float* __restrict__ base_a,
+                              const float* __restrict__ base_b,
+                              const float* hi_in, const float* lo_in,
+                              float* hi_out, float* lo_out, long long total,
+                              long long m, long long pc) {
+  const long long step = (long long)gridDim.x * blockDim.x * VEC;
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
        e < total; e += step) {
     const long long col = e % pc;
     const long long brow = e / pc;          // b * m + row
     const long long b = brow / m;
-    const float sr = srow[brow];
-    const float sc = scol[b * pc + col];
-    const int pv = p32[e];
-    const int phi = pv & ~0xFF;             // == (pv >> 8) << 8
-    const int plo = pv - phi;               // in [0, 255]
-    const float xhi = mul_rn(mul_rn(__int2float_rn(phi), sr), sc);
-    const float xlo = mul_rn(mul_rn(__int2float_rn(plo), sr), sc);
-    // TwoSum(hi, xhi)
-    const float a = hi[e];
-    const float s = add_rn(a, xhi);
-    const float bb = sub_rn(s, a);
-    const float err = add_rn(sub_rn(a, sub_rn(s, bb)), sub_rn(xhi, bb));
-    const float l = add_rn(add_rn(lo[e], err), xlo);
-    // TwoSum(s, l): full renormalisation
-    const float s2 = add_rn(s, l);
-    const float bb2 = sub_rn(s2, s);
-    const float e2 = add_rn(sub_rn(s, sub_rn(s2, bb2)), sub_rn(l, bb2));
-    hi[e] = s2;
-    lo[e] = e2;
+    const float ba = base_a[brow];
+    float sc[VEC], hi[VEC], lo[VEC];
+    if constexpr (VEC == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(base_b + b * pc +
+                                                        col);
+      sc[0] = v.x; sc[1] = v.y; sc[2] = v.z; sc[3] = v.w;
+    } else {
+      sc[0] = base_b[b * pc + col];
+    }
+    // every operand is flushed once here; each result below is flushed by
+    // its own operation, so no operand is flushed again
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      sc[j] = ftz(sc[j]);
+      hi[j] = READ ? ftz(hi_in[e + j]) : 0.0f;
+      lo[j] = READ ? ftz(lo_in[e + j]) : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < MAX_CHUNKS; ++c) {
+      if (c >= ch.n) break;
+      const float sr = ftz(__fmul_rn(ba, pow2f(-ch.beta * ch.g[c])));
+      int pv[VEC];
+      if constexpr (VEC == 4) {
+        const int4 v = *reinterpret_cast<const int4*>(ch.p[c] + e);
+        pv[0] = v.x; pv[1] = v.y; pv[2] = v.z; pv[3] = v.w;
+      } else {
+        pv[0] = ch.p[c][e];
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int phi = pv[j] & ~0xFF;      // == (pv >> 8) << 8
+        const int plo = pv[j] - phi;        // in [0, 255]
+        df32_add(hi[j], lo[j],
+                 mul_ftz(mul_ftz(__int2float_rn(phi), sr), sc[j]),
+                 mul_ftz(mul_ftz(__int2float_rn(plo), sr), sc[j]));
+      }
+    }
+    if constexpr (SUM) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) hi[j] = add_rn(hi[j], lo[j]);
+    }
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(hi_out + e) =
+          make_float4(hi[0], hi[1], hi[2], hi[3]);
+      if constexpr (!SUM)
+        *reinterpret_cast<float4*>(lo_out + e) =
+            make_float4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      hi_out[e] = hi[0];
+      if constexpr (!SUM) lo_out[e] = lo[0];
+    }
   }
 }
 
@@ -135,7 +237,7 @@ __global__ void scale_accum_plain_kernel(const int32_t* __restrict__ p32,
   }
 }
 
-// The df32 ladder window: the same sequence as scale_accum_kernel with one
+// The df32 ladder window: the same sequence as the df32 epilogue with one
 // multiply by the batch element's scalar instead of srow and scol.
 __global__ void scale_accum_const_kernel(const int32_t* __restrict__ word,
                                          const float* __restrict__ scale,
@@ -149,18 +251,11 @@ __global__ void scale_accum_const_kernel(const int32_t* __restrict__ word,
     const int pv = word[e];
     const int phi = pv & ~0xFF;             // == (pv >> 8) << 8
     const int plo = pv - phi;               // in [0, 255]
-    const float xhi = mul_rn(__int2float_rn(phi), sv);
-    const float xlo = mul_rn(__int2float_rn(plo), sv);
-    const float a = hi[e];
-    const float s = add_rn(a, xhi);
-    const float bb = sub_rn(s, a);
-    const float err = add_rn(sub_rn(a, sub_rn(s, bb)), sub_rn(xhi, bb));
-    const float l = add_rn(add_rn(lo[e], err), xlo);
-    const float s2 = add_rn(s, l);
-    const float bb2 = sub_rn(s2, s);
-    const float e2 = add_rn(sub_rn(s, sub_rn(s2, bb2)), sub_rn(l, bb2));
-    hi[e] = s2;
-    lo[e] = e2;
+    float h = hi[e], l = lo[e];
+    df32_add(h, l, mul_rn(__int2float_rn(phi), sv),
+             mul_rn(__int2float_rn(plo), sv));
+    hi[e] = h;
+    lo[e] = l;
   }
 }
 
@@ -198,21 +293,95 @@ long long blocks_for(long long total) {
   return blocks > 132LL * 32 ? 132LL * 32 : blocks;
 }
 
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int VEC>
+void launch_chunks(const Chunks& ch, const float* ba, const float* bb,
+                   const float* hi_in, const float* lo_in, float* hi_out,
+                   float* lo_out, bool sum, long long total, long long m,
+                   long long p, cudaStream_t st) {
+  const int blocks = (int)blocks_for((total + VEC - 1) / VEC);
+  const bool read = hi_in != nullptr;
+#define CHUNKS_LAUNCH(R, S)                                                  \
+  scale_accum_chunks_kernel<VEC, R, S><<<blocks, 256, 0, st>>>(              \
+      ch, ba, bb, hi_in, lo_in, hi_out, lo_out, total, m, p)
+  if (read) {
+    if (sum) CHUNKS_LAUNCH(true, true);
+    else CHUNKS_LAUNCH(true, false);
+  } else {
+    if (sum) CHUNKS_LAUNCH(false, true);
+    else CHUNKS_LAUNCH(false, false);
+  }
+#undef CHUNKS_LAUNCH
+}
+
+int run_chunks(const Chunks& ch, const void* base_a, const void* base_b,
+               const void* hi_in, const void* lo_in, void* hi_out,
+               void* lo_out, int sum, long long B, long long m, long long p,
+               void* stream) {
+  const long long total = B * m * p;
+  if (total <= 0) return 0;
+  if (ch.n < 1 || ch.n > MAX_CHUNKS || (hi_in == nullptr) != (lo_in == nullptr)
+      || (!sum && lo_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  bool vec = p % 4 == 0 && aligned16(base_b) && aligned16(hi_in) &&
+             aligned16(lo_in) && aligned16(hi_out) && aligned16(lo_out);
+  for (int c = 0; c < ch.n; ++c) vec = vec && aligned16(ch.p[c]);
+  const float* ba = static_cast<const float*>(base_a);
+  const float* bb = static_cast<const float*>(base_b);
+  const float* hin = static_cast<const float*>(hi_in);
+  const float* lin = static_cast<const float*>(lo_in);
+  float* hout = static_cast<float*>(hi_out);
+  float* lout = static_cast<float*>(lo_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    launch_chunks<4>(ch, ba, bb, hin, lin, hout, lout, sum, total, m, p, st);
+  else
+    launch_chunks<1>(ch, ba, bb, hin, lin, hout, lout, sum, total, m, p, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// p32 (B, m, p) int32; srow (B, m); scol (B, p); hi, lo (B, m, p) f32.
+// The whole df32 epilogue of a contraction (or n <= 16 of its chunks):
+// prods[c] (B, m, p) int32 with group groups[c]; base_a (B, m), base_b
+// (B, p) f32; hi_in, lo_in (B, m, p) f32 to start from, or both null for
+// zero; sum = 1: hi_out = ftz(hi + lo), lo_out unused; sum = 0: hi_out,
+// lo_out = (hi, lo) (may alias hi_in, lo_in).
+extern "C" int scale_accum_chunks(const void* const* prods,
+                                  const int* groups, int n, int beta,
+                                  const void* base_a, const void* base_b,
+                                  const void* hi_in, const void* lo_in,
+                                  void* hi_out, void* lo_out, int sum,
+                                  long long B, long long m, long long p,
+                                  void* stream) {
+  if (n < 1 || n > MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+  Chunks ch{};
+  for (int c = 0; c < n; ++c) {
+    ch.p[c] = static_cast<const int32_t*>(prods[c]);
+    ch.g[c] = groups[c];
+  }
+  ch.n = n;
+  ch.beta = beta;
+  return run_chunks(ch, base_a, base_b, hi_in, lo_in, hi_out, lo_out, sum,
+                    B, m, p, stream);
+}
+
+// One chunk into a given accumulator, in place: p32 (B, m, p) int32; srow
+// (B, m); scol (B, p); hi, lo (B, m, p) f32.  The C = 1 case of
+// scale_accum_chunks with group 0 (row scale srow * 2^0).
 extern "C" int scale_accum_df32(const void* p32, const void* srow,
                                 const void* scol, void* hi, void* lo,
                                 long long B, long long m, long long p,
                                 void* stream) {
-  const long long total = B * m * p;
-  if (total <= 0) return 0;
-  scale_accum_kernel<<<(int)blocks_for(total), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(p32), static_cast<const float*>(srow),
-      static_cast<const float*>(scol), static_cast<float*>(hi),
-      static_cast<float*>(lo), total, m, p);
-  return (int)cudaGetLastError();
+  Chunks ch{};
+  ch.p[0] = static_cast<const int32_t*>(p32);
+  ch.g[0] = 0;
+  ch.n = 1;
+  ch.beta = 0;
+  return run_chunks(ch, srow, scol, hi, lo, hi, lo, 0, B, m, p, stream);
 }
 
 // c (B, m, p) and the scales in c's dtype: f32 (is_f64 = 0) or f64.

@@ -131,19 +131,23 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Plain version of the backward kernels: ``(dq, dk, dv)`` with p
-    recomputed from ``lse``, dk/dv in the unexpanded ``(BKV, ...)`` layout
-    (the group's query heads summed)."""
-    f32 = torch.float32
+    recomputed from ``lse`` on the f32 scores the forward formed, dk/dv in
+    the unexpanded ``(BKV, ...)`` layout (the group's query heads summed).
+    The products and sums run in f64 and each gradient is rounded once to
+    the input dtype: where a row's every key is masked, p is 1 on every key
+    and its sums over thousands of keys cancel, so f32 sums would miss the
+    reference's 2e-4 by themselves (the kernels sum more exactly)."""
+    f64 = torch.float64
     scale = float(q.shape[-1]) ** -0.5
     p = torch.exp(_scores(q, k, group, causal, window, _lk(k, lk), q_offset)
-                  - lse.to(f32))
-    do = dout.to(f32)
-    kg = k.repeat_interleave(group, dim=0).to(f32)
-    vg = v.repeat_interleave(group, dim=0).to(f32)
-    delta = (do * out.to(f32)).sum(dim=-1, keepdim=True)
+                  .to(f64) - lse.to(f64))
+    do = dout.to(f64)
+    kg = k.repeat_interleave(group, dim=0).to(f64)
+    vg = v.repeat_interleave(group, dim=0).to(f64)
+    delta = (do * out.to(f64)).sum(dim=-1, keepdim=True)
     ds = p * (torch.matmul(do, vg.transpose(-1, -2)) - delta)
     dq = torch.matmul(ds, kg) * scale
-    dkg = torch.matmul(ds.transpose(-1, -2), q.to(f32)) * scale
+    dkg = torch.matmul(ds.transpose(-1, -2), q.to(f64)) * scale
     dvg = torch.matmul(p.transpose(-1, -2), do)
     BKV = k.shape[0]
     dk = dkg.reshape((BKV, group) + dkg.shape[1:]).sum(dim=1)

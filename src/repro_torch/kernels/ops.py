@@ -1,28 +1,29 @@
 """Split-level wrappers around the kernels — PyTorch port of
 ``repro.kernels.ops``.
 
-They derive row maxima, bases and reciprocal grids exactly as the reference
-does, then hand the tensors to the kernel modules (the CUDA kernel for a
-CUDA tensor, the plain version for a CPU tensor).  The reference pads every
-operand to the TPU's 128-lane tiles and takes its tile sizes from the
-planner; the CUDA kernels mask their own ragged edges and own their tile
-sizes, so nothing here pads — except :func:`flash_attention`, whose padding
-decides what a fully masked row averages, and which pads as the reference
-does.
+On the card the split is one launch of the split kernel (row maxima,
+bases, reciprocal grids, scales and digits); only the Ozaki-II
+constant-grid modes derive their grid here first (their maximum spans a
+whole batch element).  The df32 group-EF epilogue of a contraction is one
+launch of the epilogue kernel over all its chunk products.  A CPU tensor
+takes the kernels' plain versions, the same operations as separate
+PyTorch calls.  The reference pads every operand to the TPU's 128-lane
+tiles and takes its tile sizes from the planner; the CUDA kernels mask
+their own ragged edges and own their tile sizes, so nothing here pads —
+except :func:`flash_attention`, whose padding decides what a fully masked
+row averages, and which pads as the reference does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.accumulate import DF32, slice_group_gemm
-from repro_torch.core.splitting import (Split, _geo_scales, _global_base,
-                                        _pow2_ceil, _pow2_floor, _rowmax,
-                                        _with_fast2_gbase, ftz)
+from repro_torch.core.splitting import Split, _geo_scales, _global_base
 from repro_torch.kernels import scale_accum as _sa
 from repro_torch.kernels import split_fused as _sf
 
-__all__ = ["split_fused", "split_invgrid", "group_gemm",
-           "scale_accum_update",
+__all__ = ["split_fused", "split_fused_ref", "group_gemm",
+           "scale_accum_update", "scale_accum_contraction",
            "oz2_scale_accum_update", "oz2_unscale_update",
            "flash_attention"]
 
@@ -32,28 +33,35 @@ _KERNEL_MODE = {"bitmask": "bitmask", "oz2_bitmask": "bitmask",
                 "oz2_rn": "rn_const", "oz2_rn_fast2": "rn_const", "sm": "sm"}
 
 
-def split_invgrid(a: torch.Tensor, beta: int, mode: str, axis: int):
-    """``(base, invgrid)`` of a fused split: the per-row (``axis=0``) or
-    per-column base and the reciprocal first grid the kernel multiplies
-    by, derived as the reference does.  Only the first RN grid ``mu`` can
-    underflow, and it is flushed as the reference's (``splitting.ftz``);
-    the bases are normal powers of two, and a subnormal ``invgrid`` is
-    read as zero by the split kernel and its plain version."""
+# the Ozaki-II constant-grid modes: one maximum per batch element
+_GLOBAL = ("oz2_rn", "oz2_bitmask")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _KERNEL_MODE:
+        raise ValueError(f"fused splitting supports {sorted(_KERNEL_MODE)}"
+                         f", got {mode!r}")
+
+
+def _split(a, k, beta, mode, axis, plain: bool) -> Split:
+    """The Split through the kernels' wrappers, or their plain versions
+    (``plain``).  The constant-grid modes derive each batch element's
+    maximum and grid here (``split_fused.grid``) and extract the digits on
+    it; every other mode is one whole split."""
+    _check_mode(mode)
     kmode = _KERNEL_MODE[mode]
-    rowmax = (_global_base(a, axis, None) if mode in ("oz2_rn", "oz2_bitmask")
-              else _rowmax(a, axis))
-    if kmode == "bitmask":
-        base = 2.0 * _pow2_floor(rowmax)
-        invgrid = (2.0 ** beta) / base  # 1/grid_1, grid_1 = base*2^-beta
-    elif kmode == "rn_const":
-        mu = ftz(_pow2_ceil(rowmax) * (2.0 ** (1 - beta)))
-        base = mu * (2.0 ** beta)
-        invgrid = 1.0 / mu
-    else:
-        anchor = 2.0 * _pow2_floor(rowmax)
-        base = 2.0 * anchor
-        invgrid = (2.0 ** (beta - 1)) / anchor
-    return base, invgrid
+    if mode in _GLOBAL:
+        base, invgrid = _sf.grid(_global_base(a, axis, None), beta, kmode)
+        extract = _sf.split_fused_ref if plain else _sf.split_fused
+        digits = extract(a, invgrid, k=k, beta=beta, mode=kmode, axis=axis)
+        return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
+                     gbase=base[..., 0])
+    whole = _sf.split_whole_ref if plain else _sf.split_whole
+    digits, scale, base, gbase = whole(a, k=k, beta=beta, mode=kmode,
+                                       axis=axis,
+                                       gbase=mode.endswith("_fast2"))
+    return Split(digits, scale, base, beta, axis, gbase=gbase,
+                 signmag=(mode == "sm"))
 
 
 def split_fused(a: torch.Tensor, k: int, beta: int, *,
@@ -65,21 +73,22 @@ def split_fused(a: torch.Tensor, k: int, beta: int, *,
     ``(*batch, m, n)``; ``axis=1`` (column scales, for B) indexes the grid
     per column instead of transposing.
 
+    On the card every per-row mode is ONE launch of the split kernel
+    (``split_fused.split_whole``): no PyTorch operation runs around it.
     The plain oz2 modes broadcast the global maximum of each batch element
     onto the per-row reciprocal grid, which is bit-identical to the
-    reference's constant-grid kernel, so the kernel needs no mode of its
-    own.  The fast2 modes keep the per-row grids and attach ``gbase = 2``
-    (``splitting._with_fast2_gbase``)."""
-    if mode not in _KERNEL_MODE:
-        raise ValueError(f"fused splitting supports {sorted(_KERNEL_MODE)}"
-                         f", got {mode!r}")
-    base, invgrid = split_invgrid(a, beta, mode, axis)
-    digits = _sf.split_fused(a, invgrid, k=k, beta=beta,
-                             mode=_KERNEL_MODE[mode], axis=axis)
-    sp = Split(digits, _geo_scales(base, beta, k), base, beta, axis,
-               gbase=base[..., 0] if mode in ("oz2_rn", "oz2_bitmask")
-               else None, signmag=(mode == "sm"))
-    return _with_fast2_gbase(sp) if mode.endswith("_fast2") else sp
+    reference's constant-grid kernel; that grid is derived here and the
+    digits come from the kernel.  The fast2 modes keep the per-row grids
+    and attach ``gbase = 2`` (``splitting._with_fast2_gbase``).  A CPU
+    tensor takes the plain versions (:func:`split_fused_ref`)."""
+    return _split(a, k, beta, mode, axis, plain=False)
+
+
+def split_fused_ref(a: torch.Tensor, k: int, beta: int, *,
+                    mode: str = "rn_const", axis: int = 0) -> Split:
+    """Plain version of :func:`split_fused` (on either device): the
+    maxima, grid, digits and scales as separate PyTorch operations."""
+    return _split(a, k, beta, mode, axis, plain=True)
 
 
 # the ``group_gemm_fn`` / ``pair_gemm_fn`` hook of ``accumulate`` (after
@@ -95,6 +104,24 @@ def scale_accum_update(prod: torch.Tensor, srow: torch.Tensor,
     if isinstance(acc, DF32):
         return DF32(*_sa.scale_accum(prod, srow, scol, acc.hi, acc.lo))
     return _sa.scale_accum_plain(prod, srow, scol, acc)
+
+
+def scale_accum_contraction(prods, groups, base_a: torch.Tensor,
+                            base_b: torch.Tensor, beta: int, *,
+                            partial: bool = False,
+                            out_dtype=torch.float32):
+    """``epilogue_fn`` hook of ``accumulate.matmul_group_ef`` (df32
+    accumulator): the whole epilogue of a contraction, every chunk product
+    ``prods`` with its group in ``groups``, through one launch of the
+    epilogue kernel (``scale_accum.scale_accum_chunks``), bit-identical to
+    the per-chunk plain epilogue and ``DF32.to_float``.  ``partial``
+    returns the :class:`DF32` accumulator; an output dtype other than f32
+    converts it here."""
+    if partial or out_dtype != torch.float32:
+        acc = DF32(*_sa.scale_accum_chunks(prods, groups, base_a, base_b,
+                                           beta, partial=True))
+        return acc if partial else acc.to_float(out_dtype)
+    return _sa.scale_accum_chunks(prods, groups, base_a, base_b, beta)
 
 
 def oz2_scale_accum_update(word: torch.Tensor, s: torch.Tensor, acc):

@@ -6,7 +6,11 @@ Replaces five TPU kernels of ``repro/kernels/scale_accum.py``:
   * ``scale_accum`` (body ``_scale_accum_kernel``) — the df32 accumulator
     ``(hi, lo) += srow * float(P32) * scol``: exact low-8-bit int32 split,
     TwoSum, full TwoSum renormalisation, in the order of
-    ``accumulate._scale_accum_df32``;
+    ``accumulate._scale_accum_df32``.  :func:`scale_accum_chunks` runs the
+    whole df32 epilogue of a group-EF contraction in one launch (every
+    chunk product from a zero accumulator, the group row scales formed in
+    the kernel, the result written once); :func:`scale_accum` is its
+    one-chunk case with the accumulator read in;
   * ``scale_accum_plain`` (body ``_scale_accum_plain_kernel``) — the plain
     accumulator ``c += float(P32) * srow * scol`` in c's dtype (f32 or
     f64; the f64 form runs natively on Hopper);
@@ -39,10 +43,12 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.accumulate import df32_epilogue
 from repro_torch.core.splitting import ftz
 from repro_torch.kernels import LAUNCHES, _build
 
-__all__ = ["scale_accum", "scale_accum_ref", "scale_accum_plain",
+__all__ = ["scale_accum", "scale_accum_ref", "scale_accum_chunks",
+           "scale_accum_chunks_ref", "MAX_CHUNKS", "scale_accum_plain",
            "scale_accum_plain_ref", "scale_accum_const",
            "scale_accum_const_ref", "scale_accum_const_plain",
            "scale_accum_const_plain_ref", "unscale", "unscale_ref"]
@@ -53,6 +59,10 @@ _ARGS_PLAIN = [_p, _p, _p, _p, _ll, _ll, _ll, _i, _p]
 _ARGS_CONST_DF32 = [_p, _p, _p, _p, _ll, _ll, _ll, _p]
 _ARGS_CONST_PLAIN = [_p, _p, _p, _ll, _ll, _ll, _i, _i, _p]
 _ARGS_UNSCALE = [_p, _p, _p, _p, _ll, _ll, _ll, _i, _p]
+_ARGS_CHUNKS = [_p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _i, _ll, _ll, _ll,
+                _p]
+
+MAX_CHUNKS = 16   # chunk products one launch takes (by value)
 
 
 def _two_sum(a, b):
@@ -124,6 +134,67 @@ def scale_accum(p32, srow, scol, c_hi, c_lo
     _build.check(fn(pp, ps, pc, c_hi.data_ptr(), c_lo.data_ptr(), B, m, p,
                     _build.stream(p32)), "scale_accum")
     return c_hi, c_lo
+
+
+def scale_accum_chunks_ref(prods, groups, base_a, base_b, beta: int, *,
+                           partial: bool = False):
+    """Plain version of :func:`scale_accum_chunks`: the CPU's df32
+    epilogue ``accumulate.df32_epilogue`` (from a zero (hi, lo), one
+    compensated step per chunk with its group's row scale, then
+    ``ftz(hi + lo)``), ``(hi, lo)`` with ``partial``."""
+    out = df32_epilogue(prods, groups, base_a, base_b, beta,
+                        partial=partial)
+    return tuple(out) if partial else out
+
+
+def scale_accum_chunks(prods, groups, base_a, base_b, beta: int, *,
+                       partial: bool = False):
+    """The whole df32 epilogue of a group-EF contraction: chunk products
+    ``prods`` (each ``(*batch, m, p)`` int32) of groups ``groups`` (g >= 1:
+    the pairs of group g carry ``2^(-beta g)``), ``base_a (*batch, m)``,
+    ``base_b (*batch, p)`` f32.  Returns f32 ``ftz(hi + lo)``, or ``(hi,
+    lo)`` with ``partial``.  On CUDA one launch per :data:`MAX_CHUNKS`
+    chunks (successive launches carry (hi, lo) through memory)."""
+    if len(prods) != len(groups) or not prods:
+        raise ValueError(f"need one group per chunk product, got "
+                         f"{len(prods)} products and {len(groups)} groups")
+    if min(groups) < 1:
+        raise ValueError(f"groups start at 1, got {list(groups)}")
+    if base_a.device.type == "cpu":
+        return scale_accum_chunks_ref(prods, groups, base_a, base_b, beta,
+                                      partial=partial)
+    _build.require_cuda(base_a, "scale_accum")
+    shape = tuple(prods[0].shape)
+    # keep the contiguous copies alive across the launches
+    prods = [p.contiguous() for p in prods]
+    base_a, base_b = base_a.contiguous(), base_b.contiguous()
+    _, pa, pb, B, m, p = _launch_args(prods[0], base_a, base_b, (),
+                                      torch.float32, "scale_accum")
+    for q in prods[1:]:
+        if tuple(q.shape) != shape or q.dtype != torch.int32 or \
+                q.device != base_a.device:
+            raise ValueError(f"scale_accum: chunk products differ: "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device} "
+                             f"after {shape} int32")
+    ptrs = [q.data_ptr() for q in prods]
+    dev = base_a.device
+    hi = torch.empty(shape, dtype=torch.float32, device=dev)
+    many = len(prods) > MAX_CHUNKS
+    lo = torch.empty_like(hi) if partial or many else None
+    fn = _build.function("scale_accum", "scale_accum_chunks", _ARGS_CHUNKS)
+    for i in range(0, len(prods), MAX_CHUNKS):
+        part = ptrs[i:i + MAX_CHUNKS]
+        last = i + MAX_CHUNKS >= len(prods)
+        sum_ = last and not partial
+        c_prods = (ctypes.c_void_p * len(part))(*part)
+        c_groups = (ctypes.c_int * len(part))(*groups[i:i + MAX_CHUNKS])
+        acc_in = (None, None) if i == 0 else (hi.data_ptr(), lo.data_ptr())
+        LAUNCHES["scale_accum"] += 1
+        _build.check(fn(c_prods, c_groups, len(part), beta, pa, pb, *acc_in,
+                        hi.data_ptr(), None if sum_ else lo.data_ptr(),
+                        int(sum_), B, m, p, _build.stream(base_a)),
+                     "scale_accum")
+    return (hi, lo) if partial else hi
 
 
 def scale_accum_plain(p32, srow, scol, c) -> torch.Tensor:

@@ -228,6 +228,26 @@ def test_flash_attention_kernels(dev, case, dtype):
         _assert_flash_close(a, b, 2e-4)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_flash_f32_backward_fully_masked_rows_full_width(dev, seed):
+    """The 3xTF32 backward at internlm2-1.8b's attention width (L 4096, 16
+    query and 8 KV heads, D 128) with 100 fully masked rows (q_offset
+    -100), where p is 1 on every key and the gradients' sums over 4096
+    keys cancel: within the reference's 2e-4 of the plain version, on
+    several draws."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(100 + seed)
+    q, k, v, do = (torch.randn(s, generator=g, device=dev)
+                   for s in ((16, 4096, 128), (8, 4096, 128),
+                             (8, 4096, 128), (16, 4096, 128)))
+    kw = dict(group=2, causal=True, q_offset=-100)
+    o, lse = fa.flash_attention_fwd_ref(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, b in zip(got, want):
+        _assert_flash_close(a, b, 2e-4)
+
+
 def _assert_flash_close(got, want, tol):
     if got.dtype == torch.bfloat16:
         got, want = got.float(), want.float()
@@ -406,3 +426,266 @@ def test_pipeline_underflow_equals_cpu(dev, spec):
     cfg = parse_spec(spec)
     assert _same(ozimmu_matmul(a, b, cfg).cpu(),
                  ozimmu_matmul(a.cpu(), b.cpu(), cfg))
+
+
+def _hostile_rows(g, dev, dtype, batch, m, n):
+    """Ordinary rows plus a zero row, a row with NaN, a row with an
+    infinity, a subnormal row, a row at the top of the range (its base
+    overflows to inf) and near-underflow rows."""
+    a = torch.randn(batch + (m, n), generator=g, device=dev, dtype=dtype)
+    fi = torch.finfo(dtype)
+    a[..., 0, :] = 0.0
+    a[..., 1, 3] = float("nan")
+    a[..., 2, 5] = -float("inf")
+    a[..., 3, :] = fi.tiny * torch.rand(batch + (n,), generator=g,
+                                        device=dev, dtype=dtype)
+    a[..., 4, :] *= fi.max / 8
+    a[..., 5, :] *= 1e-36 if dtype == torch.float32 else 1e-305
+    a[..., 6, :] *= 1e-37 if dtype == torch.float32 else 1e-307
+    return a
+
+
+WHOLE_MODES = ["bitmask", "rn_const", "sm", "oz2_bitmask_fast2",
+               "oz2_rn_fast2", "oz2_rn", "oz2_bitmask"]
+# (batch, R, C, k): ragged (no multiple of 4: the scalar paths), aligned
+# (16-byte loads, packed stores), long columns (several 128-row tiles)
+WHOLE_SHAPES = [((3,), 37, 53, 5), ((2,), 64, 128, 4), ((), 300, 36, 3)]
+
+
+@pytest.mark.parametrize("mode", WHOLE_MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("shape", WHOLE_SHAPES, ids=["ragged", "aligned",
+                                                     "long"])
+def test_split_whole_kernel(dev, mode, dtype, axis, shape):
+    """The one-launch split (row maxima, grids, bases, scales, digits) on
+    hostile rows against its plain version on the card, bitwise: every
+    field of the Split, one launch a split."""
+    from repro_torch.kernels import LAUNCHES, ops
+    batch, R, C, k = shape
+    g = torch.Generator(device=dev).manual_seed(15)
+    a = _hostile_rows(g, dev, dtype, batch, R, C)
+    if axis == 1:
+        a = a.transpose(-1, -2).contiguous()
+    beta = 8 if mode == "sm" else 7
+    before = LAUNCHES["split_fused"]
+    sp = ops.split_fused(a, k, beta, mode=mode, axis=axis)
+    assert LAUNCHES["split_fused"] == before + 1
+    ref = ops.split_fused_ref(a, k, beta, mode=mode, axis=axis)
+    assert torch.equal(sp.digits, ref.digits)
+    assert sp.digits.stride() == ref.digits.stride()
+    assert _same(sp.scale, ref.scale) and _same(sp.base, ref.base)
+    assert (sp.gbase is None) == (ref.gbase is None)
+    if ref.gbase is not None:
+        assert _same(sp.gbase, ref.gbase)
+
+
+@pytest.mark.parametrize("shape,axis", [((4, 2048), 0), ((4, 8192), 0),
+                                        ((32, 128, 48), 1),
+                                        ((32, 48, 128), 1),
+                                        ((8192, 96), 1), ((2, 4096, 40), 1)])
+def test_split_whole_kernel_decode_shapes(dev, shape, axis):
+    """The serve path's shapes: decode A rows, the attention B operands
+    (batched, axis 1), a long weight column strip."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(16)
+    a = torch.randn(shape, generator=g, device=dev)
+    for mode in ("rn_const", "sm"):
+        sp = ops.split_fused(a, 4, 7, mode=mode, axis=axis)
+        ref = ops.split_fused_ref(a, 4, 7, mode=mode, axis=axis)
+        assert torch.equal(sp.digits, ref.digits)
+        assert _same(sp.scale, ref.scale) and _same(sp.base, ref.base)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_split_whole_kernel_many_slices(dev, axis):
+    """k = 14 in f64: the column kernel's digit tile needs more than 48 KB
+    of shared memory (opted in at launch)."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(17)
+    a = torch.randn((200, 260), generator=g, device=dev,
+                    dtype=torch.float64)
+    sp = ops.split_fused(a, 14, 7, mode="rn_const", axis=axis)
+    ref = ops.split_fused_ref(a, 14, 7, mode="rn_const", axis=axis)
+    assert torch.equal(sp.digits, ref.digits)
+    assert _same(sp.scale, ref.scale)
+
+
+# the attention's B operands as serving passes them: (batch, KV, R, C)
+# views of a (batch, L, KV, D) cache; each name gives the storage's dims in
+# the view's order (0 batch, 1 KV, 2 R, 3 C) and the permutation back
+_CACHE_VIEWS = {"scores (D, L): rows of unit stride": ((0, 3, 1, 2),
+                                                       (0, 2, 3, 1)),
+                "p@v (L, D): rows strided": ((0, 2, 1, 3), (0, 2, 1, 3))}
+
+
+def _cache_view(x, name):
+    """``x`` (batch, KV, R, C) stored as a KV cache: the same values in a
+    permuted view of a cache tensor, as ``canonical_rhs`` hands it over."""
+    order, back = _CACHE_VIEWS[name]
+    store = torch.empty([x.shape[i] for i in order], dtype=x.dtype,
+                        device=x.device)
+    view = store.permute(*back)
+    view.copy_(x)
+    assert tuple(view.shape) == tuple(x.shape) and not view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("mode", WHOLE_MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", sorted(_CACHE_VIEWS))
+def test_split_whole_kernel_reads_cache_views(dev, mode, dtype, layout):
+    """The column split reads its operand through its strides: on the KV
+    cache's permuted views (hostile rows, ragged R and C) it equals the
+    split of the contiguous copy bitwise, with no copy made."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = _hostile_rows(g, dev, dtype, (2, 3), 37, 53)
+    view = _cache_view(x, layout)
+    beta = 8 if mode == "sm" else 7
+    sp = ops.split_fused(view, 5, beta, mode=mode, axis=1)
+    ref = ops.split_fused_ref(x, 5, beta, mode=mode, axis=1)
+    assert torch.equal(sp.digits, ref.digits)
+    assert _same(sp.scale, ref.scale) and _same(sp.base, ref.base)
+    if ref.gbase is not None:
+        assert _same(sp.gbase, ref.gbase)
+
+
+def _dispatched(fn):
+    """The aten operations ``fn()`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        fn()
+    return rec.ops
+
+
+# what a one-launch wrapper may dispatch: its output allocations and views
+_ALLOC_OR_VIEW = {"aten.empty.memory_format", "aten.transpose.int"}
+
+
+@pytest.mark.parametrize("mode", ["rn_const", "sm", "oz2_rn_fast2"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_split_wrapper_runs_no_pytorch_op(dev, mode, axis):
+    """On the card a per-row split is its kernel alone: no reduction, grid
+    or scale operation of PyTorch around it."""
+    from repro_torch.kernels import ops
+    a = torch.randn((4, 2048), device=dev)
+    ops.split_fused(a, 4, 7, mode=mode, axis=axis)          # builds
+    seen = _dispatched(lambda: ops.split_fused(a, 4, 7, mode=mode,
+                                               axis=axis))
+    assert set(seen) <= _ALLOC_OR_VIEW, seen
+
+
+@pytest.mark.parametrize("layout", sorted(_CACHE_VIEWS))
+def test_split_wrapper_runs_no_pytorch_op_on_cache_views(dev, layout):
+    """The attention's B operands at serve shapes (4 slots, 8 KV heads,
+    head dim 128, 48 cached positions), as permuted views of the cache:
+    the split is its kernel alone, no copy before it."""
+    from repro_torch.kernels import ops
+    shape = (4, 8, 128, 48) if layout.startswith("scores") else \
+        (4, 8, 48, 128)
+    a = _cache_view(torch.randn(shape, device=dev), layout)
+    for mode in ("rn_const", "sm"):
+        ops.split_fused(a, 4, 7, mode=mode, axis=1)
+        seen = _dispatched(lambda: ops.split_fused(a, 4, 7, mode=mode,
+                                                   axis=1))
+        assert set(seen) <= _ALLOC_OR_VIEW, seen
+
+
+def _chunk_inputs(g, dev, batch, m, p, C, tiny=False):
+    prods = [torch.randint(-2 ** 31, 2 ** 31 - 1, batch + (m, p),
+                           generator=g, device=dev, dtype=torch.int32)
+             for _ in range(C)]
+    lo, hi = (-75, -60) if tiny else (-30, 5)
+    base_a = torch.pow(2.0, torch.randint(lo, hi, batch + (m,), generator=g,
+                                          device=dev).float())
+    base_b = torch.pow(2.0, torch.randint(lo, hi, batch + (p,), generator=g,
+                                          device=dev).float())
+    return prods, base_a, base_b
+
+
+@pytest.mark.parametrize("C", [1, 4, 10, 16, 17, 36])
+@pytest.mark.parametrize("shape", [((2,), 5, 36), ((3,), 7, 13),
+                                   ((), 4, 9268)],
+                         ids=["aligned", "ragged", "decode"])
+@pytest.mark.parametrize("partial", [False, True])
+def test_scale_accum_chunks_kernel(dev, C, shape, partial):
+    """The whole-contraction df32 epilogue against its plain version,
+    bitwise: C chunks (more than one launch above 16), groups repeating as
+    small r makes them, the f32 sum or (hi, lo)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import scale_accum as sa
+    batch, m, p = shape
+    g = torch.Generator(device=dev).manual_seed(18 + C)
+    prods, base_a, base_b = _chunk_inputs(g, dev, batch, m, p, C)
+    groups = [2 + i // 3 for i in range(C)]
+    before = LAUNCHES["scale_accum"]
+    got = sa.scale_accum_chunks(prods, groups, base_a, base_b, 7,
+                                partial=partial)
+    assert LAUNCHES["scale_accum"] == before + -(-C // sa.MAX_CHUNKS)
+    want = sa.scale_accum_chunks_ref(prods, groups, base_a, base_b, 7,
+                                     partial=partial)
+    if partial:
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    else:
+        assert _same(got, want)
+
+
+def test_scale_accum_chunks_kernel_underflow(dev):
+    """Row and column scales whose products with the int32 sums fall below
+    the normal range, and group exponents that make the row scale
+    subnormal: the kernel flushes as its plain version does."""
+    from repro_torch.kernels import scale_accum as sa
+    g = torch.Generator(device=dev).manual_seed(19)
+    prods, base_a, base_b = _chunk_inputs(g, dev, (2,), 6, 44, 4, tiny=True)
+    for beta in (7, 20):
+        got = sa.scale_accum_chunks(prods, [2, 3, 4, 5], base_a, base_b,
+                                    beta)
+        want = sa.scale_accum_chunks_ref(prods, [2, 3, 4, 5], base_a,
+                                         base_b, beta)
+        assert _same(got, want)
+
+
+def test_epilogue_wrapper_runs_no_pytorch_op(dev):
+    """On the card a contraction's df32 epilogue is its kernel alone: no
+    zeroing, row-scale or conversion operation of PyTorch around it."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(20)
+    prods, base_a, base_b = _chunk_inputs(g, dev, (), 4, 2048, 4)
+    run = lambda: ops.scale_accum_contraction(prods, [2, 3, 4, 5], base_a,
+                                              base_b, 7)
+    run()
+    seen = _dispatched(run)
+    assert set(seen) <= _ALLOC_OR_VIEW, seen
+
+
+@pytest.mark.parametrize("spec", ["ozimmu_h-4:df32:fused",
+                                  "ozimmu_sm_h-4:df32:fused",
+                                  "ozimmu_ef-3:df32:fused"])
+def test_fused_attention_product_equals_cpu(dev, spec):
+    """A batched (attention-shaped) emulated product on the card, with its
+    one-launch splits and epilogue, equals the CPU plain-version pipeline
+    bit for bit; one epilogue launch per contraction."""
+    from repro_torch.core.ozimmu import ozimmu_dot_general, parse_spec
+    from repro_torch.kernels import LAUNCHES
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((4, 8, 2, 128), generator=g, device=dev)
+    k = torch.randn((4, 8, 48, 128), generator=g, device=dev)
+    q[:, 3] *= 1e-20
+    dnums = (((3,), (3,)), ((0, 1), (0, 1)))
+    cfg = parse_spec(spec)
+    before = dict(LAUNCHES)
+    out = ozimmu_dot_general(q, k, dnums, cfg)
+    assert LAUNCHES["scale_accum"] == before["scale_accum"] + 1
+    assert LAUNCHES["split_fused"] == before["split_fused"] + 2
+    assert _same(out.cpu(), ozimmu_dot_general(q.cpu(), k.cpu(), dnums, cfg))
