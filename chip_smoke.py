@@ -20,13 +20,17 @@ Phases (each raises on failure, so any failure exits non-zero):
    decode A rows, the batched attention B operands, the w_gate freeze and
    both DGEMM operands; the one-launch df32 epilogue
    (``scale_accum.scale_accum_chunks``) on the decode contractions' four
-   chunk products.  The group GEMM's, the split's and the epilogue's times
-   are device times (CUDA-graph replay; the group GEMM's B operands
-   rotated past the L2 cache), with the eager per-call time beside them.
-   Near-underflow rows (every split mode) and scales run through the split
-   and epilogue kernels, bitwise.  Neither the split's nor the epilogue's
-   wrapper may run a PyTorch operation on the card besides its output
-   allocations and views (checked under a dispatch mode).
+   chunk products, and the one-launch Ozaki-II df32 epilogue
+   (``scale_accum.scale_accum_const_windows``: ladder fold, windows, fast2
+   unscale) on the same decode shapes (one-group windows) and the
+   attention's (two-group windows).  The group GEMM's, the split's and the
+   epilogues' times are device times (CUDA-graph replay; the group GEMM's
+   B operands rotated past the L2 cache), with the eager per-call time
+   beside them.  Near-underflow rows (every split mode) and scales run
+   through the split and epilogue kernels, bitwise.  Neither the split's
+   nor the epilogues' wrappers may run a PyTorch operation on the card
+   besides their output allocations and views (checked under a dispatch
+   mode).
 3. DGEMM: ``ozimmu_matmul`` under ``ozimmu_h-8:f64:fused`` at n = 4096,
    error against ``torch.matmul`` in f64, plus a small input that must
    equal the CPU plain-version pipeline bit for bit.
@@ -42,7 +46,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    with the weight split-cache on; the first request's tokens must equal a
    monolithic greedy loop, and the full-width prefill logits must agree
    with the native f32 engine.
-4b. Ozaki-II serve: the same under ``oz2_h-4:df32:fast2:fused``.
+4b. Ozaki-II serve: the same under ``oz2_h-4:df32:fast2:fused``, traced
+   as phase 4 is.
 4c. Sign-magnitude serve: phase 4 under ``ozimmu_sm_h-4:df32:fused``.
 5. Flash: the reference's flash entry point ``ops.flash_attention`` at
    internlm2-1.8b's attention width (B 1, L 4096, H 16, KV 8, D 128,
@@ -57,10 +62,10 @@ read just after; every kernel of a path must have launched, and the group
 GEMM must have taken the route assigned to the path (large for the DGEMM,
 skinny for serving).  A serve run must count exactly one split launch per
 split operand (24 layers x 11 + the LM head a model step), four group
-GEMMs per contraction (24 x 9 + 1 a step) and, under the df32 group-EF
-specs, one epilogue launch per contraction; its trace splits the device
-operations of a step by kernel into split, group GEMM, epilogue and
-other.  Phase 2 holds
+GEMMs per contraction (24 x 9 + 1 a step) and one df32 epilogue launch per
+contraction (``scale_accum`` under group-EF, ``scale_accum_const`` under
+Ozaki-II, with no ``unscale``); its trace splits the device operations of
+a step by kernel into split, group GEMM, epilogue and other.  Phase 2 holds
 the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
 these), a bf16 output within ``2e-2 |y| + min(2e-2, 4e-3 max|y|)`` (the
@@ -457,6 +462,38 @@ def kernel_cases(dev):
                                               device=dev)).to(f32)
         chunks_case(f"decode ({m}x{p}) C=4", prods, base_a, base_b, reps)
 
+    def windows_case(label, prods, c, bases, reps, beta=7):
+        """The whole Ozaki-II df32 epilogue of a contraction over its
+        chunk products (groups 2..C+1, one chunk a group, as k = C under
+        fast2), ladder windows of ``c`` groups, the fast2 unscale: bytes
+        read the products, gbases and bases and write the f32 result
+        once."""
+        groups = list(range(2, len(prods) + 2))
+        out_bytes = prods[0].numel() * 4
+        add("scale_accum_const", label,
+            lambda: sa.scale_accum_const_windows(prods, groups, c, beta,
+                                                 *bases),
+            lambda: sa.scale_accum_const_windows_ref(prods, groups, c, beta,
+                                                     *bases),
+            nbytes(*prods, *bases) + out_bytes,
+            24.0 * len(prods) * prods[0].numel(), F32_FLOPS, reps,
+            graph=True)
+
+    def decode_windows_case(batch, m, p, c, reps, what):
+        """Products of the main path's range (|P| < 2^30), fast2's gbase 2
+        and power-of-two bases."""
+        g = gen
+        prods = [torch.randint(-2 ** 30, 2 ** 30, batch + (m, p),
+                               generator=g, device=dev, dtype=torch.int32)
+                 for _ in range(4)]
+        gbase = torch.full(batch, 2.0, device=dev)
+        base_a = torch.pow(2.0, torch.randint(-20, 0, batch + (m,),
+                                              generator=g, device=dev)).to(f32)
+        base_b = torch.pow(2.0, torch.randint(-6, 2, batch + (p,),
+                                              generator=g, device=dev)).to(f32)
+        windows_case(f"{what} C=4 c={c} fast2", prods, c,
+                     (gbase, gbase.clone(), base_a, base_b), reps)
+
     def accum_case(kernel, label, m, p, dtype, reps):
         p32 = torch.randint(-2 ** 30, 2 ** 30, (m, p), generator=gen,
                             device=dev, dtype=torch.int32)
@@ -570,6 +607,14 @@ def kernel_cases(dev):
                SLOTS * PROMPT, f, f32, 50)
     for width in (vocab, d, f):
         decode_chunks_case(SLOTS, width, 50)
+    for width in (vocab, d, f):
+        decode_windows_case((), SLOTS, width, 1, 50,
+                            f"decode contraction ({SLOTS}x{width})")
+    # the attention's contractions (n = 128 and 48): two groups a window
+    decode_windows_case((SLOTS * 8,), 2, PROMPT + GEN, 2, 50,
+                        f"decode scores (32 x 2x{PROMPT + GEN})")
+    decode_windows_case((SLOTS * 8,), 2, 128, 2, 50,
+                        "decode p@v (32 x 2x128)")
     accum_case("scale_accum_plain", "DGEMM (4096x4096) f64", 4096, 4096, f64,
                20)
     accum_case("scale_accum_plain", "decode w_gate (4x8192) f32", SLOTS, f,
@@ -602,9 +647,10 @@ MAIN_CASE = {"split_fused": "decode A (4x2048) f32 k=4",
              "group_gemm": "decode lm_head (4x2048x92672) G=4",
              "scale_accum": "decode (4x92672) C=4",
              "scale_accum_plain": "DGEMM (4096x4096) f64",
-             "scale_accum_const": "decode lm_head (4x92672)",
+             "scale_accum_const": "decode contraction (4x92672) C=4 c=1 "
+                                  "fast2",
              "scale_accum_const_plain": "DGEMM (4096x4096) int64 word f64",
-             "unscale": "decode lm_head (4x92672) f32",
+             "unscale": "DGEMM (4096x4096) f64",
              "flash_attention_fwd": "B1 L4096 H16 KV8 D128 causal f32",
              "flash_attention_bwd": "B1 L4096 H16 KV8 D128 causal f32"}
 
@@ -612,7 +658,7 @@ MAIN_CASE = {"split_fused": "decode A (4x2048) f32 k=4",
 MAIN_PATH = {"split_fused": "serve", "group_gemm": "serve",
              "scale_accum": "serve", "scale_accum_plain": "dgemm",
              "scale_accum_const": "serve_oz2",
-             "scale_accum_const_plain": "dgemm_oz2", "unscale": "serve_oz2",
+             "scale_accum_const_plain": "dgemm_oz2", "unscale": "dgemm_oz2",
              "flash_attention_fwd": "flash", "flash_attention_bwd": "flash"}
 
 # why no single PyTorch call is a library yardstick for a kernel
@@ -732,11 +778,13 @@ ALLOC_OR_VIEW = {"aten.empty.memory_format", "aten.transpose.int"}
 
 
 def no_torch_ops(dev):
-    """The split and the df32 epilogue run on the card as their kernels
+    """The split and the df32 epilogues run on the card as their kernels
     alone: under a dispatch mode, ``ops.split_fused`` (A and B sides, the
     main path's modes; the attention's B operands as the permuted KV-cache
-    views serving passes) and ``ops.scale_accum_contraction`` dispatch no
-    PyTorch operation but their output allocations and views."""
+    views serving passes), ``ops.scale_accum_contraction`` and
+    ``ops.oz2_scale_accum_contraction`` (fast2; one- and two-group
+    windows) dispatch no PyTorch operation but their output allocations
+    and views."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.core.ozimmu import canonical_rhs
@@ -771,6 +819,11 @@ def no_torch_ops(dev):
                   for mode in ("rn_const", "sm")]
     calls.append(("df32 epilogue C=4", lambda: ops.scale_accum_contraction(
         prods, [2, 3, 4, 5], *ones, 7)))
+    gbase = torch.full((), 2.0, device=dev)
+    calls += [(f"Ozaki-II df32 epilogue C=4 c={c} fast2",
+               lambda c=c: ops.oz2_scale_accum_contraction(
+                   prods, [2, 3, 4, 5], c, 7, gbase, gbase, *ones))
+              for c in (1, 2)]
     for name, fn in calls:
         fn()
         with Record() as rec:
@@ -781,8 +834,8 @@ def no_torch_ops(dev):
                                  f"operations on the card: {sorted(extra)}")
     log(f"[kernels] no PyTorch operation besides allocations and views "
         f"around the split (rn_const, sm, oz2_rn_fast2; both axes; the "
-        f"attention's B operands as KV-cache views) or the df32 epilogue "
-        f"on the card")
+        f"attention's B operands as KV-cache views) or the df32 epilogues "
+        f"(group-EF; Ozaki-II with fast2) on the card")
 
 
 def wrapper_host_us(dev, reps=2000, turns=3):
@@ -930,10 +983,11 @@ def phase_dgemm_auto(dev, spec, ref):
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def phase_serve(dev, spec, kernels, tag="serve", trace=False):
+def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=()):
     """Serve full-width internlm2-1.8b under ``spec``; every kernel in
-    ``kernels`` must launch.  ``trace``: then measure the device's idle
-    share with a profiler trace (:func:`serve_trace`)."""
+    ``kernels`` must launch, and none in ``absent``.  ``trace``: then
+    measure the device's idle share with a profiler trace
+    (:func:`serve_trace`)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -983,13 +1037,15 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False):
     # per model step: one split launch per split operand (the A side of 7
     # projections a layer and the LM head's, both sides of the two
     # attention products), 4 group GEMMs per contraction (k = 4: one chunk
-    # a group), and under df32 group-EF one epilogue launch a contraction
+    # a group), and one df32 epilogue launch a contraction
     steps = s["prefill_calls"] * PROMPT + s["decode_steps"]
     contractions = cfg.n_layers * 9 + 1
     want = {"split_fused": steps * (cfg.n_layers * 11 + 1),
             "group_gemm": steps * contractions * 4}
-    if "scale_accum" in kernels:
-        want["scale_accum"] = steps * contractions
+    for name in ("scale_accum", "scale_accum_const"):
+        if name in kernels:
+            want[name] = steps * contractions
+    want.update({name: 0 for name in absent})
     got = {name: counts[name] for name in want}
     log(f"[{tag}] {steps} model steps: launches {got}, expected {want}")
     if got != want:
@@ -1281,8 +1337,8 @@ def main() -> int:
         trace=True)
     paths["serve_oz2"], _ = phase_serve(
         dev, OZ2_MODEL_SPEC, ("split_fused", "group_gemm",
-                              "scale_accum_const", "unscale"),
-        tag="serve_oz2")
+                              "scale_accum_const"),
+        tag="serve_oz2", trace=True, absent=("unscale",))
     paths["serve_sm"], _ = phase_serve(
         dev, SM_MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
         tag="serve_sm")

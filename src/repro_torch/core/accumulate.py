@@ -33,11 +33,11 @@ and ``scale_accum_fn(prod, srow, scol, acc)`` replace the int8 products and
 the convert+scale+add epilogue (the ``:fused`` pipeline substitutes the
 kernels of ``repro_torch.kernels.ops``); ``matmul_oz2`` takes
 ``scale_accum_fn(word, scale, acc)`` and ``unscale_fn(acc, ra, rb)``
-instead, and ``matmul_group_ef`` takes ``epilogue_fn`` for its df32
-accumulator: the whole epilogue of a contraction in one call (default
-:func:`df32_epilogue`; the reference has no such hook, its per-chunk
-epilogue runs inside one jitted program).  ``partial=True``
-returns the unrounded accumulator.  The mesh ``product_reduce`` hook comes
+instead, and both take ``epilogue_fn`` for their df32 accumulator: the
+whole epilogue of a contraction in one call (defaults
+:func:`df32_epilogue` and :func:`oz2_df32_epilogue`; the reference has no
+such hook, its per-chunk and per-window epilogues run inside one jitted
+program).  ``partial=True`` returns the unrounded accumulator.  The mesh ``product_reduce`` hook comes
 with the distributed slice of the port.
 
 Subnormals are flushed as the reference's XLA arithmetic flushes them
@@ -64,6 +64,7 @@ __all__ = [
     "matmul_group_ef",
     "df32_epilogue",
     "matmul_oz2",
+    "oz2_df32_epilogue",
     "num_highprec_adds",
     "oz2_groups",
     "oz2_num_pairs",
@@ -356,10 +357,11 @@ def ladder_width(n: int, k: int, beta: int, digit_bits: int,
     return 1 + max(0, (word_bits - head) // beta)
 
 
-def _ladder_windows(chunks, c: int):
-    """Pack the ascending-g chunk list into windows spanning <= c groups."""
+def _ladder_windows(groups: Sequence[int], c: int):
+    """Pack the chunks of ascending groups ``groups`` into windows spanning
+    <= c groups: lists of (chunk index, g)."""
     windows = []
-    for idx, (g, _) in enumerate(chunks):
+    for idx, g in enumerate(groups):
         if windows and g - windows[-1][0][1] < c:
             windows[-1].append((idx, g))
         else:
@@ -370,8 +372,8 @@ def _ladder_windows(chunks, c: int):
 def oz2_num_highprec_adds(k: int, r: int, beta: int, n: int, fast: bool,
                           digit_bits: int, word_bits: int = 52) -> int:
     """High-precision adds of the oz2 path = number of ladder windows."""
-    chunks = list(_oz2_chunks(k, r, fast))
-    return len(_ladder_windows(chunks, ladder_width(n, k, beta, digit_bits,
+    groups = [g for g, _ in _oz2_chunks(k, r, fast)]
+    return len(_ladder_windows(groups, ladder_width(n, k, beta, digit_bits,
                                                     word_bits)))
 
 
@@ -384,11 +386,13 @@ def oz2_num_chunks(k: int, r: int, fast: bool) -> int:
 def _oz2_exps(beta: int, gs: Tuple[int, ...], dtype: torch.dtype,
               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two halves ``2^(-beta*(g//2))`` and ``2^(-beta*(g - g//2))`` of
-    each group exponent in ``gs``, on ``device`` once per key."""
+    each group exponent in ``gs``, on ``device`` once per key, each flushed
+    as the operand of a multiply (a half below the normal range of
+    ``dtype`` reads as zero)."""
     ea = [2.0 ** (-beta * (g // 2)) for g in gs]
     eb = [2.0 ** (-beta * (g - g // 2)) for g in gs]
-    return (torch.tensor(ea, dtype=dtype, device=device),
-            torch.tensor(eb, dtype=dtype, device=device))
+    return (ftz(torch.tensor(ea, dtype=dtype, device=device)),
+            ftz(torch.tensor(eb, dtype=dtype, device=device)))
 
 
 def _oz2_scales(gbase_a: torch.Tensor, gbase_b: torch.Tensor, beta: int,
@@ -396,13 +400,37 @@ def _oz2_scales(gbase_a: torch.Tensor, gbase_b: torch.Tensor, beta: int,
     """``(len(gs), *batch)`` scalar scales ``gbaseA * gbaseB * 2^(-beta*g)``
     of the ladder windows topped by the groups ``gs``, the group exponent
     split over the two bases (in the reference's order) so that neither
-    factor underflows on its own; every factor is a power of two, and each
-    factor is flushed as the reference's (the product is left to the
-    epilogue, which flushes it on the way in)."""
+    factor underflows on its own; every factor is a power of two.  The
+    reference's ``_oz2_scale`` exactly: ``ftz(ftz(gbaseA * ftz(ea)) *
+    ftz(gbaseB * ftz(eb)))``, each half read as zero where it is
+    subnormal, each product flushed."""
     ea, eb = _oz2_exps(beta, tuple(gs), dtype, gbase_a.device)
     shape = (len(gs),) + (1,) * gbase_a.ndim
-    return ftz(gbase_a.to(dtype)[None] * ea.reshape(shape)) * \
-        ftz(gbase_b.to(dtype)[None] * eb.reshape(shape))
+    return ftz(ftz(gbase_a.to(dtype)[None] * ea.reshape(shape)) *
+               ftz(gbase_b.to(dtype)[None] * eb.reshape(shape)))
+
+
+def _oz2_fold(prods, window, beta: int, word_dtype) -> torch.Tensor:
+    """One ladder window's integer word: the chunk products of its groups
+    shifted onto the top group's exponent, ``sum prod << beta*(g_hi -
+    g)`` (exact within the ladder's word budget)."""
+    g_hi = window[-1][1]
+    word = None
+    for idx, g in window:
+        t = prods[idx].to(word_dtype)
+        if g_hi != g:
+            t = torch.bitwise_left_shift(t, beta * (g_hi - g))
+        word = t if word is None else word + t
+    return word
+
+
+def _oz2_ratios(base_a: torch.Tensor, base_b: torch.Tensor,
+                gbase_a: torch.Tensor, gbase_b: torch.Tensor):
+    """The fast2 unscale factors ``base / gbase`` of both sides, in the
+    reference's operations (a reciprocal, then a multiply; powers of
+    two)."""
+    return (base_a * (1.0 / gbase_a[..., None]),
+            base_b * (1.0 / gbase_b[..., None]))
 
 
 def _oz2_accum_df32(word: torch.Tensor, scale: torch.Tensor,
@@ -432,13 +460,42 @@ def _oz2_unscale(acc, ra: torch.Tensor, rb: torch.Tensor):
     return _outer_scale(acc, ra.to(acc.dtype), rb.to(acc.dtype))
 
 
+def oz2_df32_epilogue(prods, groups: Sequence[int], c: int, beta: int,
+                      gbase_a: torch.Tensor, gbase_b: torch.Tensor,
+                      base_a: Optional[torch.Tensor] = None,
+                      base_b: Optional[torch.Tensor] = None, *,
+                      partial: bool = False,
+                      out_dtype=torch.float32) -> Union[torch.Tensor, DF32]:
+    """The df32 epilogue of an Ozaki-II contraction: the int32 chunk
+    products ``prods`` of ascending groups ``groups`` fold into ladder
+    windows of <= ``c`` groups; from a zero accumulator, one compensated
+    step per window with its scalar scale (``gbase_a (*batch,)``,
+    ``gbase_b (*batch,)``, ``beta``); with the fast2 bases ``base_a
+    (*batch, m)`` and ``base_b (*batch, p)``, the exact unscale by ``base /
+    gbase``; then the conversion to ``out_dtype`` unless ``partial``.  The
+    default of ``matmul_oz2``'s ``epilogue_fn`` hook."""
+    acc = df32_zero(prods[0].shape, prods[0].device)
+    windows = _ladder_windows(groups, c)
+    scales = _oz2_scales(gbase_a, gbase_b, beta,
+                         [window[-1][1] for window in windows],
+                         torch.float32)
+    for i, window in enumerate(windows):
+        acc = _oz2_accum_df32(_oz2_fold(prods, window, beta, torch.int32),
+                              scales[i], acc)
+    if base_a is not None:
+        acc = _oz2_unscale(acc, *_oz2_ratios(base_a, base_b, gbase_a,
+                                             gbase_b))
+    return acc if partial else acc.to_float(out_dtype)
+
+
 def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
                out_dtype=None, fast: Union[bool, str] = False,
                r: Optional[int] = None, n_total: Optional[int] = None,
                digit_bits: Optional[int] = None, group_gemm_fn=None,
                partial: bool = False,
                scale_accum_fn: Optional[Callable] = None,
-               unscale_fn: Optional[Callable] = None
+               unscale_fn: Optional[Callable] = None,
+               epilogue_fn: Optional[Callable] = None
                ) -> Union[torch.Tensor, DF32]:
     """Ozaki-II evaluation on constant-scaling splits (``Split.gbase``).
 
@@ -447,9 +504,13 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
     for the f64 accumulator, int32 otherwise) before ONE convert+scale+add
     per ladder window.  ``fast`` selects the g <= k+1 band; ``"fast2"``
     also applies the exact unscale by ``base / gbase`` at the end.  The
-    fold itself is plain integer PyTorch, as the reference's is jnp
-    outside any kernel.  Hooks: ``scale_accum_fn(word, scale, acc)`` and
-    ``unscale_fn(acc, ra, rb)`` (the ``:fused`` kernels)."""
+    df32 accumulator runs its whole epilogue (fold, windows, unscale,
+    conversion) through ``epilogue_fn`` (:func:`oz2_df32_epilogue`'s
+    signature and result; the ``:fused`` pipeline's one-launch kernel).
+    The f32/f64 ones fold in plain integer PyTorch, as the reference's
+    fold is jnp outside any kernel, with the hooks
+    ``scale_accum_fn(word, scale, acc)`` per window and ``unscale_fn(acc,
+    ra, rb)`` (the ``:fused`` kernels)."""
     assert sa.axis == 0 and sb.axis == 1
     if sa.gbase is None or sb.gbase is None:
         raise ValueError("oz2 accumulation needs constant-scaling splits "
@@ -478,42 +539,23 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
     gg = group_gemm_fn or (lambda pairs: slice_group_gemm(sa, sb, pairs))
     chunks = list(_oz2_chunks(k, r, fast))
     prods = [gg(pairs) for _, pairs in chunks]
-    windows = _ladder_windows(chunks, c)
+    groups = [g for g, _ in chunks]
 
-    def fold(window):
-        g_hi = window[-1][1]
-        word = None
-        for idx, g in window:
-            t = prods[idx].to(word_dtype)
-            if g_hi != g:
-                t = torch.bitwise_left_shift(t, beta * (g_hi - g))
-            word = t if word is None else word + t
-        return word, g_hi
-
-    def unscale(acc):
-        if not fast2:
-            return acc
-        ra = sa.base * (1.0 / sa.gbase[..., None])   # powers of two
-        rb = sb.base * (1.0 / sb.gbase[..., None])
-        return (unscale_fn or _oz2_unscale)(acc, ra, rb)
-
-    tops = [window[-1][1] for window in windows]
     if accum == "df32":
-        fn = scale_accum_fn or _oz2_accum_df32
-        acc = df32_zero(out_shape, device)
-        scales = _oz2_scales(sa.gbase, sb.gbase, beta, tops, torch.float32)
-        for i, window in enumerate(windows):
-            word, _ = fold(window)
-            acc = fn(word, scales[i], acc)
-        acc = unscale(acc)
-        return acc if partial else acc.to_float(out_dtype)
+        return (epilogue_fn or oz2_df32_epilogue)(
+            prods, groups, c, beta, sa.gbase, sb.gbase,
+            sa.base if fast2 else None, sb.base if fast2 else None,
+            partial=partial, out_dtype=out_dtype)
 
+    windows = _ladder_windows(groups, c)
     acc_dtype = _ACC_DTYPES[accum]
     fn = scale_accum_fn or _oz2_accum_plain
     acc = torch.zeros(out_shape, dtype=acc_dtype, device=device)
-    scales = _oz2_scales(sa.gbase, sb.gbase, beta, tops, acc_dtype)
+    scales = _oz2_scales(sa.gbase, sb.gbase, beta,
+                         [window[-1][1] for window in windows], acc_dtype)
     for i, window in enumerate(windows):
-        word, _ = fold(window)
-        acc = fn(word, scales[i], acc)
-    acc = unscale(acc)
+        acc = fn(_oz2_fold(prods, window, beta, word_dtype), scales[i], acc)
+    if fast2:
+        acc = (unscale_fn or _oz2_unscale)(
+            acc, *_oz2_ratios(sa.base, sb.base, sa.gbase, sb.gbase))
     return acc if partial else _narrow(acc, out_dtype)

@@ -262,9 +262,10 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
                               else kops.scale_accum_update)
             unscale_fn = kops.oz2_unscale_update
             if cfg.accum_dtype == "df32":
-                # group-EF df32: the contraction's whole epilogue in one
-                # launch
-                epilogue_fn = kops.scale_accum_contraction
+                # df32: the contraction's whole epilogue in one launch
+                epilogue_fn = (kops.oz2_scale_accum_contraction
+                               if cfg.accumulate == "oz2"
+                               else kops.scale_accum_contraction)
     if cfg.accumulate == "naive":
         return accumulate.matmul_naive(
             sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype,
@@ -276,7 +277,8 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
             fast=cfg.fast, n_total=a.shape[-1],
             digit_bits=splitting.digit_bits(cfg.split, sa.beta),
             group_gemm_fn=group_gemm_fn, partial=partial,
-            scale_accum_fn=scale_accum_fn, unscale_fn=unscale_fn)
+            scale_accum_fn=scale_accum_fn, unscale_fn=unscale_fn,
+            epilogue_fn=epilogue_fn)
     r = splitting.compute_r(a.shape[-1], sa.beta)
     return accumulate.matmul_group_ef(
         sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype, r=r,

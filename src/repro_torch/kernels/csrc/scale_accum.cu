@@ -16,13 +16,23 @@
 //       Hopper runs the f64 accumulator natively, unlike the TPU);
 //   * scale_accum_const (body _scale_accum_const_kernel): the Ozaki-II
 //       ladder window in df32, (hi, lo) += s * float(word) with ONE scalar
-//       s per batch element (accumulate._oz2_accum_df32);
+//       s per batch element (accumulate._oz2_accum_df32).  On the card one
+//       launch runs the whole Ozaki-II df32 epilogue of a contraction
+//       (scale_accum_const_windows, accumulate.oz2_df32_epilogue): the
+//       ladder fold of the chunk products into one int32 word per window,
+//       every window's scale and compensated step, and under fast2 the
+//       unscale, from a zero accumulator in registers to the result written
+//       once (it replaces a launch a window and an unscale launch a limb on
+//       serving's main path).  The single-window entry
+//       (scale_accum_const_df32: the word and the scale read in, the
+//       accumulator updated in place) stays;
 //   * scale_accum_const_plain (body _scale_accum_const_plain_kernel):
 //       c += float(word) * s, word int32 or int64 (the f64 ladder word,
 //       exact by its 52-bit budget), c f32 or f64 (_oz2_accum_plain);
 //   * unscale (body _unscale_kernel): out = (x * srow) * scol, the exact
-//       fast2 power-of-two unscale (accumulate._oz2_unscale); the df32
-//       caller launches it once per limb.
+//       fast2 power-of-two unscale (accumulate._oz2_unscale) of the plain
+//       f32/f64 accumulators; the df32 one is unscaled inside
+//       scale_accum_const_windows.
 // The scalar s stays on the device: the kernel reads it through the batch
 // index, so no launch waits for the host.
 // The operation order is the reference's exactly (scale_accum.py:68-82 and
@@ -52,7 +62,13 @@
 // df32 epilogue reads the C chunk products and writes the result once:
 // 4 C + 4 bytes an element (20 at C = 4, against 20 C for C single-chunk
 // launches plus the zeroing and the final conversion), with 16-byte loads
-// and stores of 4 elements a thread where the shapes allow.
+// and stores of 4 elements a thread where the shapes allow.  The Ozaki-II
+// df32 epilogue does the same: 4 C + 4 bytes an element for C chunk
+// products (20 at C = 4), against a fold, a 16-byte read-modify-write of
+// (hi, lo) per window and two unscale passes as separate launches, plus
+// the PyTorch operations that formed the scales and the factors; it forms
+// the scales and unscale factors from the batch element's gbases and the
+// bases in registers, so its wrapper runs no PyTorch operation.
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -219,6 +235,132 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+constexpr int MAX_WORDS = 32;   // chunk products a ladder launch
+
+// The chunk products of an Ozaki-II contraction, by value, in whole ladder
+// windows: product c shifts left by shift[c] = beta (g_hi - g) onto its
+// window's top group; top[c] is that top group g_hi where c is the last
+// product of its window, else 0 (groups start at 2).
+struct Windows {
+  const int32_t* p[MAX_WORDS];
+  int shift[MAX_WORDS];
+  int top[MAX_WORDS];
+  int n;
+  int beta;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(double x) {
+  return __double2float_rn(x);
+}
+__device__ __forceinline__ float rcp_rn(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double rcp_rn(double x) { return __drcp_rn(x); }
+__device__ __forceinline__ float mul_ieee(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_ieee(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// The fast2 unscale factor base / gbase as the plain version forms it: a
+// reciprocal, then a multiply, in the bases' dtype S without flushes (the
+// consumer flushes), converted to f32, then flushed on use.
+template <typename S>
+__device__ __forceinline__ float ratio(S base, S inv_gbase) {
+  return ftz(to_f32(mul_ieee(base, inv_gbase)));
+}
+
+// The whole df32 epilogue of an Ozaki-II contraction (or whole windows of
+// it): for every element, the products in order, shift-added into one
+// int32 word per ladder window (two's complement: shifted and added as
+// uint32, exact within the ladder's 31-bit budget); at each window's last
+// product, (hi, lo) += s * float(word) with the exact low-8-bit split,
+// where s = ftz(ftz(gA * ftz(2^(-beta (g/2)))) * ftz(gB * ftz(2^(-beta
+// (g - g/2))))) is formed here from the batch element's f32 gbases (the
+// reference's _oz2_scale).  READ: start from (hi_in, lo_in) instead of +0.
+// base_a non-null (the last launch under fast2): then (hi, lo) scale by
+// ra = base_a / gbase_a per row and rb = base_b / gbase_b per column,
+// (x * ra) * rb.  sum: write ftz(hi + lo) to hi_out; else hi_out and lo_out
+// (in place allowed).  VEC = 4: four elements of one row a thread, 16-byte
+// loads and stores.
+template <int VEC, bool READ, typename S>
+__global__ void __launch_bounds__(256)
+    scale_accum_windows_kernel(const Windows w, const S* __restrict__ gbase_a,
+                               const S* __restrict__ gbase_b,
+                               const S* __restrict__ base_a,
+                               const S* __restrict__ base_b,
+                               const float* hi_in, const float* lo_in,
+                               float* hi_out, float* lo_out, int sum,
+                               long long total, long long m, long long pc) {
+  const long long step = (long long)gridDim.x * blockDim.x * VEC;
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+       e < total; e += step) {
+    const long long col = e % pc;
+    const long long brow = e / pc;          // b * m + row
+    const long long b = brow / m;
+    const float ga = to_f32(gbase_a[b]), gb = to_f32(gbase_b[b]);
+    float hi[VEC], lo[VEC];
+    uint32_t word[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      hi[j] = READ ? ftz(hi_in[e + j]) : 0.0f;
+      lo[j] = READ ? ftz(lo_in[e + j]) : 0.0f;
+      word[j] = 0u;
+    }
+#pragma unroll
+    for (int c = 0; c < MAX_WORDS; ++c) {
+      if (c >= w.n) break;
+      int pv[VEC];
+      if constexpr (VEC == 4) {
+        const int4 v = *reinterpret_cast<const int4*>(w.p[c] + e);
+        pv[0] = v.x; pv[1] = v.y; pv[2] = v.z; pv[3] = v.w;
+      } else {
+        pv[0] = w.p[c][e];
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        word[j] += static_cast<uint32_t>(pv[j]) << w.shift[c];
+      const int g = w.top[c];
+      if (g == 0) continue;
+      const float s = mul_rn(mul_rn(ga, pow2f(-w.beta * (g / 2))),
+                             mul_rn(gb, pow2f(-w.beta * (g - g / 2))));
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int wv = static_cast<int>(word[j]);
+        const int phi = wv & ~0xFF;         // == (wv >> 8) << 8
+        const int plo = wv - phi;           // in [0, 255]
+        df32_add(hi[j], lo[j], mul_ftz(__int2float_rn(phi), s),
+                 mul_ftz(__int2float_rn(plo), s));
+        word[j] = 0u;
+      }
+    }
+    if (base_a != nullptr) {
+      const float ra = ratio(base_a[brow], rcp_rn(gbase_a[b]));
+      const S inv_b = rcp_rn(gbase_b[b]);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float rb = ratio(base_b[b * pc + col + j], inv_b);
+        hi[j] = mul_ftz(mul_ftz(hi[j], ra), rb);
+        lo[j] = mul_ftz(mul_ftz(lo[j], ra), rb);
+      }
+    }
+    if (sum) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) hi[j] = add_rn(hi[j], lo[j]);
+    }
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(hi_out + e) =
+          make_float4(hi[0], hi[1], hi[2], hi[3]);
+      if (!sum)
+        *reinterpret_cast<float4*>(lo_out + e) =
+            make_float4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      hi_out[e] = hi[0];
+      if (!sum) lo_out[e] = lo[0];
+    }
+  }
+}
+
 template <typename T>
 __global__ void scale_accum_plain_kernel(const int32_t* __restrict__ p32,
                                          const T* __restrict__ srow,
@@ -343,6 +485,26 @@ int run_chunks(const Chunks& ch, const void* base_a, const void* base_b,
   return (int)cudaGetLastError();
 }
 
+template <int VEC, typename S>
+void launch_windows(const Windows& w, const void* gbase_a,
+                    const void* gbase_b, const void* base_a,
+                    const void* base_b, const float* hi_in,
+                    const float* lo_in, float* hi_out, float* lo_out,
+                    int sum, long long total, long long m, long long p,
+                    cudaStream_t st) {
+  const int blocks = (int)blocks_for((total + VEC - 1) / VEC);
+  const S* ga = static_cast<const S*>(gbase_a);
+  const S* gb = static_cast<const S*>(gbase_b);
+  const S* ba = static_cast<const S*>(base_a);
+  const S* bb = static_cast<const S*>(base_b);
+  if (hi_in != nullptr)
+    scale_accum_windows_kernel<VEC, true, S><<<blocks, 256, 0, st>>>(
+        w, ga, gb, ba, bb, hi_in, lo_in, hi_out, lo_out, sum, total, m, p);
+  else
+    scale_accum_windows_kernel<VEC, false, S><<<blocks, 256, 0, st>>>(
+        w, ga, gb, ba, bb, hi_in, lo_in, hi_out, lo_out, sum, total, m, p);
+}
+
 }  // namespace
 
 // The whole df32 epilogue of a contraction (or n <= 16 of its chunks):
@@ -382,6 +544,58 @@ extern "C" int scale_accum_df32(const void* p32, const void* srow,
   ch.n = 1;
   ch.beta = 0;
   return run_chunks(ch, srow, scol, hi, lo, hi, lo, 0, B, m, p, stream);
+}
+
+// The df32 epilogue of an Ozaki-II contraction (or n <= 32 of its chunk
+// products, in whole ladder windows): prods[c] (B, m, p) int32, shifted by
+// shifts[c] into its window's word; tops[c] the window's top group at its
+// last product, else 0; gbase_a, gbase_b (B,); base_a (B, m), base_b
+// (B, p), or both null for no unscale; all four f32 (is_f64 = 0) or f64.
+// hi_in, lo_in (B, m, p) f32 to start from, or both null for zero; sum = 1:
+// hi_out = ftz(hi + lo), lo_out unused; sum = 0: hi_out, lo_out = (hi, lo)
+// (may alias hi_in, lo_in).
+extern "C" int scale_accum_const_windows(
+    const void* const* prods, const int* shifts, const int* tops, int n,
+    int beta, const void* gbase_a, const void* gbase_b, const void* base_a,
+    const void* base_b, int is_f64, const void* hi_in, const void* lo_in,
+    void* hi_out, void* lo_out, int sum, long long B, long long m,
+    long long p, void* stream) {
+  const long long total = B * m * p;
+  if (total <= 0) return 0;
+  if (n < 1 || n > MAX_WORDS || tops[n - 1] == 0 ||
+      (hi_in == nullptr) != (lo_in == nullptr) ||
+      (base_a == nullptr) != (base_b == nullptr) ||
+      (!sum && lo_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Windows w{};
+  bool vec = p % 4 == 0 && aligned16(hi_in) && aligned16(lo_in) &&
+             aligned16(hi_out) && aligned16(lo_out);
+  for (int c = 0; c < n; ++c) {
+    if (shifts[c] < 0 || shifts[c] > 31) return (int)cudaErrorInvalidValue;
+    w.p[c] = static_cast<const int32_t*>(prods[c]);
+    w.shift[c] = shifts[c];
+    w.top[c] = tops[c];
+    vec = vec && aligned16(w.p[c]);
+  }
+  w.n = n;
+  w.beta = beta;
+  const float* hin = static_cast<const float*>(hi_in);
+  const float* lin = static_cast<const float*>(lo_in);
+  float* hout = static_cast<float*>(hi_out);
+  float* lout = static_cast<float*>(lo_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define WINDOWS_LAUNCH(V, S)                                                 \
+  launch_windows<V, S>(w, gbase_a, gbase_b, base_a, base_b, hin, lin, hout,  \
+                       lout, sum, total, m, p, st)
+  if (vec) {
+    if (is_f64) WINDOWS_LAUNCH(4, double);
+    else WINDOWS_LAUNCH(4, float);
+  } else {
+    if (is_f64) WINDOWS_LAUNCH(1, double);
+    else WINDOWS_LAUNCH(1, float);
+  }
+#undef WINDOWS_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 // c (B, m, p) and the scales in c's dtype: f32 (is_f64 = 0) or f64.

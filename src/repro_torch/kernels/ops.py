@@ -4,14 +4,15 @@
 On the card the split is one launch of the split kernel (row maxima,
 bases, reciprocal grids, scales and digits); only the Ozaki-II
 constant-grid modes derive their grid here first (their maximum spans a
-whole batch element).  The df32 group-EF epilogue of a contraction is one
-launch of the epilogue kernel over all its chunk products.  A CPU tensor
-takes the kernels' plain versions, the same operations as separate
-PyTorch calls.  The reference pads every operand to the TPU's 128-lane
-tiles and takes its tile sizes from the planner; the CUDA kernels mask
-their own ragged edges and own their tile sizes, so nothing here pads —
-except :func:`flash_attention`, whose padding decides what a fully masked
-row averages, and which pads as the reference does.
+whole batch element).  The df32 epilogue of a contraction is one launch
+over all its chunk products: the group-EF one of the epilogue kernel, the
+Ozaki-II one (ladder fold, windows, fast2 unscale) of the const-scale
+kernel.  A CPU tensor takes the kernels' plain versions, the same
+operations as separate PyTorch calls.  The reference pads every operand
+to the TPU's 128-lane tiles and takes its tile sizes from the planner;
+the CUDA kernels mask their own ragged edges and own their tile sizes, so
+nothing here pads — except :func:`flash_attention`, whose padding decides
+what a fully masked row averages, and which pads as the reference does.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from repro_torch.kernels import split_fused as _sf
 
 __all__ = ["split_fused", "split_fused_ref", "group_gemm",
            "scale_accum_update", "scale_accum_contraction",
-           "oz2_scale_accum_update", "oz2_unscale_update",
+           "oz2_scale_accum_update", "oz2_scale_accum_contraction",
+           "oz2_unscale_update",
            "flash_attention"]
 
 # fused-split mode -> the kernel's extraction mode
@@ -124,24 +126,43 @@ def scale_accum_contraction(prods, groups, base_a: torch.Tensor,
     return _sa.scale_accum_chunks(prods, groups, base_a, base_b, beta)
 
 
-def oz2_scale_accum_update(word: torch.Tensor, s: torch.Tensor, acc):
-    """``scale_accum_fn`` hook of ``accumulate.matmul_oz2``: one ladder
-    window's convert+scale+add through the const-scale kernels (df32 pair
-    or plain accumulator, by ``acc``'s type), bit-identical to the plain
-    epilogue.  On CUDA the accumulator is updated in place."""
-    if isinstance(acc, DF32):
-        return DF32(*_sa.scale_accum_const(word, s, acc.hi, acc.lo))
+def oz2_scale_accum_update(word: torch.Tensor, s: torch.Tensor,
+                           acc: torch.Tensor) -> torch.Tensor:
+    """``scale_accum_fn`` hook of ``accumulate.matmul_oz2`` (f32/f64
+    accumulators; the df32 one takes :func:`oz2_scale_accum_contraction`):
+    one ladder window's convert+scale+add through the const-scale kernel,
+    bit-identical to the plain epilogue.  On CUDA the accumulator is
+    updated in place."""
     return _sa.scale_accum_const_plain(word, s, acc)
 
 
-def oz2_unscale_update(acc, ra: torch.Tensor, rb: torch.Tensor):
-    """``unscale_fn`` hook of ``accumulate.matmul_oz2`` (fast2): the exact
-    two-sided power-of-two unscale through the kernel, once per limb of a
-    df32 accumulator."""
-    if isinstance(acc, DF32):
-        ra32, rb32 = ra.to(torch.float32), rb.to(torch.float32)
-        return DF32(_sa.unscale(acc.hi, ra32, rb32),
-                    _sa.unscale(acc.lo, ra32, rb32))
+def oz2_scale_accum_contraction(prods, groups, c: int, beta: int,
+                                gbase_a: torch.Tensor,
+                                gbase_b: torch.Tensor, base_a=None,
+                                base_b=None, *, partial: bool = False,
+                                out_dtype=torch.float32):
+    """``epilogue_fn`` hook of ``accumulate.matmul_oz2`` (df32
+    accumulator): the whole epilogue of a contraction, the chunk products
+    ``prods`` of groups ``groups`` folded into ladder windows of <= ``c``
+    groups, every window's step and (given the fast2 bases) the unscale,
+    through one launch of ``scale_accum.scale_accum_const_windows``,
+    bit-identical to ``accumulate.oz2_df32_epilogue``.  ``partial``
+    returns the :class:`DF32` accumulator; an output dtype other than f32
+    converts it here."""
+    if partial or out_dtype != torch.float32:
+        acc = DF32(*_sa.scale_accum_const_windows(
+            prods, groups, c, beta, gbase_a, gbase_b, base_a, base_b,
+            partial=True))
+        return acc if partial else acc.to_float(out_dtype)
+    return _sa.scale_accum_const_windows(prods, groups, c, beta, gbase_a,
+                                         gbase_b, base_a, base_b)
+
+
+def oz2_unscale_update(acc: torch.Tensor, ra: torch.Tensor,
+                       rb: torch.Tensor) -> torch.Tensor:
+    """``unscale_fn`` hook of ``accumulate.matmul_oz2`` (fast2; f32/f64
+    accumulators): the exact two-sided power-of-two unscale through the
+    kernel."""
     return _sa.unscale(acc, ra.to(acc.dtype), rb.to(acc.dtype))
 
 

@@ -16,12 +16,20 @@ Replaces five TPU kernels of ``repro/kernels/scale_accum.py``:
     f64; the f64 form runs natively on Hopper);
   * ``scale_accum_const`` (body ``_scale_accum_const_kernel``) — the
     Ozaki-II ladder window in df32, ``(hi, lo) += s * float(word)`` with
-    one scalar per batch element (``accumulate._oz2_accum_df32``);
+    one scalar per batch element (``accumulate._oz2_accum_df32``).
+    :func:`scale_accum_const_windows` runs the whole Ozaki-II df32
+    epilogue of a contraction in one launch (``accumulate.
+    oz2_df32_epilogue``: the ladder fold of the chunk products, every
+    window's scale formed in the kernel and its compensated step, the
+    fast2 unscale, the result written once); :func:`scale_accum_const` is
+    the single window with the word, the scale and the accumulator read
+    in;
   * ``scale_accum_const_plain`` (body ``_scale_accum_const_plain_kernel``)
     — ``c += float(word) * s``; the word is int32, or int64 for the f64
     ladder (exact: the ladder keeps it within 52 bits);
   * ``unscale`` (body ``_unscale_kernel``) — ``out = x * srow * scol``,
-    the exact fast2 power-of-two unscale (``accumulate._oz2_unscale``).
+    the exact fast2 power-of-two unscale (``accumulate._oz2_unscale``) of
+    the plain f32/f64 accumulators.
 
 Operands: ``p32``/``word``/``x`` ``(*batch, m, p)``, ``srow (*batch, m)``,
 ``scol (*batch, p)``, the const kernels' scalar ``s (*batch,)`` (a device
@@ -38,19 +46,23 @@ versions alike.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
 import torch
 
-from repro_torch.core.accumulate import df32_epilogue
+from repro_torch.core.accumulate import (_ladder_windows, df32_epilogue,
+                                         oz2_df32_epilogue)
 from repro_torch.core.splitting import ftz
 from repro_torch.kernels import LAUNCHES, _build
 
 __all__ = ["scale_accum", "scale_accum_ref", "scale_accum_chunks",
            "scale_accum_chunks_ref", "MAX_CHUNKS", "scale_accum_plain",
            "scale_accum_plain_ref", "scale_accum_const",
-           "scale_accum_const_ref", "scale_accum_const_plain",
+           "scale_accum_const_ref", "scale_accum_const_windows",
+           "scale_accum_const_windows_ref", "MAX_WORDS",
+           "scale_accum_const_plain",
            "scale_accum_const_plain_ref", "unscale", "unscale_ref"]
 
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -61,8 +73,11 @@ _ARGS_CONST_PLAIN = [_p, _p, _p, _ll, _ll, _ll, _i, _i, _p]
 _ARGS_UNSCALE = [_p, _p, _p, _p, _ll, _ll, _ll, _i, _p]
 _ARGS_CHUNKS = [_p, _p, _i, _i, _p, _p, _p, _p, _p, _p, _i, _ll, _ll, _ll,
                 _p]
+_ARGS_WINDOWS = [_p, _p, _p, _i, _i, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i,
+                 _ll, _ll, _ll, _p]
 
 MAX_CHUNKS = 16   # chunk products one launch takes (by value)
+MAX_WORDS = 32    # chunk products one ladder launch takes (whole windows)
 
 
 def _two_sum(a, b):
@@ -283,6 +298,125 @@ def scale_accum_const(word, s, c_hi, c_lo
                     c_lo.data_ptr(), B, m, p, _build.stream(word)),
                  "scale_accum_const")
     return c_hi, c_lo
+
+
+def scale_accum_const_windows_ref(prods, groups, c: int, beta: int, gbase_a,
+                                  gbase_b, base_a=None, base_b=None, *,
+                                  partial: bool = False):
+    """Plain version of :func:`scale_accum_const_windows`: the CPU's
+    Ozaki-II df32 epilogue ``accumulate.oz2_df32_epilogue`` (the fold, one
+    compensated step per ladder window from a zero (hi, lo), the fast2
+    unscale, then ``ftz(hi + lo)``), ``(hi, lo)`` with ``partial``."""
+    out = oz2_df32_epilogue(prods, groups, c, beta, gbase_a, gbase_b,
+                            base_a, base_b, partial=partial)
+    return tuple(out) if partial else out
+
+
+@functools.lru_cache(maxsize=None)
+def _window_launches(groups: Tuple[int, ...], c: int, beta: int):
+    """The launches of a contraction's ladder windows, whole windows of at
+    most :data:`MAX_WORDS` products each: ``(first product, count, shifts,
+    tops)``, the last two as the kernel's C arrays (each product's shift
+    onto its window's top group; that group at a window's last product,
+    else 0)."""
+    launches, cur = [], []
+    for window in _ladder_windows(groups, c):
+        if len(window) > MAX_WORDS:
+            raise ValueError(f"scale_accum_const: a ladder window of "
+                             f"{len(window)} chunk products; one launch "
+                             f"takes at most {MAX_WORDS}")
+        if len(cur) + len(window) > MAX_WORDS:
+            launches.append(cur)
+            cur = []
+        g_hi = window[-1][1]
+        cur += [(idx, beta * (g_hi - g), g_hi if idx == window[-1][0] else 0)
+                for idx, g in window]
+    launches.append(cur)
+    return tuple((part[0][0], len(part),
+                  (ctypes.c_int * len(part))(*[e[1] for e in part]),
+                  (ctypes.c_int * len(part))(*[e[2] for e in part]))
+                 for part in launches)
+
+
+def _check_windows(prods, gbase_a, gbase_b, base_a, base_b):
+    shape = tuple(prods[0].shape)
+    batch, (m, p) = shape[:-2], shape[-2:]
+    dev, dtype = gbase_a.device, gbase_a.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"scale_accum_const: gbase must be f32 or f64, got "
+                        f"{dtype}")
+    for q in prods:
+        if tuple(q.shape) != shape or q.dtype != torch.int32 or \
+                q.device != dev:
+            raise ValueError(f"scale_accum_const: chunk products must be "
+                             f"{shape} int32 on {dev}, got "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    for name, t, want in (("gbase_a", gbase_a, batch),
+                          ("gbase_b", gbase_b, batch),
+                          ("base_a", base_a, batch + (m,)),
+                          ("base_b", base_b, batch + (p,))):
+        if t is not None and (tuple(t.shape) != want or t.dtype != dtype
+                              or t.device != dev):
+            raise ValueError(f"scale_accum_const: {name} must be {want} "
+                             f"{dtype} on {dev}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    return math.prod(batch), m, p
+
+
+def scale_accum_const_windows(prods, groups, c: int, beta: int, gbase_a,
+                              gbase_b, base_a=None, base_b=None, *,
+                              partial: bool = False):
+    """The whole df32 epilogue of an Ozaki-II contraction: chunk products
+    ``prods`` (each ``(*batch, m, p)`` int32) of ascending groups ``groups``
+    (g >= 2: the pairs of group g carry ``gbase_a gbase_b 2^(-beta g)``),
+    folded into ladder windows of <= ``c`` groups; ``gbase_a``, ``gbase_b
+    (*batch,)``; the fast2 bases ``base_a (*batch, m)``, ``base_b (*batch,
+    p)`` (both or neither), all f32 or all f64.  Returns f32 ``ftz(hi +
+    lo)``, or ``(hi, lo)`` with ``partial``.  On CUDA one launch per
+    :data:`MAX_WORDS` chunk products in whole windows (successive launches
+    carry (hi, lo) through memory; the last one unscales and sums)."""
+    if len(prods) != len(groups) or not prods:
+        raise ValueError(f"need one group per chunk product, got "
+                         f"{len(prods)} products and {len(groups)} groups")
+    if min(groups) < 2 or list(groups) != sorted(groups):
+        raise ValueError(f"groups ascend from 2, got {list(groups)}")
+    if (base_a is None) != (base_b is None):
+        raise ValueError("scale_accum_const: give both fast2 bases or "
+                         "neither")
+    if gbase_a.device.type == "cpu":
+        return scale_accum_const_windows_ref(prods, groups, c, beta, gbase_a,
+                                             gbase_b, base_a, base_b,
+                                             partial=partial)
+    _build.require_cuda(gbase_a, "scale_accum_const")
+    B, m, p = _check_windows(prods, gbase_a, gbase_b, base_a, base_b)
+    launches = _window_launches(tuple(groups), c, beta)
+    # keep the contiguous copies alive across the launches
+    prods = [q.contiguous() for q in prods]
+    gbase_a, gbase_b = gbase_a.contiguous(), gbase_b.contiguous()
+    bases = (None, None) if base_a is None else \
+        (base_a.contiguous(), base_b.contiguous())
+    hi = torch.empty(prods[0].shape, dtype=torch.float32,
+                     device=gbase_a.device)
+    many = len(launches) > 1
+    lo = torch.empty_like(hi) if partial or many else None
+    fn = _build.function("scale_accum", "scale_accum_const_windows",
+                         _ARGS_WINDOWS)
+    for i, (first, n, shifts, tops) in enumerate(launches):
+        last = i == len(launches) - 1
+        sum_ = last and not partial
+        ptrs = (ctypes.c_void_p * n)(*[q.data_ptr()
+                                       for q in prods[first:first + n]])
+        acc_in = (hi.data_ptr(), lo.data_ptr()) if i else (None, None)
+        unscale_by = tuple(t.data_ptr() for t in bases) \
+            if last and bases[0] is not None else (None, None)
+        LAUNCHES["scale_accum_const"] += 1
+        _build.check(fn(ptrs, shifts, tops, n, beta, gbase_a.data_ptr(),
+                        gbase_b.data_ptr(), *unscale_by,
+                        int(gbase_a.dtype == torch.float64), *acc_in,
+                        hi.data_ptr(), None if sum_ else lo.data_ptr(),
+                        int(sum_), B, m, p, _build.stream(gbase_a)),
+                     "scale_accum_const")
+    return (hi, lo) if partial else hi
 
 
 def scale_accum_const_plain(word, s, c) -> torch.Tensor:

@@ -689,3 +689,133 @@ def test_fused_attention_product_equals_cpu(dev, spec):
     assert LAUNCHES["scale_accum"] == before["scale_accum"] + 1
     assert LAUNCHES["split_fused"] == before["split_fused"] + 2
     assert _same(out.cpu(), ozimmu_dot_general(q.cpu(), k.cpu(), dnums, cfg))
+
+
+_INT32_MIN = -2 ** 31
+
+
+def _window_inputs(g, dev, batch, m, p, C, dtype=torch.float32, tiny=False):
+    """C int32 chunk products over the whole int32 range, with hostile
+    words planted in the first elements of the first two windows (two
+    chunks a group: products 0, 1 of group 2, 2, 3 of group 3): +-2^30,
+    INT32_MIN + 1, and the two-group fold (-2^24) << 7 + 1 = INT32_MIN + 1;
+    power-of-two gbases (batch,) and fast2 bases (batch, m), (batch, p) in
+    ``dtype``."""
+    prods = [torch.randint(_INT32_MIN, 2 ** 31 - 1, batch + (m, p),
+                           generator=g, device=dev, dtype=torch.int32)
+             for _ in range(C)]
+    flat = [q.view(-1) for q in prods]
+    if flat[0].numel() >= 4:
+        flat[0][:3] = torch.tensor([2 ** 30, -2 ** 30, _INT32_MIN + 1])
+        for i, v in enumerate([-2 ** 24, 0, 1, 0][:C]):
+            flat[i][3] = v
+    lo, hi = (-70, -55) if tiny else (-30, 30)
+
+    def pow2(shape, lo=lo, hi=hi):
+        return torch.pow(2.0, torch.randint(lo, hi, shape, generator=g,
+                                            device=dev).to(dtype))
+    return prods, pow2(batch), pow2(batch), pow2(batch + (m,), -40, 40), \
+        pow2(batch + (p,), -40, 40)
+
+
+@pytest.mark.parametrize("C", [1, 4, 17, 36])
+@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("shape", [((2,), 5, 36), ((3,), 7, 13),
+                                   ((), 4, 9268)],
+                         ids=["aligned", "ragged", "decode"])
+@pytest.mark.parametrize("fast2", [False, True])
+@pytest.mark.parametrize("partial", [False, True])
+def test_scale_accum_const_windows_kernel(dev, C, c, shape, fast2, partial):
+    """The Ozaki-II whole-contraction df32 epilogue against its plain
+    version, bitwise: C chunk products two a group, windows of one group
+    (c = 1) or two (c = 2, the lower group shifted by beta), hostile
+    words, more than one launch above 32 products, the fast2 unscale or
+    none, the f32 sum or (hi, lo)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import scale_accum as sa
+    batch, m, p = shape
+    g = torch.Generator(device=dev).manual_seed(30 + C)
+    prods, ga, gb, ba, bb = _window_inputs(g, dev, batch, m, p, C)
+    bases = (ba, bb) if fast2 else (None, None)
+    groups = [2 + i // 2 for i in range(C)]
+    before = LAUNCHES["scale_accum_const"]
+    got = sa.scale_accum_const_windows(prods, groups, c, 7, ga, gb, *bases,
+                                       partial=partial)
+    assert LAUNCHES["scale_accum_const"] == before + -(-C // sa.MAX_WORDS)
+    want = sa.scale_accum_const_windows_ref(prods, groups, c, 7, ga, gb,
+                                            *bases, partial=partial)
+    if partial:
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    else:
+        assert _same(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_scale_accum_const_windows_kernel_scales(dev, dtype, tiny):
+    """f32 and f64 gbases and bases (the scales formed from the f32
+    conversion of the gbases, the unscale factors in the bases' dtype);
+    tiny gbases put the window scales and their products below the normal
+    range, and groups up to 2k = 20 make the half exponents subnormal."""
+    from repro_torch.kernels import scale_accum as sa
+    g = torch.Generator(device=dev).manual_seed(40)
+    prods, ga, gb, ba, bb = _window_inputs(g, dev, (2,), 6, 44, 19, dtype,
+                                           tiny=tiny)
+    groups = list(range(2, 21))
+    for c in (1, 3):
+        got = sa.scale_accum_const_windows(prods, groups, c, 7, ga, gb, ba,
+                                           bb)
+        want = sa.scale_accum_const_windows_ref(prods, groups, c, 7, ga, gb,
+                                                ba, bb)
+        assert _same(got, want)
+
+
+def test_oz2_epilogue_wrapper_runs_no_pytorch_op(dev):
+    """On the card an Ozaki-II contraction's df32 epilogue is its kernel
+    alone: no fold, scale, ratio, zeroing, unscale or conversion operation
+    of PyTorch around it."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(41)
+    prods, ga, gb, ba, bb = _window_inputs(g, dev, (), 4, 2048, 4)
+    for c in (1, 2):
+        run = lambda: ops.oz2_scale_accum_contraction(prods, [2, 3, 4, 5], c,
+                                                      7, ga, gb, ba, bb)
+        run()
+        seen = _dispatched(run)
+        assert set(seen) <= _ALLOC_OR_VIEW, seen
+
+
+@pytest.mark.parametrize("spec,dtype,windows", [
+    ("oz2_h-4:df32:fast2:fused", torch.float32, 1),
+    ("oz2_h-4:df32:fast2:fused", torch.float64, 1),
+    ("oz2_b-17:df32:fused", torch.float32, 2)])
+@pytest.mark.parametrize("shape", ["rank2", "attention"])
+def test_oz2_df32_pipeline_one_launch_a_contraction(dev, spec, dtype,
+                                                    windows, shape):
+    """An Ozaki-II df32 product on the card equals the CPU plain-version
+    pipeline bit for bit with one epilogue launch a contraction (two for
+    the 33 chunk products of k = 17 in full mode) and no unscale launch:
+    rank 2 at n = 300, and the attention's batched scores (n = 128: two
+    groups a ladder window); f64 inputs keep f64 bases."""
+    from repro_torch.core.ozimmu import ozimmu_dot_general, parse_spec
+    from repro_torch.kernels import LAUNCHES
+    g = torch.Generator(device=dev).manual_seed(42)
+    if shape == "rank2":
+        a = torch.randn((45, 300), generator=g, device=dev, dtype=dtype)
+        a = a * torch.pow(2.0, torch.randint(-10, 10, (45, 1), generator=g,
+                                             device=dev)).to(dtype)
+        b = torch.randn((300, 33), generator=g, device=dev, dtype=dtype)
+        dnums = (((1,), (0,)), ((), ()))
+    else:
+        a = torch.randn((4, 8, 2, 128), generator=g, device=dev, dtype=dtype)
+        b = torch.randn((4, 8, 48, 128), generator=g, device=dev,
+                        dtype=dtype)
+        a[:, 3] *= 1e-20
+        dnums = (((3,), (3,)), ((0, 1), (0, 1)))
+    cfg = parse_spec(spec)
+    before = dict(LAUNCHES)
+    out = ozimmu_dot_general(a, b, dnums, cfg)
+    assert LAUNCHES["scale_accum_const"] == \
+        before["scale_accum_const"] + windows
+    assert LAUNCHES["unscale"] == before["unscale"]
+    assert _same(out.cpu(), ozimmu_dot_general(a.cpu(), b.cpu(), dnums, cfg))

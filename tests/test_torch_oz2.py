@@ -18,10 +18,12 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from repro.core import accumulate as R_acc
 from repro.core import ozimmu as R
 from repro.core import split_cache as R_sc
 from repro.core import splitting as R_split
 from repro.kernels import ops as jops
+from repro_torch.core import accumulate as P_acc
 from repro_torch.core import ozimmu as P
 from repro_torch.core import split_cache as P_sc
 from repro_torch.core import splitting as P_split
@@ -201,6 +203,26 @@ def test_presplit_weight_carries_gbase(spec):
         out = eng(x, layer)
         np.testing.assert_array_equal(out.numpy(), eng(x, w[i]).numpy())
     assert cache.stats.misses == 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("gbases", [(100, 100), (120, 20), (60, 60)])
+def test_oz2_window_scales_bitwise(gbases, dtype):
+    """The ladder windows' scalar scales against the reference's
+    ``_oz2_scale``, bitwise, where the half-exponent factor
+    ``2^(-beta*(g//2))`` is subnormal in f32 (g >= 38 at beta 7): XLA reads
+    it as zero, so the scale is zero however large the bases."""
+    beta, gs = 7, (36, 38, 40, 44)
+    ga = np.array([2.0 ** gbases[0], 2.0 ** -gbases[0]], dtype)
+    gb = np.array([2.0 ** gbases[1], 1.0], dtype)
+    for acc_dtype in {np.float32, dtype}:
+        tdt = torch.float32 if acc_dtype == np.float32 else torch.float64
+        out = P_acc._oz2_scales(torch.from_numpy(ga), torch.from_numpy(gb),
+                                beta, gs, tdt)
+        for i, g in enumerate(gs):
+            ref = R_acc._oz2_scale(jnp.asarray(ga), jnp.asarray(gb), beta, g,
+                                   acc_dtype)
+            _assert_bitwise(out[i], ref)
 
 
 def _epilogue(rng, batch=(2,), m=5, p=11, word=np.int32):

@@ -4,12 +4,14 @@ epilogue against the JAX package, bitwise, on the same numpy inputs.
 On the card a split is one launch (row maxima, grids, bases, scales and
 digits: ``split_fused.split_whole``) and the df32 group-EF epilogue of a
 contraction is one launch over all its chunk products
-(``scale_accum.scale_accum_chunks``).  Their plain versions, which the CPU
-runs and which ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
-kernels to, must equal the reference: the split against its Pallas kernel
-in interpret mode (``repro.kernels.ops.split_fused``), the epilogue against
-the reference's group-EF df32 accumulation with its XLA epilogue (its
-Pallas epilogue in interpret mode keeps IEEE subnormals; see
+(``scale_accum.scale_accum_chunks``), as is the Ozaki-II df32 epilogue
+(``scale_accum.scale_accum_const_windows``: ladder fold, windows, fast2
+unscale).  Their plain versions, which the CPU runs and which
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to,
+must equal the reference: the split against its Pallas kernel in
+interpret mode (``repro.kernels.ops.split_fused``), the epilogues against
+the reference's group-EF and Ozaki-II df32 accumulation with its XLA
+epilogue (its Pallas epilogue in interpret mode keeps IEEE subnormals; see
 ``tests/test_torch_underflow.py``).
 """
 import numpy as np
@@ -216,6 +218,167 @@ def test_fused_products_through_the_whole_epilogue(spec, shape,
         dnums = (((1,), (0,)), ((), ()))
     else:
         a, b = _attention_operands(np.float32)
+        dnums = ATTN_DNUMS
+    ref = R.ozimmu_dot_general(jnp.asarray(a), jnp.asarray(b), dnums,
+                               R.parse_spec(spec))
+    out = P.ozimmu_dot_general(torch.from_numpy(a), torch.from_numpy(b),
+                               dnums, P.parse_spec(spec))
+    assert len(spy.calls) == 1
+    _assert_bitwise(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# the Ozaki-II df32 epilogue (ladder fold, windows, fast2 unscale)
+# ---------------------------------------------------------------------------
+
+class _Oz2Spy:
+    """Counts calls of the Ozaki-II whole-contraction epilogue hook."""
+
+    def __init__(self):
+        self.calls = []
+        self.hook = P_ops.oz2_scale_accum_contraction
+
+    def __call__(self, prods, groups, *args, **kw):
+        self.calls.append(list(groups))
+        return self.hook(prods, groups, *args, **kw)
+
+
+def _oz2_splits(variant, fast, k, batch, scale, m=6, n=64, p=9, seed=6):
+    """Reference and port constant-grid splits of the same operands (rows
+    and columns spread by 2^+-10; all of A scaled by ``scale``), and the
+    splits' digit magnitude bits."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(batch + (m, n)) * 2.0 ** rng.integers(
+        -10, 10, batch + (m, 1)) * scale
+    b = rng.standard_normal(batch + (n, p)) * 2.0 ** rng.integers(
+        -10, 10, batch + (1, p))
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    name = {"oz2_b": "split_oz2_bitmask", "oz2_h": "split_oz2"}[variant] + \
+        ("_fast2" if fast == "fast2" else "")
+    beta = P_split.compute_beta(n)
+    split = {"oz2_b": "oz2_bitmask", "oz2_h": "oz2_rn"}[variant]
+    jsa, jsb = (getattr(R_split, name)(jnp.asarray(x), k, axis=ax)
+                for x, ax in ((a, 0), (b, 1)))
+    tsa, tsb = (getattr(P_split, name)(torch.from_numpy(x), k, axis=ax)
+                for x, ax in ((a, 0), (b, 1)))
+    return jsa, jsb, tsa, tsb, P_split.digit_bits(split, beta)
+
+
+# (variant, fast, k, r, batch, scale): r = None is eq. 12's (one chunk a
+# group at n = 64: 2k - 1 chunks in full mode, 17 at k = 9, 23 at k =
+# 12); r = 1 makes a chunk of every pair (25 at k = 5 in full mode, several
+# a window); scale 1e-30 puts the window scales below the normal range
+OZ2_EPILOGUES = [("oz2_h", "fast2", 4, None, (), 1.0),
+                 ("oz2_b", "fast2", 4, None, (3,), 1.0),
+                 ("oz2_h", True, 3, None, (), 1.0),
+                 ("oz2_b", True, 6, 1, (2,), 1.0),
+                 ("oz2_h", False, 9, None, (), 1.0),
+                 ("oz2_b", False, 12, None, (2,), 1.0),
+                 ("oz2_h", False, 5, 1, (), 1.0),
+                 ("oz2_h", "fast2", 5, None, (2,), 1e-30),
+                 ("oz2_b", False, 4, None, (), 1e-30)]
+
+
+@pytest.mark.parametrize("variant,fast,k,r,batch,scale", OZ2_EPILOGUES)
+@pytest.mark.parametrize("partial", [False, True])
+def test_oz2_whole_epilogue_plain_bitwise(variant, fast, k, r, batch, scale,
+                                          partial):
+    """The Ozaki-II one-launch epilogue's plain version through the
+    ``epilogue_fn`` hook of ``matmul_oz2`` against the reference's
+    ``matmul_oz2`` with its df32 accumulator (XLA epilogue): full,
+    ``:fast`` and ``:fast2`` bands, the f32 result or the unrounded (hi,
+    lo) with ``partial``; the default hook gives the same."""
+    jsa, jsb, tsa, tsb, db = _oz2_splits(variant, fast, k, batch, scale)
+    kw = dict(accum="df32", fast=fast, r=r, digit_bits=db, partial=partial)
+    ref = R_acc.matmul_oz2(jsa, jsb, **kw)
+    spy = _Oz2Spy()
+    out = P_acc.matmul_oz2(tsa, tsb, epilogue_fn=spy, **kw)
+    default = P_acc.matmul_oz2(tsa, tsb, **kw)
+    want_chunks = P_acc.oz2_num_chunks(
+        k, r or P_split.compute_r(64, P_split.compute_beta(64), db), fast)
+    assert len(spy.calls) == 1 and len(spy.calls[0]) == want_chunks
+    for got in (out, default):
+        if partial:
+            _assert_bitwise(got.hi, ref.hi)
+            _assert_bitwise(got.lo, ref.lo)
+        else:
+            _assert_bitwise(got, ref)
+
+
+def test_oz2_whole_epilogue_is_the_window_loop():
+    """``scale_accum_const_windows_ref`` is the loop of the one-window
+    kernel's plain version ``scale_accum_const_ref`` from zero over the
+    folded words with the reference's window scales, then the fast2
+    unscale's plain version per limb; an f64 output converts the same
+    (hi, lo) as ``DF32.to_float``."""
+    _, _, tsa, tsb, db = _oz2_splits("oz2_h", "fast2", 5, (2,), 1e-20)
+    seen = []
+
+    def record(prods, groups, c, beta, *args, **kw):
+        seen.append((prods, groups, c, beta) + args)
+        return P_ops.oz2_scale_accum_contraction(prods, groups, c, beta,
+                                                 *args, **kw)
+
+    kw = dict(accum="df32", fast="fast2", r=1, digit_bits=db)
+    whole = P_acc.matmul_oz2(tsa, tsb, partial=True, epilogue_fn=record,
+                             **kw)
+    prods, groups, c, beta, ga, gb, ba, bb = seen[0]
+    windows = P_acc._ladder_windows(groups, c)
+    assert c > 1 and any(len(w) > 1 for w in windows)
+    hi = torch.zeros(prods[0].shape, dtype=torch.float32)
+    lo = torch.zeros_like(hi)
+    for w in windows:
+        g_hi = w[-1][1]
+        word = sum(torch.bitwise_left_shift(prods[i], beta * (g_hi - g))
+                   for i, g in w)
+        s = R_acc._oz2_scale(jnp.asarray(ga.numpy()), jnp.asarray(gb.numpy()),
+                             beta, g_hi, jnp.float32)
+        hi, lo = P_sa.scale_accum_const_ref(word, torch.from_numpy(
+            np.array(s)), hi, lo)
+    ra, rb = ba * (1.0 / ga[..., None]), bb * (1.0 / gb[..., None])
+    hi, lo = (P_sa.unscale_ref(x, ra, rb) for x in (hi, lo))
+    for acc in (whole, P_sa.scale_accum_const_windows_ref(
+            prods, groups, c, beta, ga, gb, ba, bb, partial=True)):
+        _assert_bitwise(acc[0], hi)
+        _assert_bitwise(acc[1], lo)
+    _assert_bitwise(
+        P_acc.matmul_oz2(tsa, tsb, out_dtype=torch.float64,
+                         epilogue_fn=P_ops.oz2_scale_accum_contraction, **kw),
+        whole.to_float(torch.float64))
+    with pytest.raises(ValueError, match="one group per chunk"):
+        P_sa.scale_accum_const_windows(
+            [torch.zeros((2, 2), dtype=torch.int32)], [2, 3], 1, 7,
+            torch.ones(()), torch.ones(()))
+    with pytest.raises(ValueError, match="ascend from 2"):
+        P_sa.scale_accum_const_windows(
+            [torch.zeros((2, 2), dtype=torch.int32)] * 2, [3, 2], 1, 7,
+            torch.ones(()), torch.ones(()))
+
+
+@pytest.mark.parametrize("spec", ["oz2_h-4:df32:fast2:fused",
+                                  "oz2_b-5:df32:fused",
+                                  "oz2_h-10:df32:fused",
+                                  "oz2_b-4:df32:fast:fused"])
+@pytest.mark.parametrize("shape", ["rank2", "attention"])
+def test_fused_oz2_products_through_the_whole_epilogue(spec, shape,
+                                                       monkeypatch):
+    """``:fused`` Ozaki-II df32 products go through the whole-contraction
+    hook (one call a contraction, no per-window or per-limb hook), bitwise
+    against the reference's fused pipeline with its XLA epilogue; k = 10
+    in full mode gives 19 chunk products."""
+    _xla_epilogues(monkeypatch)
+    spy = _Oz2Spy()
+    monkeypatch.setattr(P_ops, "oz2_scale_accum_contraction", spy)
+    monkeypatch.setattr(P_ops, "oz2_scale_accum_update", None)
+    monkeypatch.setattr(P_ops, "oz2_unscale_update", None)
+    if shape == "rank2":
+        rng = np.random.default_rng(10)
+        a = rng.standard_normal((8, 64)).astype(np.float32)
+        b = rng.standard_normal((64, 8)).astype(np.float32)
+        a[2] *= 1e-20
+        dnums = (((1,), (0,)), ((), ()))
+    else:
+        a, b = _attention_operands(np.float32, seed=11)
         dnums = ATTN_DNUMS
     ref = R.ozimmu_dot_general(jnp.asarray(a), jnp.asarray(b), dnums,
                                R.parse_spec(spec))
