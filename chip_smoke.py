@@ -23,8 +23,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    chunk products, and the one-launch Ozaki-II df32 epilogue
    (``scale_accum.scale_accum_const_windows``: ladder fold, windows, fast2
    unscale) on the same decode shapes (one-group windows) and the
-   attention's (two-group windows).  The group GEMM's, the split's and the
-   epilogues' times are device times (CUDA-graph replay; the group GEMM's
+   attention's (two-group windows).  deepseek-moe-16b's expert
+   contractions at decode add their shapes: the split of the E-batched A
+   sides (64 x 8 rows, only the 24 a step fills nonzero) and of the
+   bf16-valued expert weight stacks (64 x 2048 x 1408 and back, split
+   every step), the skinny group GEMM over a batch of 64, and the df32
+   epilogue on their real chunk products.  The group GEMM's, the split's
+   and the epilogues' times are device times (CUDA-graph replay; the
+   group GEMM's
    B operands rotated past the L2 cache), with the eager per-call time
    beside them.  Near-underflow rows (every split mode) and scales run
    through the split and epilogue kernels, bitwise.  Neither the split's
@@ -56,15 +62,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    oracle (2e-4), both in f32 (the 3xTF32 route); then the same in bf16
    (the wgmma route), held to the bf16 bound against the f32 route's
    results on the same (bf16-rounded) inputs.
+6. MoE serve (``serve_moe``): ``ServingRuntime`` on the published
+   deepseek-moe-16b config (28 layers, 64 experts top-6 plus 2 shared,
+   random weights from a seed) under ``ozimmu_h-4:df32:fused``, after
+   every earlier phase freed its model; the depth is cut, and the cut
+   logged, only if the predicted peak does not fit the card.  Request 0
+   must equal a monolithic greedy loop, the prefill logits agree with the
+   native f32 engine (isolated routing flips allowed), and the device
+   memory and its peak are logged with a trace by kernel class.
 
-The launch counts of phases 3-5 are zeroed just before each path runs and
+The launch counts of phases 3-6 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
 GEMM must have taken the route assigned to the path (large for the DGEMM,
 skinny for serving).  A serve run must count exactly one split launch per
 split operand (24 layers x 11 + the LM head a model step), four group
 GEMMs per contraction (24 x 9 + 1 a step) and one df32 epilogue launch per
 contraction (``scale_accum`` under group-EF, ``scale_accum_const`` under
-Ozaki-II, with no ``unscale``); its trace splits the device operations of
+Ozaki-II, with no ``unscale``); the MoE serve run 28 x 17 + 1 splits,
+(28 x 12 + 1) x 4 group GEMMs, all skinny, and 28 x 12 + 1 epilogues a
+model step (the expert weights split every step; the f32 router launches
+none); a serve trace splits the device operations of
 a step by kernel into split, group GEMM, epilogue and other.  Phase 2 holds
 the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
@@ -111,6 +128,10 @@ ATTN = dict(B=1, L=4096, H=16, KV=8, D=128)   # internlm2-1.8b attention
 # of one bf16 unit roundoff (2^-8) of the tensor's largest value
 BF16_RTOL, BF16_ATOL = 2e-2, 4e-3
 SLOTS, REQUESTS, PROMPT, GEN = 4, 8, 32, 16
+# deepseek-moe-16b at decode: 64 experts, capacity max(8, ...) = 8 a
+# step for 4 slots x top-6 (24 of the 64 x 8 buffer rows hold a token)
+MOE = dict(E=64, cap=8, d=2048, fe=1408, K=6)
+MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_GEN = 4, 4, 16, 8
 SEED = 0
 
 
@@ -262,29 +283,43 @@ def kernel_cases(dev):
                                                    axis=axis)),
                 moved)
 
-    def split_case(label, shape, dtype, k, axis, reps, dnums=None):
+    def split_case(label, shape, dtype, k, axis, reps, dnums=None,
+                   live=None, bf16_values=False):
         """``dnums``: ``x`` is the attention's KV cache (slots, L, KV, D),
         split as the B operand ``canonical_rhs`` makes of it under these
-        dimension numbers: a permuted view, read through its strides."""
+        dimension numbers: a permuted view, read through its strides.
+        ``live``: a (*batch, rows) mask; the other rows are zero, as in
+        the MoE dispatch buffer.  ``bf16_values``: bf16 weights cast to
+        the compute dtype, as the MoE step splits its expert weights."""
         x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
         if dnums is not None:
             x = canonical_rhs(x, dnums)[0]
+        if live is not None:
+            x = x * live[..., None]
+        if bf16_values:
+            x = x.to(torch.bfloat16).to(dtype)
         beta = compute_beta(x.shape[-1] if axis == 0 else x.shape[-2])
         run, plain, moved = whole_split(x, k, beta, "rn_const", axis)
         add("split_fused", label, run, plain, moved, 0.0, F32_FLOPS, reps,
             graph=True)
 
-    def gemm_case(label, m, n, p, k, reps, batch=(), sm=False, route=None):
+    def gemm_case(label, m, n, p, k, reps, batch=(), sm=False, route=None,
+                  live=None):
         """The group g = k + 1 (all k pairs) of split digits, signed or the
         sign-magnitude split's stored digits (slice 0 signed, the others
         unsigned bytes), B K-major as the axis=1 split stores it.  Timed
         with B rotated over copies that exceed the L2 cache, as a serve
         step finds its weights; the library yardstick at m <= 16 is
         torch._int_mm on A padded with zero rows to 32 (outside the timed
-        call), which computes the same first m rows."""
+        call), which computes the same first m rows.  ``live``: a (*batch,
+        m) mask of A's nonzero rows (the MoE dispatch buffer); the bound
+        then counts the B bytes of the batch elements with a nonzero row
+        and the operations of the nonzero rows, what this data needs."""
         dtype = f64 if k == 8 else f32
         a = torch.randn(batch + (m, n), generator=gen, device=dev,
                         dtype=dtype)
+        if live is not None:
+            a = a * live[..., None]
         w = torch.randn(batch + (n, p), generator=gen, device=dev,
                         dtype=dtype)
         beta = compute_beta_sm(n) if sm else compute_beta(n)
@@ -319,11 +354,14 @@ def kernel_cases(dev):
                                 dim=-1).t() for c in copies]
             library = lambda: torch._int_mm(
                 a_cat, b_cats[next(turn) % len(b_cats)])[:m]
+        live_b = B if live is None else int(live.reshape(B, m).any(-1).sum())
+        rows = B * m if live is None else int(live.sum())
         add("group_gemm", label,
             lambda: call(da, db, ia, ib, **kw),
             lambda: gg.group_gemm_ref(da, db, ia, ib, a_unsigned=ua,
                                       b_unsigned=ub),
-            B * (G * (m * n + n * p) + 4 * m * p), 2.0 * B * G * m * n * p,
+            G * (B * m * n + live_b * n * p) + 4 * B * m * p,
+            2.0 * G * rows * n * p,
             INT8_OPS_PER_S, reps, library=library, no_library=no_library,
             bench=lambda: call(da, copies[next(turn) % len(copies)], ia, ib,
                                **kw),
@@ -556,6 +594,40 @@ def kernel_cases(dev):
             lambda: sa.unscale_ref(x, ra, rb), nbytes(ra, rb) + 2 * nbytes(x),
             2.0 * x.numel(), F64_FLOPS if dtype == f64 else F32_FLOPS, reps)
 
+    def moe_live_rows():
+        """The (E, cap) rows of the MoE dispatch buffer that a decode step
+        fills: each of the slots' tokens picks K distinct experts and
+        takes the next free row of each expert's queue."""
+        E, cap = MOE["E"], MOE["cap"]
+        live = torch.zeros((E, cap), dtype=torch.bool, device=dev)
+        fill = [0] * E
+        for _ in range(MOE_SLOTS):
+            for e in torch.randperm(E, generator=gen,
+                                    device=dev)[:MOE["K"]].tolist():
+                live[e, fill[e]] = True
+                fill[e] += 1
+        return live
+
+    def moe_chunks_case(label, live, n, p, reps):
+        """The df32 epilogue of one expert contraction on its real chunk
+        products: A (E, cap, n) with the dispatch buffer's zero rows and B
+        (E, n, p) bf16-valued weights, split and multiplied group by group
+        (k = 4: groups 2..5) as the pipeline does."""
+        E, cap = MOE["E"], MOE["cap"]
+        a = torch.randn((E, cap, n), generator=gen, device=dev) * \
+            live[..., None]
+        w = torch.randn((E, n, p), generator=gen, device=dev).to(
+            torch.bfloat16).to(f32)
+        beta = compute_beta(n)
+        sa_ = ops.split_fused(a, 4, beta, axis=0)
+        sb_ = ops.split_fused(w, 4, beta, axis=1)
+        prods = [ops.group_gemm(sa_, sb_, [(i, g - i) for i in range(1, g)
+                                           if i <= 4 and g - i <= 4])
+                 for g in range(2, 6)]
+        base_b = sb_.base
+        del w, sb_                            # the B digits: 0.74 GB
+        chunks_case(label, prods, sa_.base, base_b, reps, beta=beta)
+
     ctx = PROMPT + GEN                        # the decode cache length
     split_case("decode A (4x2048) f32 k=4", (SLOTS, d), f32, 4, 0, 50)
     split_case("decode A (4x8192) f32 k=4", (SLOTS, f), f32, 4, 0, 50)
@@ -591,6 +663,27 @@ def kernel_cases(dev):
     gemm_case("middle m (32x2048x8192) G=4", 32, d, f, 4, 20)
     gemm_case("prefill-sized (128x2048x8192) G=4", SLOTS * PROMPT, d, f, 4,
               20)
+    # deepseek-moe-16b's expert contractions at decode (serve_moe): the
+    # E-batched A sides with the dispatch buffer's zero rows, the expert
+    # weights' B sides split every step, the skinny group GEMMs over a
+    # batch of 64 and the df32 epilogue of each contraction
+    E, cap, dm, fe = MOE["E"], MOE["cap"], MOE["d"], MOE["fe"]
+    live = moe_live_rows()
+    nlive = int(live.sum())
+    split_case(f"MoE A w_gate/w_up ({E}x{cap}x{dm}, {nlive} rows live) f32 "
+               f"k=4", (E, cap, dm), f32, 4, 0, 50, live=live)
+    split_case(f"MoE A w_down ({E}x{cap}x{fe}, {nlive} rows live) f32 k=4",
+               (E, cap, fe), f32, 4, 0, 50, live=live)
+    split_case(f"MoE B w_gate/w_up ({E}x{dm}x{fe}) bf16-valued f32 k=4 "
+               f"axis=1", (E, dm, fe), f32, 4, 1, 10, bf16_values=True)
+    split_case(f"MoE B w_down ({E}x{fe}x{dm}) bf16-valued f32 k=4 axis=1",
+               (E, fe, dm), f32, 4, 1, 10, bf16_values=True)
+    gemm_case(f"MoE w_gate/w_up ({E} x {cap}x{dm}x{fe}, {nlive} rows live) "
+              f"G=4", cap, dm, fe, 4, 10, batch=(E,), live=live)
+    gemm_case(f"MoE w_down ({E} x {cap}x{fe}x{dm}, {nlive} rows live) G=4",
+              cap, fe, dm, 4, 10, batch=(E,), live=live)
+    moe_chunks_case(f"MoE w_gate/w_up ({E}x{cap}x{fe}) C=4", live, dm, fe, 50)
+    moe_chunks_case(f"MoE w_down ({E}x{cap}x{dm}) C=4", live, fe, dm, 50)
     for mm in (4, 8, 16, 32):                 # the crossover, both routes
         for rt in ("skinny", "large"):
             gemm_case(f"crossover {rt} ({mm}x2048x8192) G=4", mm, d, f, 4,
@@ -819,6 +912,23 @@ def no_torch_ops(dev):
                   for mode in ("rn_const", "sm")]
     calls.append(("df32 epilogue C=4", lambda: ops.scale_accum_contraction(
         prods, [2, 3, 4, 5], *ones, 7)))
+    # the MoE step's operands: the dispatch buffer as the engine passes it
+    # (its f32 copy of the bf16 buffer), the expert weight stack and the
+    # E-batched chunk products
+    E, cap, dm, fe = MOE["E"], MOE["cap"], MOE["d"], MOE["fe"]
+    buf = torch.randn((E, cap, dm), device=dev)
+    w_e = torch.randn((E, dm, fe), device=dev)
+    prods_e = [torch.zeros((E, cap, fe), dtype=torch.int32, device=dev)
+               for _ in range(4)]
+    ones_e = (torch.ones((E, cap), device=dev),
+              torch.ones((E, fe), device=dev))
+    calls += [("split rn_const MoE A (dispatch buffer view)",
+               lambda: ops.split_fused(buf, 4, 7, axis=0)),
+              ("split rn_const MoE B (expert stack) axis=1",
+               lambda: ops.split_fused(w_e, 4, 7, axis=1)),
+              ("df32 epilogue MoE (E-batched) C=4",
+               lambda: ops.scale_accum_contraction(prods_e, [2, 3, 4, 5],
+                                                   *ones_e, 7))]
     gbase = torch.full((), 2.0, device=dev)
     calls += [(f"Ozaki-II df32 epilogue C=4 c={c} fast2",
                lambda c=c: ops.oz2_scale_accum_contraction(
@@ -834,8 +944,9 @@ def no_torch_ops(dev):
                                  f"operations on the card: {sorted(extra)}")
     log(f"[kernels] no PyTorch operation besides allocations and views "
         f"around the split (rn_const, sm, oz2_rn_fast2; both axes; the "
-        f"attention's B operands as KV-cache views) or the df32 epilogues "
-        f"(group-EF; Ozaki-II with fast2) on the card")
+        f"attention's B operands as KV-cache views; the MoE dispatch "
+        f"buffer and expert stack) or the df32 epilogues (group-EF, "
+        f"also E-batched; Ozaki-II with fast2) on the card")
 
 
 def wrapper_host_us(dev, reps=2000, turns=3):
@@ -1064,28 +1175,7 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=()):
     # mean, the softmax sum) choose their summation order from the
     # tensor's shape, and every row is computed independently of the
     # others only at equal shapes.
-    with torch.no_grad():
-        cache = model.init_cache(cfg, SLOTS, PROMPT + GEN, device=dev)
-        toks = list(prompts[0])
-        feed = list(prompts[0])
-        for t in range(PROMPT + GEN - 1):
-            step_toks = torch.zeros((SLOTS, 1), dtype=torch.int32,
-                                    device=dev)
-            step_toks[0, 0] = int(feed[t])
-            cur = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
-            cur[0] = t + 1
-            logits, cache = model.decode_step(rt.params, cfg, cache,
-                                              step_toks, cur)
-            if t + 1 >= PROMPT:
-                nxt = int(torch.argmax(logits[0, -1, :cfg.vocab]))
-                toks.append(nxt)
-                feed.append(nxt)
-    got = np.concatenate([reqs[0].prompt, np.asarray(reqs[0].generated)])
-    if not np.array_equal(got, np.asarray(toks)):
-        raise AssertionError(f"request 0 differs from the monolithic "
-                             f"greedy loop:\n{got.tolist()}\n{toks}")
-    log(f"[{tag}] request 0 equals the monolithic greedy loop: "
-        f"{got[PROMPT:].tolist()}")
+    check_monolithic(tag, model, cfg, rt, reqs[0], SLOTS, GEN, dev)
 
     # full-width prefill logits in f32 activations: the emulated engine
     # (presplit weights) against the native f32 engine on the same weights
@@ -1106,25 +1196,218 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=()):
                              f"{rel:.3e}")
     if trace:
         serve_trace(rt, prompts, tag, s)
-    del rt, params, emu, nat, cache
+    del rt, params, emu, nat
     torch.cuda.empty_cache()
     return counts, s
 
 
-def serve_trace(rt, prompts, tag, untraced):
-    """The device's idle share while serving: SLOTS more requests (prompt
-    8, 4 new tokens) through the same runtime under torch.profiler,
-    tracing the card only (CUPTI).  Busy time is the union of the kernel,
-    copy and set intervals, over the span from the first one's start to
-    the last one's end.  A model step is one decode step of the model:
-    every prefill call here and in ``untraced`` feeds whole prompts of one
-    length position by position (11 steps here, 94 in ``untraced``)."""
+def moe_depth(cfg, free_bytes: int):
+    """``(layers, bytes a layer, bytes besides the layers)``: the published
+    depth of the MoE config if the serve phase's predicted peak fits in
+    ``free_bytes``, else the most layers that fit.  A layer holds its f32
+    weights and the k = 4 int8 frozen digits of its attention and
+    shared-expert weights; besides the layers: the embedding and LM head
+    (f32, plus the LM head's digits) and, twice over, one expert
+    contraction's transient (the bf16 cast of an expert weight stack, its
+    f32 copy for the engine and its 4 int8 digit slices)."""
+    d, E, fe, V, hd = (cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+                       cfg.padded_vocab, cfg.hd)
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    shared = 3 * d * fe * cfg.n_shared_experts
+    layer = 4 * (attn + d * E + 3 * E * d * fe + shared + 2 * d) + \
+        4 * (attn + shared)
+    fixed = 4 * 2 * V * d + 4 * d * V + 2 * (2 + 4 + 4) * E * d * fe
+    return int(min(cfg.n_layers, (free_bytes - fixed) // layer)), layer, fixed
+
+
+def phase_serve_moe(dev):
+    """Serve deepseek-moe-16b ``full()`` (random weights from the seed)
+    under ``MODEL_SPEC``: MOE_SLOTS slots, MOE_REQUESTS requests of prompt
+    MOE_PROMPT and MOE_GEN new tokens, at the published 28 layers unless
+    the predicted peak (:func:`moe_depth`) does not fit the card after the
+    earlier phases freed theirs.  Every model step must count exactly 17
+    split launches a layer (7 projection A sides, both sides of the 2
+    attention and 3 expert products: the expert weights are split every
+    step, as in the reference) plus the LM head's, 4 skinny group GEMMs
+    and one df32 epilogue a contraction (12 a layer plus the LM head; the
+    f32 router launches none).  Request 0 must equal the monolithic loop,
+    the weight-split hit rate be 1.0, and the 1x16 prefill logits in f32
+    activations agree with the native f32 engine within 1e-3 of
+    max|logit| per token, routing flips allowed only where isolated (the
+    reference's rule, ``tests/test_models.py``)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import api
+    from repro_torch.models.common import param_count
+    from repro_torch.serving import ServingRuntime
+    tag = "serve_moe"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = configs.get_config("deepseek_moe_16b", engine_spec=MODEL_SPEC)
+    free, total = torch.cuda.mem_get_info()
+    layers, per_layer, fixed = moe_depth(cfg, free)
+    predicted = fixed + layers * per_layer
+    if layers < cfg.n_layers:
+        why = (f"depth cut {cfg.n_layers} -> {layers} layers: the "
+               f"published depth's predicted peak "
+               f"{(fixed + cfg.n_layers * per_layer) / 1e9:.1f} GB exceeds "
+               f"the {free / 1e9:.1f} GB free")
+        cfg = cfg.with_(n_layers=layers)
+    else:
+        why = "depth not cut"
+    if layers < 1:
+        raise AssertionError(f"{tag}: not one layer fits ({why})")
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers ({why}; predicted peak "
+        f"{predicted / 1e9:.1f} GB of {free / 1e9:.1f} GB free, card "
+        f"{total / 1e9:.1f} GB), d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.n_experts} experts of d_ff "
+        f"{cfg.d_ff_expert} top-{cfg.topk} + {cfg.n_shared_experts} "
+        f"shared, vocab {cfg.vocab}, dispatch {cfg.moe_dispatch} (no mesh: "
+        f"scatter); engine {MODEL_SPEC}")
+    model = api.get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init(cfg, generator=gen, device=dev)
+    rt = ServingRuntime(cfg, params, slots=MOE_SLOTS,
+                        max_len=MOE_PROMPT + MOE_GEN, device=dev)
+    torch.cuda.synchronize()
+    st = rt.split_cache.stats
+    log(f"[{tag}] init + weight freeze {time.perf_counter() - t0:.1f} s: "
+        f"{param_count(params) / 1e9:.2f} B f32 parameters, {st.misses} "
+        f"weight splits, {st.cached_bytes / 1e9:.2f} GB resident; device "
+        f"memory {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB of it this "
+        f"phase's)")
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=MOE_PROMPT, dtype=np.int32)
+               for _ in range(MOE_REQUESTS)]
+    reset_launches()
+    reqs = [rt.submit(p, MOE_GEN) for p in prompts]
+    s = rt.run()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    sc = s["split_cache"]
+    steps = s["prefill_calls"] * MOE_PROMPT + s["decode_steps"]
+    log(f"[{tag}] {s['tokens_generated']} tokens from "
+        f"{s['requests']['finished']} requests in {s['elapsed_s']:.2f} s: "
+        f"{s['tokens_per_s']:.2f} tok/s; TTFT mean {s['ttft_s']['mean']:.3f}"
+        f" s p95 {s['ttft_s']['p95']:.3f} s; {steps} model steps "
+        f"({s['elapsed_s'] / steps * 1e3:.1f} ms a step), decode steps "
+        f"{s['decode_steps']}, prefill calls {s['prefill_calls']}; "
+        f"weight-split hit rate {sc['weight_split_hit_rate']:.3f}")
+    log(f"[{tag}] kernel launches {counts}")
+    for name in ("split_fused", "group_gemm", "scale_accum"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{tag} path launched no {name} kernel")
+    check_route(tag, counts, "skinny")
+    contractions = cfg.n_layers * 12 + 1
+    want = {"split_fused": steps * (cfg.n_layers * 17 + 1),
+            "group_gemm": steps * contractions * 4,
+            "scale_accum": steps * contractions}
+    got = {name: counts[name] for name in want}
+    log(f"[{tag}] launches {got}, expected {want} ({steps} steps x "
+        f"{cfg.n_layers * 17 + 1} splits, {contractions * 4} group GEMMs, "
+        f"{contractions} epilogues)")
+    if got != want:
+        raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
+    if s["requests"]["finished"] != MOE_REQUESTS or \
+            s["tokens_generated"] != MOE_REQUESTS * MOE_GEN:
+        raise AssertionError(f"{tag} finished {s['requests']} with "
+                             f"{s['tokens_generated']} tokens")
+    if sc["weight_split_hit_rate"] != 1.0:
+        raise AssertionError(f"{tag}: weight-split hit rate "
+                             f"{sc['weight_split_hit_rate']}")
+    check_monolithic(tag, model, cfg, rt, reqs[0], MOE_SLOTS, MOE_GEN, dev)
+
+    with torch.no_grad():
+        tk = torch.from_numpy(prompts[1][None, :16]).to(dev)
+        emu = model.forward(rt.params, cfg.with_(dtype="float32"),
+                            {"tokens": tk})
+        nat = model.forward(params, cfg.with_(dtype="float32",
+                                              engine_spec="f32"),
+                            {"tokens": tk})
+    if not bool(torch.isfinite(emu).all()) or emu.shape != nat.shape:
+        raise AssertionError(f"{tag}: prefill logits not finite or "
+                             f"misshapen")
+    err_tok = ((emu - nat).abs().amax(dim=-1) / nat.abs().max())[0]
+    bad = err_tok >= 1e-3
+    flips = int(bad.sum())
+    rest = float(err_tok[~bad].max()) if flips < len(bad) else float("nan")
+    log(f"[{tag}] prefill logits (1x16, f32 activations) vs the f32 engine: "
+        f"{flips} of 16 tokens flipped (per-token max|diff| / max|logit| "
+        f">= 1e-3), the others within {rest:.3e}; per token "
+        f"{[float(f'{e:.2e}') for e in err_tok.tolist()]}")
+    if flips > 1:
+        raise AssertionError(f"{tag}: {flips} tokens off the f32 engine by "
+                             f"1e-3 or more; at most one isolated routing "
+                             f"flip is allowed")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB"
+        f", peak {peak / 1e9:.2f} GB (max_memory_allocated since the phase "
+        f"began; predicted {predicted / 1e9:.1f} GB) of {total / 1e9:.1f} GB")
+    serve_trace(rt, prompts, tag, s, prompt_len=MOE_PROMPT, trace_prompt=8,
+                trace_gen=2)
+    del rt, params, emu, nat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, s
+
+
+def check_monolithic(tag, model, cfg, rt, req, slots, gen, dev):
+    """The runtime's contract: ``req`` (served in slot 0) equals a
+    monolithic greedy loop on the runtime's parameters.  The loop keeps
+    the runtime's slot width (the request in slot 0, the other slots idle
+    at cur = 0): PyTorch's CUDA reductions (the norm's mean, the softmax
+    sum) choose their summation order from the tensor's shape, and every
+    row is computed independently of the others only at equal shapes."""
+    import numpy as np
+    import torch
+    plen = len(req.prompt)
+    with torch.no_grad():
+        cache = model.init_cache(cfg, slots, plen + gen, device=dev)
+        toks = list(req.prompt)
+        for t in range(plen + gen - 1):
+            step_toks = torch.zeros((slots, 1), dtype=torch.int32,
+                                    device=dev)
+            step_toks[0, 0] = int(toks[t])
+            cur = torch.zeros((slots,), dtype=torch.int32, device=dev)
+            cur[0] = t + 1
+            logits, cache = model.decode_step(rt.params, cfg, cache,
+                                              step_toks, cur)
+            if t + 1 >= plen:
+                toks.append(int(torch.argmax(logits[0, -1, :cfg.vocab])))
+    got = np.concatenate([req.prompt, np.asarray(req.generated)])
+    if not np.array_equal(got, np.asarray(toks)):
+        raise AssertionError(f"{tag}: request 0 differs from the monolithic "
+                             f"greedy loop:\n{got.tolist()}\n{toks}")
+    log(f"[{tag}] request 0 equals the monolithic greedy loop: "
+        f"{got[plen:].tolist()}")
+
+
+def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
+                trace_prompt=8, trace_gen=4):
+    """The device's idle share while serving: one more request a slot
+    (prompt ``trace_prompt``, ``trace_gen`` new tokens) through the same
+    runtime under torch.profiler, tracing the card only (CUPTI).  Busy
+    time is the union of the kernel, copy and set intervals, over the span
+    from the first one's start to the last one's end.  A model step is one
+    decode step of the model: every prefill call here and in ``untraced``
+    (prompts of ``prompt_len``) feeds whole prompts of one length
+    position by position over the scheduler's bucket length (serve: 11
+    steps here, 94 in ``untraced``).  The five largest kernels of the
+    "other" class are listed by name."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     rt.reset_metrics()
-    for p in prompts[:SLOTS]:
-        rt.submit(p[:8], 4)
+    for p in prompts[:rt.n_slots]:
+        rt.submit(p[:trace_prompt], trace_gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         s = rt.run()
@@ -1137,10 +1420,13 @@ def serve_trace(rt, prompts, tag, untraced):
            ("kernel", "gpu_memcpy", "gpu_memset")]
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in ops)
-    steps = s["prefill_calls"] * 8 + s["decode_steps"]
+    # a prefill call runs the decode step over its prompt's bucket length
+    bucket = rt.sched.bucket_fn
+    steps = s["prefill_calls"] * bucket(trace_prompt) + s["decode_steps"]
     step_ms = s["elapsed_s"] / steps * 1e3
     base_ms = untraced["elapsed_s"] / (
-        untraced["prefill_calls"] * PROMPT + untraced["decode_steps"]) * 1e3
+        untraced["prefill_calls"] * bucket(prompt_len)
+        + untraced["decode_steps"]) * 1e3
     if not spans:
         log(f"[{tag}] trace: no device events recorded; the device's idle "
             f"share is not measured")
@@ -1160,15 +1446,23 @@ def serve_trace(rt, prompts, tag, untraced):
         f"{1 - busy / span:.4f}; {busy / steps / 1e3:.3f} ms of device time "
         f"and {step_ms:.2f} ms of wall time a step traced ({base_ms:.2f} ms "
         f"a step in the untraced run)")
-    by = {}
+    by, other = {}, {}
     for e in ops:
         cls = trace_class(e)
         n, us = by.get(cls, (0, 0.0))
         by[cls] = (n + 1, us + float(e["dur"]))
+        if cls == "other (PyTorch)":
+            name = e.get("name", "")[:110]
+            n, us = other.get(name, (0, 0.0))
+            other[name] = (n + 1, us + float(e["dur"]))
     log(f"[{tag}] trace by kernel, a model step: " + "; ".join(
         f"{cls} {by.get(cls, (0, 0.0))[0] / steps:.1f} operations, "
         f"{by.get(cls, (0, 0.0))[1] / steps / 1e3:.3f} ms"
         for cls in TRACE_CLASSES))
+    top = sorted(other.items(), key=lambda kv: -kv[1][1])[:5]
+    log(f"[{tag}] trace, the largest other PyTorch kernels a model step: "
+        + "; ".join(f"{name} x{n / steps:.1f} {us / steps / 1e3:.3f} ms"
+                    for name, (n, us) in top))
 
 
 TRACE_CLASSES = ("split", "group GEMM", "epilogue", "other (PyTorch)",
@@ -1343,6 +1637,7 @@ def main() -> int:
         dev, SM_MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
         tag="serve_sm")
     paths["flash"] = phase_flash(dev)
+    paths["serve_moe"], _ = phase_serve_moe(dev)
 
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -2,8 +2,9 @@
 per arch, each exposing ``full()`` (the exact published config) and
 ``smoke()`` (a reduced same-family config for CPU tests).
 
-This slice of the port carries the dense family's serving model,
-internlm2-1.8b; the other archs come with their families.
+The port carries the dense family's serving model, internlm2-1.8b, and
+the MoE family's deepseek-moe-16b; the other archs come with their
+families.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCH_IDS = ("internlm2_1_8b",)
+ARCH_IDS = ("internlm2_1_8b", "deepseek_moe_16b")
 
 # accept hyphenated public names too
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

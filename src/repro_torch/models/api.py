@@ -1,5 +1,5 @@
-"""Uniform model API — PyTorch port of the dense path of
-``repro.models.api``.
+"""Uniform model API — PyTorch port of ``repro.models.api`` for the
+families ported so far (dense, moe).
 
     init(cfg, generator=..., device=...)   -> params
     forward(params, cfg, batch)            -> logits (B, L, vocab) f32
@@ -7,18 +7,19 @@
     cache_axes(cfg)                        -> logical axes of the cache
     decode_step(params, cfg, cache, tokens, cur_len) -> (logits, cache)
 
-``batch`` is a dict with ``tokens`` (B, L).  The other families come with
-later slices of the port.
+``batch`` is a dict with ``tokens`` (B, L).  The other families
+(``mla_moe``, vlm, encdec, ssm, hybrid) come with later slices of the
+port, and ``get_model`` raises for them until then.
 """
 from __future__ import annotations
 
 import types
 from typing import Any, Dict
 
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.common import ModelConfig
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe}
 
 
 class Model(types.SimpleNamespace):

@@ -8,7 +8,7 @@ plain function.  Every random draw takes an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -20,8 +20,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config, cut to the fields the dense family reads;
-    the other families' fields come with them."""
+    """The reference's config, cut to the fields the dense and MoE
+    families read; the other families' fields come with them."""
 
     name: str = "model"
     family: str = "dense"
@@ -35,6 +35,13 @@ class ModelConfig:
     rope_theta: float = 1e4
     mlp_type: str = "swiglu"          # swiglu (gelu: with its configs)
     window: Optional[int] = None      # sliding-window (local) attention
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    topk: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "scatter"     # scatter | a2a (no mesh: scatter)
     dtype: str = "bfloat16"           # activation dtype
     norm_eps: float = 1e-5
     engine_spec: str = "bf16"         # MatmulEngine spec
@@ -74,3 +81,44 @@ def dense_param(generator: torch.Generator, shape, scale=None,
                       device=device)
     return out.mul_(scale)
 
+
+def init_stacked(generator: torch.Generator, n: int,
+                 layer_init: Callable[..., Any], device=None) -> Any:
+    """The parameters of ``n`` stacked layers, every leaf ``(n, ...)``.
+
+    The reference vmaps a one-layer init over n seeds; here the one-layer
+    init runs once and draws each leaf's whole stack in one call:
+    ``layer_init(normal, zeros)`` builds the layer's tree, where
+    ``normal(shape, scale=None)`` is :func:`dense_param` of ``(n, *shape)``
+    with the per-layer scale rule (``shape[0] ** -0.5`` by default) and
+    ``zeros(shape)`` a zero stack."""
+    def normal(shape, scale=None):
+        scale = shape[0] ** -0.5 if scale is None else scale
+        return dense_param(generator, (n,) + tuple(shape), scale=scale,
+                           device=device)
+
+    def zeros(shape):
+        return torch.zeros((n,) + tuple(shape), dtype=torch.float32,
+                           device=device)
+
+    return layer_init(normal, zeros)
+
+
+def _is_axes(t) -> bool:
+    return isinstance(t, tuple) and all(e is None or isinstance(e, str)
+                                        for e in t)
+
+
+def stack_axes(axes_tree):
+    """Prepend the ``"layers"`` axis to every logical-axes tuple in a
+    tree (nested dicts)."""
+    if _is_axes(axes_tree):
+        return ("layers",) + axes_tree
+    return {k: stack_axes(v) for k, v in axes_tree.items()}
+
+
+def param_count(params) -> int:
+    """Elements over every tensor leaf of a parameter tree."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()

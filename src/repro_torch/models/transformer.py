@@ -16,43 +16,46 @@ import torch
 
 from repro_torch.core.engine import PresplitWeight
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, dense_param
+from repro_torch.models.common import (ModelConfig, dense_param,
+                                       init_stacked)
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+def init_attn(cfg: ModelConfig, normal) -> Dict[str, Any]:
+    """GQA projection weights; ``normal(shape, scale=None)`` draws a leaf
+    (see :func:`repro_torch.models.common.init_stacked`)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": normal((d, H * hd)), "wk": normal((d, KV * hd)),
+            "wv": normal((d, KV * hd)),
+            "wo": normal((H * hd, d), (H * hd) ** -0.5)}
+
+
+def init_mlp(cfg: ModelConfig, normal,
+             d_ff: Optional[int] = None) -> Dict[str, Any]:
+    """SwiGLU weights of width ``d_ff`` (default ``cfg.d_ff``)."""
+    if cfg.mlp_type != "swiglu":
+        raise NotImplementedError(f"the {cfg.mlp_type!r} MLP comes with the "
+                                  f"configs that use it")
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {"w_gate": normal((d, f)), "w_up": normal((d, f)),
+            "w_down": normal((f, d), f ** -0.5)}
+
+
 def init(cfg: ModelConfig, *, generator: torch.Generator,
          device=None) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and ``dense_param``
     scale rule, drawn from ``generator`` on ``device`` (f32 weights)."""
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"the {cfg.mlp_type!r} MLP comes with the "
-                                  f"configs that use it")
-    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    f, n = cfg.d_ff, cfg.n_layers
-    g = generator
-
-    def stack(shape, scale):
-        return dense_param(g, (n,) + shape, scale=scale, device=device)
-
-    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
-                                       device=device)
+    d, g = cfg.d_model, generator
     return {
         "embed": dense_param(g, (cfg.padded_vocab, d), scale=1.0,
                              device=device),
-        "layers": {
-            "attn": {"wq": stack((d, H * hd), d ** -0.5),
-                     "wk": stack((d, KV * hd), d ** -0.5),
-                     "wv": stack((d, KV * hd), d ** -0.5),
-                     "wo": stack((H * hd, d), (H * hd) ** -0.5)},
-            "mlp": {"w_gate": stack((d, f), d ** -0.5),
-                    "w_up": stack((d, f), d ** -0.5),
-                    "w_down": stack((f, d), f ** -0.5)},
-            "ln1": zeros(n, d), "ln2": zeros(n, d),
-        },
-        "ln_f": zeros(d),
+        "layers": init_stacked(g, cfg.n_layers, lambda normal, zeros: {
+            "attn": init_attn(cfg, normal), "mlp": init_mlp(cfg, normal),
+            "ln1": zeros((d,)), "ln2": zeros((d,))}, device=device),
+        "ln_f": torch.zeros((d,), dtype=torch.float32, device=device),
         "lm_head": dense_param(g, (d, cfg.padded_vocab), device=device),
     }
 
@@ -123,6 +126,14 @@ def dense_layer(p, cfg, x, cos, sin, cache=None, cur_len=None):
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, L) -> logits (B, L, padded_vocab) f32."""
+    return run_forward(params, cfg, tokens, positions, dense_layer)
+
+
+def run_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor], layer) -> torch.Tensor:
+    """The full-sequence forward of a decoder stack whose layer is
+    ``layer(p, cfg, x, cos, sin)`` (the reference's ``scan_layers`` as a
+    Python loop over the stacked layers)."""
     B, Lq = tokens.shape
     x = L.embed_tokens(tokens, params["embed"], cfg.compute_dtype)
     if positions is None:
@@ -130,8 +141,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                                  device=tokens.device).expand(B, Lq)
     cos, sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x, _ = dense_layer(layer_params(params["layers"], i), cfg, x, cos,
-                           sin)
+        x, _ = layer(layer_params(params["layers"], i), cfg, x, cos, sin)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return L.logits_head(x, params["lm_head"], cfg.engine)
 
@@ -158,6 +168,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     """One-token decode: tokens (B, 1) at absolute position cur_len - 1;
     ``cur_len`` a scalar or a (B,) vector (per slot).  Returns (logits
     (B, 1, vocab), new_cache)."""
+    return run_decode(params, cfg, cache, tokens, cur_len, dense_layer)
+
+
+def run_decode(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+               cur_len, layer):
+    """:func:`decode_step` of a decoder stack whose layer is ``layer(p,
+    cfg, x, cos, sin, cache=(k, v), cur_len=...)`` over the K/V cache
+    stacks."""
     B = tokens.shape[0]
     cur_len = torch.as_tensor(cur_len, device=tokens.device)
     x = L.embed_tokens(tokens, params["embed"], cfg.compute_dtype)
@@ -165,10 +183,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     cos, sin = L.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (kc, vc) = dense_layer(layer_params(params["layers"], i), cfg, x,
-                                  cos, sin, cache=(cache["k"][i],
-                                                   cache["v"][i]),
-                                  cur_len=cur_len)
+        x, (kc, vc) = layer(layer_params(params["layers"], i), cfg, x, cos,
+                            sin, cache=(cache["k"][i], cache["v"][i]),
+                            cur_len=cur_len)
         ks.append(kc)
         vs.append(vc)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)

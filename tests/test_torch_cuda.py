@@ -819,3 +819,85 @@ def test_oz2_df32_pipeline_one_launch_a_contraction(dev, spec, dtype,
         before["scale_accum_const"] + windows
     assert LAUNCHES["unscale"] == before["unscale"]
     assert _same(out.cpu(), ozimmu_dot_general(a.cpu(), b.cpu(), dnums, cfg))
+
+
+def _moe_buffer(g, dev, E, cap, n, live):
+    """A MoE dispatch buffer (E, cap, n): ``live`` tokens' rows filled
+    expert by expert from the front of each queue, the rest zero."""
+    a = torch.zeros((E, cap, n), device=dev)
+    fill = [0] * E
+    for _ in range(live):
+        e = int(torch.randint(0, E, (1,), generator=g, device=dev))
+        if fill[e] < cap:
+            a[e, fill[e]] = torch.randn((n,), generator=g, device=dev)
+            fill[e] += 1
+    return a
+
+
+@pytest.mark.parametrize("E,cap,n,p", [(64, 8, 2048, 1408),
+                                       (64, 8, 1408, 2048),
+                                       (8, 16, 200, 72)])
+def test_moe_expert_kernels(dev, E, cap, n, p):
+    """deepseek-moe-16b's expert contraction at decode (and a ragged
+    small one): the split of the E-batched A with mostly zero rows and of
+    the bf16-valued expert stack, the skinny group GEMM over the E batch
+    and the df32 epilogue, each bitwise to its plain version on the same
+    tensors, on the route the main path takes."""
+    from repro_torch.core.splitting import compute_beta
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.kernels import group_gemm as gg
+    from repro_torch.kernels import scale_accum as sa
+    g = torch.Generator(device=dev).manual_seed(21)
+    a = _moe_buffer(g, dev, E, cap, n, live=24)
+    w = torch.randn((E, n, p), generator=g, device=dev).to(
+        torch.bfloat16).float()
+    beta = compute_beta(n)
+    sps = []
+    for x, axis in ((a, 0), (w, 1)):
+        sp = ops.split_fused(x, 4, beta, axis=axis)
+        ref = ops.split_fused_ref(x, 4, beta, axis=axis)
+        assert torch.equal(sp.digits, ref.digits)
+        assert _same(sp.scale, ref.scale) and _same(sp.base, ref.base)
+        sps.append(sp)
+    dead = ~a.any(-1)
+    assert not sps[0].digits[:, dead].any()
+    prods = []
+    for grp in range(2, 6):
+        pairs = [(i, grp - i) for i in range(1, grp) if i <= 4 and
+                 grp - i <= 4]
+        ia, ib = [s - 1 for s, _ in pairs], [t - 1 for _, t in pairs]
+        before = LAUNCHES["group_gemm_skinny"]
+        out = gg.group_gemm(sps[0].digits, sps[1].digits, ia, ib)
+        assert LAUNCHES["group_gemm_skinny"] == before + 1
+        assert torch.equal(out, gg.group_gemm_ref(sps[0].digits,
+                                                  sps[1].digits, ia, ib))
+        prods.append(out)
+    groups = [2, 3, 4, 5]
+    assert _same(sa.scale_accum_chunks(prods, groups, sps[0].base,
+                                       sps[1].base, beta),
+                 sa.scale_accum_chunks_ref(prods, groups, sps[0].base,
+                                           sps[1].base, beta))
+
+
+def test_moe_expert_contraction_equals_cpu(dev):
+    """The E-batched expert product through the engine on the card
+    (``ozimmu_h-4:df32:fused``, bf16 operands as the MoE layer passes
+    them) equals the CPU plain-version pipeline bit for bit, zero rows
+    included, with one split a side, 4 group GEMMs and one epilogue."""
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.moe import _EXPERT_DNUMS
+    g = torch.Generator(device=dev).manual_seed(22)
+    buf = _moe_buffer(g, dev, 64, 8, 2048, live=24).to(torch.bfloat16)
+    w = torch.randn((64, 2048, 1408), generator=g,
+                    device=dev).to(torch.bfloat16)
+    eng = make_engine("ozimmu_h-4:df32:fused")
+    before = dict(LAUNCHES)
+    out = eng.dot_general(buf, w, _EXPERT_DNUMS)
+    assert {k: LAUNCHES[k] - before[k] for k in
+            ("split_fused", "group_gemm", "group_gemm_skinny",
+             "scale_accum")} == {"split_fused": 2, "group_gemm": 4,
+                                 "group_gemm_skinny": 4, "scale_accum": 1}
+    ref = eng.dot_general(buf.cpu(), w.cpu(), _EXPERT_DNUMS)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu().view(torch.int16), ref.view(torch.int16))
