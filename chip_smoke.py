@@ -28,7 +28,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    sides (64 x 8 rows, only the 24 a step fills nonzero) and of the
    bf16-valued expert weight stacks (64 x 2048 x 1408 and back, split
    every step), the skinny group GEMM over a batch of 64, and the df32
-   epilogue on their real chunk products.  The group GEMM's, the split's
+   epilogue on their real chunk products.  deepseek-v2-236b's add the
+   up-projection of the whole latent cache (96 x 512 x 16384, the large
+   route, with ``torch._int_mm`` beside it), the G = 1 attention over
+   4 x 128 (slot, head) batches (D 192, Dv 128) and the 160-expert
+   contractions (stacks of 160 x 5120 x 1536, their plain versions run in
+   expert chunks).  The group GEMM's, the split's
    and the epilogues' times are device times (CUDA-graph replay; the
    group GEMM's
    B operands rotated past the L2 cache), with the eager per-call time
@@ -70,19 +75,28 @@ Phases (each raises on failure, so any failure exits non-zero):
    must equal a monolithic greedy loop, the prefill logits agree with the
    native f32 engine (isolated routing flips allowed), and the device
    memory and its peak are logged with a trace by kernel class.
+7. MLA serve (``serve_mla``): phase 6 on the published deepseek-v2-236b
+   config (d_model 5120, 128 heads of multi-head latent attention over a
+   512-wide latent / 64-wide rope-key cache, 160 experts top-6 plus 2
+   shared, vocab 102400) after phase 6 freed its model, at the most layers
+   ``moe_depth``'s reckoned peak allows (at least 2; the published 60
+   hold ~970 GB of f32 weights), the cut logged with its reason.
 
-The launch counts of phases 3-6 are zeroed just before each path runs and
+The launch counts of phases 3-7 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
-GEMM must have taken the route assigned to the path (large for the DGEMM,
-skinny for serving).  A serve run must count exactly one split launch per
-split operand (24 layers x 11 + the LM head a model step), four group
-GEMMs per contraction (24 x 9 + 1 a step) and one df32 epilogue launch per
-contraction (``scale_accum`` under group-EF, ``scale_accum_const`` under
-Ozaki-II, with no ``unscale``); the MoE serve run 28 x 17 + 1 splits,
-(28 x 12 + 1) x 4 group GEMMs, all skinny, and 28 x 12 + 1 epilogues a
-model step (the expert weights split every step; the f32 router launches
-none); a serve trace splits the device operations of
-a step by kernel into split, group GEMM, epilogue and other.  Phase 2 holds
+GEMM must have taken the route assigned to the path (large for the DGEMM
+and the MLA up-projections, skinny for the rest of serving). A serve run
+must count exactly one split launch per split operand (24 layers x 11 + the
+LM head a model step), four group GEMMs per contraction (24 x 9 + 1 a step)
+and one df32 epilogue launch per contraction (``scale_accum`` under
+group-EF, ``scale_accum_const`` under Ozaki-II, with no ``unscale``); the
+MoE serve run 28 x 17 + 1 splits, (28 x 12 + 1) x 4 group GEMMs, all
+skinny, and 28 x 12 + 1 epilogues a model step (the expert weights split
+every step; the f32 router launches none); the MLA serve run 19 splits, 14
+x 4 group GEMMs (the 8 of the latent up-projections on the large route, the
+rest skinny) and 14 epilogues a layer, plus the LM head's, a model step; a
+serve trace splits the device operations of a step by kernel into split,
+group GEMM, epilogue and other.  Phase 2 holds
 the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
 these), a bf16 output within ``2e-2 |y| + min(2e-2, 4e-3 max|y|)`` (the
@@ -132,6 +146,11 @@ SLOTS, REQUESTS, PROMPT, GEN = 4, 8, 32, 16
 # step for 4 slots x top-6 (24 of the 64 x 8 buffer rows hold a token)
 MOE = dict(E=64, cap=8, d=2048, fe=1408, K=6)
 MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_GEN = 4, 4, 16, 8
+# deepseek-v2-236b at decode (serve_mla, served as serve_moe is): 160
+# experts, capacity 8; 128 heads of q/k dim 128 + 64 (nope + rope) and v
+# dim 128 over a 512-wide latent
+MLA = dict(E=160, cap=8, d=5120, fe=1536, K=6, H=128, dl=512, hd=128, dr=64,
+           vd=128)
 SEED = 0
 
 
@@ -266,25 +285,37 @@ def kernel_cases(dev):
                           library_exact=library_exact,
                           flash_route=flash_route))
 
-    def whole_split(x, k, beta, mode, axis):
+    def whole_split(x, k, beta, mode, axis, plain_chunks=1):
         """``(run, plain, bytes)`` of the one-launch split of ``x``: the
         Split's fields as a tuple; bytes read x once and write the digits,
-        bases, scales (and gbase)."""
+        bases, scales (and gbase).  ``plain_chunks``: the plain version
+        runs on that many slices of the leading batch axis, concatenated
+        (the split is independent per batch element; a whole 160-expert
+        stack's plain temporaries would not fit beside the stack)."""
         def fields(sp):
             return tuple(t for t in (sp.digits, sp.scale, sp.base, sp.gbase)
                          if t is not None)
+
+        def plain():
+            if plain_chunks == 1:
+                return fields(ops.split_fused_ref(x, k, beta, mode=mode,
+                                                  axis=axis))
+            parts = [fields(ops.split_fused_ref(xc, k, beta, mode=mode,
+                                                axis=axis))
+                     for xc in x.chunk(plain_chunks)]
+            # digits and scales carry the slice axis first, then the batch
+            return tuple(torch.cat(f, dim=1 if i < 2 else 0)
+                         for i, f in enumerate(zip(*parts)))
         r = x.shape[-2] if axis == 0 else x.shape[-1]
         rows = math.prod(x.shape[:-2]) * r
         moved = nbytes(x) + k * x.numel() + \
             (k + 1) * rows * x.element_size()
         return (lambda: fields(ops.split_fused(x, k, beta, mode=mode,
                                                axis=axis)),
-                lambda: fields(ops.split_fused_ref(x, k, beta, mode=mode,
-                                                   axis=axis)),
-                moved)
+                plain, moved)
 
     def split_case(label, shape, dtype, k, axis, reps, dnums=None,
-                   live=None, bf16_values=False):
+                   live=None, bf16_values=False, plain_chunks=1):
         """``dnums``: ``x`` is the attention's KV cache (slots, L, KV, D),
         split as the B operand ``canonical_rhs`` makes of it under these
         dimension numbers: a permuted view, read through its strides.
@@ -299,12 +330,13 @@ def kernel_cases(dev):
         if bf16_values:
             x = x.to(torch.bfloat16).to(dtype)
         beta = compute_beta(x.shape[-1] if axis == 0 else x.shape[-2])
-        run, plain, moved = whole_split(x, k, beta, "rn_const", axis)
+        run, plain, moved = whole_split(x, k, beta, "rn_const", axis,
+                                        plain_chunks)
         add("split_fused", label, run, plain, moved, 0.0, F32_FLOPS, reps,
             graph=True)
 
     def gemm_case(label, m, n, p, k, reps, batch=(), sm=False, route=None,
-                  live=None):
+                  live=None, plain_chunks=1):
         """The group g = k + 1 (all k pairs) of split digits, signed or the
         sign-magnitude split's stored digits (slice 0 signed, the others
         unsigned bytes), B K-major as the axis=1 split stores it.  Timed
@@ -314,7 +346,10 @@ def kernel_cases(dev):
         call), which computes the same first m rows.  ``live``: a (*batch,
         m) mask of A's nonzero rows (the MoE dispatch buffer); the bound
         then counts the B bytes of the batch elements with a nonzero row
-        and the operations of the nonzero rows, what this data needs."""
+        and the operations of the nonzero rows, what this data needs.
+        ``plain_chunks``: the plain version runs on that many slices of
+        the batch, concatenated (its f64 copy of a 160-expert stack's
+        digits alone would take 40 GB)."""
         dtype = f64 if k == 8 else f32
         a = torch.randn(batch + (m, n), generator=gen, device=dev,
                         dtype=dtype)
@@ -356,10 +391,14 @@ def kernel_cases(dev):
                 a_cat, b_cats[next(turn) % len(b_cats)])[:m]
         live_b = B if live is None else int(live.reshape(B, m).any(-1).sum())
         rows = B * m if live is None else int(live.sum())
+
+        def plain():
+            return torch.cat([gg.group_gemm_ref(ac, bc, ia, ib,
+                                                a_unsigned=ua, b_unsigned=ub)
+                              for ac, bc in zip(da.chunk(plain_chunks, 1),
+                                                db.chunk(plain_chunks, 1))])
         add("group_gemm", label,
-            lambda: call(da, db, ia, ib, **kw),
-            lambda: gg.group_gemm_ref(da, db, ia, ib, a_unsigned=ua,
-                                      b_unsigned=ub),
+            lambda: call(da, db, ia, ib, **kw), plain,
             G * (B * m * n + live_b * n * p) + 4 * B * m * p,
             2.0 * G * rows * n * p,
             INT8_OPS_PER_S, reps, library=library, no_library=no_library,
@@ -489,16 +528,18 @@ def kernel_cases(dev):
             24.0 * len(prods) * prods[0].numel(), F32_FLOPS, reps,
             graph=True)
 
-    def decode_chunks_case(m, p, reps):
+    def decode_chunks_case(m, p, reps, batch=(), what="decode"):
         g = gen
-        prods = [torch.randint(-2 ** 30, 2 ** 30, (m, p), generator=g,
-                               device=dev, dtype=torch.int32)
+        prods = [torch.randint(-2 ** 30, 2 ** 30, batch + (m, p),
+                               generator=g, device=dev, dtype=torch.int32)
                  for _ in range(4)]
-        base_a = torch.pow(2.0, torch.randint(-20, 0, (m,), generator=g,
-                                              device=dev)).to(f32)
-        base_b = torch.pow(2.0, torch.randint(-6, 2, (p,), generator=g,
-                                              device=dev)).to(f32)
-        chunks_case(f"decode ({m}x{p}) C=4", prods, base_a, base_b, reps)
+        base_a = torch.pow(2.0, torch.randint(-20, 0, batch + (m,),
+                                              generator=g, device=dev)).to(f32)
+        base_b = torch.pow(2.0, torch.randint(-6, 2, batch + (p,),
+                                              generator=g, device=dev)).to(f32)
+        lead = f"{batch[0]} x " if batch else ""
+        chunks_case(f"{what} ({lead}{m}x{p}) C=4", prods, base_a, base_b,
+                    reps)
 
     def windows_case(label, prods, c, bases, reps, beta=7):
         """The whole Ozaki-II df32 epilogue of a contraction over its
@@ -594,26 +635,26 @@ def kernel_cases(dev):
             lambda: sa.unscale_ref(x, ra, rb), nbytes(ra, rb) + 2 * nbytes(x),
             2.0 * x.numel(), F64_FLOPS if dtype == f64 else F32_FLOPS, reps)
 
-    def moe_live_rows():
+    def moe_live_rows(shape=MOE):
         """The (E, cap) rows of the MoE dispatch buffer that a decode step
         fills: each of the slots' tokens picks K distinct experts and
         takes the next free row of each expert's queue."""
-        E, cap = MOE["E"], MOE["cap"]
+        E, cap = shape["E"], shape["cap"]
         live = torch.zeros((E, cap), dtype=torch.bool, device=dev)
         fill = [0] * E
         for _ in range(MOE_SLOTS):
             for e in torch.randperm(E, generator=gen,
-                                    device=dev)[:MOE["K"]].tolist():
+                                    device=dev)[:shape["K"]].tolist():
                 live[e, fill[e]] = True
                 fill[e] += 1
         return live
 
-    def moe_chunks_case(label, live, n, p, reps):
+    def moe_chunks_case(label, live, n, p, reps, shape=MOE):
         """The df32 epilogue of one expert contraction on its real chunk
         products: A (E, cap, n) with the dispatch buffer's zero rows and B
         (E, n, p) bf16-valued weights, split and multiplied group by group
         (k = 4: groups 2..5) as the pipeline does."""
-        E, cap = MOE["E"], MOE["cap"]
+        E, cap = shape["E"], shape["cap"]
         a = torch.randn((E, cap, n), generator=gen, device=dev) * \
             live[..., None]
         w = torch.randn((E, n, p), generator=gen, device=dev).to(
@@ -625,7 +666,7 @@ def kernel_cases(dev):
                                            if i <= 4 and g - i <= 4])
                  for g in range(2, 6)]
         base_b = sb_.base
-        del w, sb_                            # the B digits: 0.74 GB
+        del w, sb_                    # the B digits: 0.74 GB (MLA: 5 GB)
         chunks_case(label, prods, sa_.base, base_b, reps, beta=beta)
 
     ctx = PROMPT + GEN                        # the decode cache length
@@ -732,6 +773,50 @@ def kernel_cases(dev):
                     dt, L=4000, reps=reps)
         flash_cases(f"B1 L4096 H16 KV8 D128 causal q_offset -100 {name} "
                     f"(100 fully masked rows)", dt, q_offset=-100, reps=reps)
+    # deepseek-v2-236b at decode (serve_mla): the up-projections' A side is
+    # the whole latent cache (slots x max_len rows, bf16 values; a step 4
+    # positions before the end leaves the last 4 rows of each slot zero),
+    # on the large route inside a serve step; the G = 1 attention over
+    # 4 x 128 (slot, head) batches, its B sides the fresh 192-wide k and
+    # the 128-wide v; and the 160-expert contractions, whose B splits and
+    # group GEMMs are held to their plain versions run in 8 expert chunks
+    S, Lm = MOE_SLOTS, MOE_PROMPT + MOE_GEN
+    H, dl, hd, dr, vd = MLA["H"], MLA["dl"], MLA["hd"], MLA["dr"], MLA["vd"]
+    live_lat = (torch.arange(Lm, device=dev) < Lm - 4).expand(S, Lm)
+    split_case(f"MLA up-projection A ({S}x{Lm}x{dl} latent cache, "
+               f"{int(live_lat.sum())} rows live) bf16-valued f32 k=4",
+               (S, Lm, dl), f32, 4, 0, 50, live=live_lat, bf16_values=True)
+    gemm_case(f"MLA w_uk/w_uv up-projection ({S * Lm}x{dl}x{H * hd}) G=4",
+              S * Lm, dl, H * hd, 4, 20)
+    decode_chunks_case(S * Lm, H * hd, 50, what="MLA up-projection")
+    split_case(f"MLA decode scores B ({S}x{H} x {hd + dr}x{Lm}, fresh k) "
+               f"f32 k=4 axis=1", (S, Lm, H, hd + dr), f32, 4, 1, 50,
+               dnums=(((3,), (3,)), ((0, 1), (0, 2))))
+    split_case(f"MLA decode p@v B ({S}x{H} x {Lm}x{vd}) f32 k=4 axis=1",
+               (S, Lm, H, vd), f32, 4, 1, 50,
+               dnums=(((3,), (1,)), ((0, 1), (0, 2))))
+    gemm_case(f"MLA decode scores ({S * H} x 1x{hd + dr}x{Lm}) G=4", 1,
+              hd + dr, Lm, 4, 50, batch=(S * H,))
+    gemm_case(f"MLA decode p@v ({S * H} x 1x{Lm}x{vd}) G=4", 1, Lm, vd, 4,
+              50, batch=(S * H,))
+    decode_chunks_case(1, Lm, 50, batch=(S * H,), what="MLA decode scores")
+    decode_chunks_case(1, vd, 50, batch=(S * H,), what="MLA decode p@v")
+    E, cap, dm, fe = MLA["E"], MLA["cap"], MLA["d"], MLA["fe"]
+    live = moe_live_rows(MLA)
+    nlive = int(live.sum())
+    split_case(f"MLA MoE A w_gate/w_up ({E}x{cap}x{dm}, {nlive} rows live) "
+               f"f32 k=4", (E, cap, dm), f32, 4, 0, 50, live=live)
+    split_case(f"MLA MoE A w_down ({E}x{cap}x{fe}, {nlive} rows live) f32 "
+               f"k=4", (E, cap, fe), f32, 4, 0, 50, live=live)
+    for n, p, what in ((dm, fe, "w_gate/w_up"), (fe, dm, "w_down")):
+        split_case(f"MLA MoE B {what} ({E}x{n}x{p}) bf16-valued f32 k=4 "
+                   f"axis=1", (E, n, p), f32, 4, 1, 3, bf16_values=True,
+                   plain_chunks=8)
+        gemm_case(f"MLA MoE {what} ({E} x {cap}x{n}x{p}, {nlive} rows "
+                  f"live) G=4", cap, n, p, 4, 5, batch=(E,), live=live,
+                  plain_chunks=8)
+        moe_chunks_case(f"MLA MoE {what} ({E}x{cap}x{p}) C=4", live, n, p,
+                        50, shape=MLA)
     return cases
 
 
@@ -1201,40 +1286,70 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=()):
     return counts, s
 
 
+# what moe_depth keeps free beyond its reckoning: the activations, the
+# caches, the attention's operands and the allocator's rounding
+DEPTH_HEADROOM = 2e9
+
+
 def moe_depth(cfg, free_bytes: int):
     """``(layers, bytes a layer, bytes besides the layers)``: the published
-    depth of the MoE config if the serve phase's predicted peak fits in
+    depth of a MoE config if the serve phase's predicted peak fits in
     ``free_bytes``, else the most layers that fit.  A layer holds its f32
-    weights and the k = 4 int8 frozen digits of its attention and
-    shared-expert weights; besides the layers: the embedding and LM head
-    (f32, plus the LM head's digits) and, twice over, one expert
+    weights (attention: GQA, or MLA's six projections; router, experts,
+    shared experts, norms) and the k = 4 int8 frozen digits of its
+    attention and shared-expert weights.  Besides the layers: the
+    embedding and LM head (f32, plus the LM head's digits), one expert
     contraction's transient (the bf16 cast of an expert weight stack, its
-    f32 copy for the engine and its 4 int8 digit slices)."""
-    d, E, fe, V, hd = (cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
-                       cfg.padded_vocab, cfg.hd)
-    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    f32 copy for the engine and its 4 int8 digit slices: 10 bytes an
+    element, as serve_moe measured, 1.92 GB above the frozen state at 184.5
+    M elements) and ``DEPTH_HEADROOM``."""
+    d, E, fe, V, H, hd = (cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+                          cfg.padded_vocab, cfg.n_heads, cfg.hd)
+    if cfg.family == "mla_moe":
+        dl, dr, vd = cfg.kv_lora, cfg.rope_head_dim, cfg.v_head_dim or hd
+        attn = d * (dl + dr + H * (hd + dr)) + dl * H * (hd + vd) + \
+            H * vd * d
+    else:
+        attn = d * (H + 2 * cfg.n_kv_heads) * hd + H * hd * d
     shared = 3 * d * fe * cfg.n_shared_experts
     layer = 4 * (attn + d * E + 3 * E * d * fe + shared + 2 * d) + \
         4 * (attn + shared)
-    fixed = 4 * 2 * V * d + 4 * d * V + 2 * (2 + 4 + 4) * E * d * fe
-    return int(min(cfg.n_layers, (free_bytes - fixed) // layer)), layer, fixed
+    fixed = 4 * 2 * V * d + 4 * d * V + (2 + 4 + 4) * E * d * fe + \
+        DEPTH_HEADROOM
+    return int(min(cfg.n_layers, (free_bytes - fixed) // layer)), layer, \
+        int(fixed)
 
 
-def phase_serve_moe(dev):
-    """Serve deepseek-moe-16b ``full()`` (random weights from the seed)
+# per layer of a MoE model step under MODEL_SPEC with the weight splits
+# frozen: (split launches, contractions, of them on the large route)
+MOE_STEP = {
+    # 7 projection A sides (wq, wk, wv, wo, the shared expert's 3), both
+    # sides of the 2 attention and the 3 expert products; 12 contractions
+    "deepseek_moe_16b": (17, 12, 0),
+    # 9 projection A sides (w_dkv, w_krope, w_q, w_uk, w_uv, w_o, the
+    # shared expert's 3), both sides of the 2 attention and the 3 expert
+    # products; 14 contractions, of which w_uk and w_uv take the whole
+    # cache (slots x max_len rows) as A: the large route
+    "deepseek_v2_236b": (19, 14, 2),
+}
+
+
+def phase_serve_moe(dev, arch="deepseek_moe_16b", tag="serve_moe"):
+    """Serve a MoE config's ``full()`` (random weights from the seed)
     under ``MODEL_SPEC``: MOE_SLOTS slots, MOE_REQUESTS requests of prompt
-    MOE_PROMPT and MOE_GEN new tokens, at the published 28 layers unless
-    the predicted peak (:func:`moe_depth`) does not fit the card after the
-    earlier phases freed theirs.  Every model step must count exactly 17
-    split launches a layer (7 projection A sides, both sides of the 2
-    attention and 3 expert products: the expert weights are split every
-    step, as in the reference) plus the LM head's, 4 skinny group GEMMs
-    and one df32 epilogue a contraction (12 a layer plus the LM head; the
-    f32 router launches none).  Request 0 must equal the monolithic loop,
-    the weight-split hit rate be 1.0, and the 1x16 prefill logits in f32
-    activations agree with the native f32 engine within 1e-3 of
-    max|logit| per token, routing flips allowed only where isolated (the
-    reference's rule, ``tests/test_models.py``)."""
+    MOE_PROMPT and MOE_GEN new tokens, at the published depth unless the
+    predicted peak (:func:`moe_depth`) does not fit the card after the
+    earlier phases freed theirs; a cut is logged with its reason.  Every
+    model step must count exactly the launches of ``MOE_STEP[arch]`` a
+    layer plus the LM head's (one split, 4 skinny group GEMMs, one
+    epilogue), 4 group GEMMs and one df32 epilogue a contraction (the
+    expert weights are split every step, as in the reference; the f32
+    router launches none), with the large route taken exactly by the
+    contractions ``MOE_STEP`` puts there.  Request 0 must equal the
+    monolithic loop, the weight-split hit rate be 1.0, and the 1x16
+    prefill logits in f32 activations agree with the native f32 engine
+    within 1e-3 of max|logit| per token, routing flips allowed only where
+    isolated (the reference's rule, ``tests/test_models.py``)."""
     import gc
     import numpy as np
     import torch
@@ -1243,12 +1358,11 @@ def phase_serve_moe(dev):
     from repro_torch.models import api
     from repro_torch.models.common import param_count
     from repro_torch.serving import ServingRuntime
-    tag = "serve_moe"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    cfg = configs.get_config("deepseek_moe_16b", engine_spec=MODEL_SPEC)
+    cfg = configs.get_config(arch, engine_spec=MODEL_SPEC)
     free, total = torch.cuda.mem_get_info()
     layers, per_layer, fixed = moe_depth(cfg, free)
     predicted = fixed + layers * per_layer
@@ -1256,19 +1370,26 @@ def phase_serve_moe(dev):
         why = (f"depth cut {cfg.n_layers} -> {layers} layers: the "
                f"published depth's predicted peak "
                f"{(fixed + cfg.n_layers * per_layer) / 1e9:.1f} GB exceeds "
-               f"the {free / 1e9:.1f} GB free")
+               f"the {free / 1e9:.1f} GB free; "
+               f"{(layers + 1)} layers would need "
+               f"{(fixed + (layers + 1) * per_layer) / 1e9:.1f} GB")
         cfg = cfg.with_(n_layers=layers)
     else:
         why = "depth not cut"
-    if layers < 1:
-        raise AssertionError(f"{tag}: not one layer fits ({why})")
+    if layers < 2:
+        raise AssertionError(f"{tag}: fewer than two layers fit ({why})")
+    attn = (f"MLA: {cfg.n_heads} heads, q/k dim {cfg.hd}+"
+            f"{cfg.rope_head_dim}, v dim {cfg.v_head_dim}, latent "
+            f"{cfg.kv_lora}" if cfg.family == "mla_moe" else
+            f"heads {cfg.n_heads}/{cfg.n_kv_heads}")
     log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers ({why}; predicted peak "
-        f"{predicted / 1e9:.1f} GB of {free / 1e9:.1f} GB free, card "
-        f"{total / 1e9:.1f} GB), d_model {cfg.d_model}, heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.n_experts} experts of d_ff "
-        f"{cfg.d_ff_expert} top-{cfg.topk} + {cfg.n_shared_experts} "
-        f"shared, vocab {cfg.vocab}, dispatch {cfg.moe_dispatch} (no mesh: "
-        f"scatter); engine {MODEL_SPEC}")
+        f"{predicted / 1e9:.1f} GB, {per_layer / 1e9:.2f} GB a layer, "
+        f"{fixed / 1e9:.2f} GB besides them of which "
+        f"{DEPTH_HEADROOM / 1e9:.1f} GB headroom, of {free / 1e9:.1f} GB "
+        f"free, card {total / 1e9:.1f} GB), d_model {cfg.d_model}, {attn}, "
+        f"{cfg.n_experts} experts of d_ff {cfg.d_ff_expert} top-{cfg.topk} "
+        f"+ {cfg.n_shared_experts} shared, vocab {cfg.vocab}, dispatch "
+        f"{cfg.moe_dispatch} (no mesh: scatter); engine {MODEL_SPEC}")
     model = api.get_model(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1305,15 +1426,18 @@ def phase_serve_moe(dev):
     for name in ("split_fused", "group_gemm", "scale_accum"):
         if counts[name] <= 0:
             raise AssertionError(f"{tag} path launched no {name} kernel")
-    check_route(tag, counts, "skinny")
-    contractions = cfg.n_layers * 12 + 1
-    want = {"split_fused": steps * (cfg.n_layers * 17 + 1),
+    splits, per_layer_c, large = MOE_STEP[arch]
+    contractions = cfg.n_layers * per_layer_c + 1
+    want = {"split_fused": steps * (cfg.n_layers * splits + 1),
             "group_gemm": steps * contractions * 4,
+            "group_gemm_large": steps * cfg.n_layers * large * 4,
             "scale_accum": steps * contractions}
+    want["group_gemm_skinny"] = want["group_gemm"] - want["group_gemm_large"]
     got = {name: counts[name] for name in want}
     log(f"[{tag}] launches {got}, expected {want} ({steps} steps x "
-        f"{cfg.n_layers * 17 + 1} splits, {contractions * 4} group GEMMs, "
-        f"{contractions} epilogues)")
+        f"{cfg.n_layers * splits + 1} splits, {contractions * 4} group GEMMs "
+        f"of which {cfg.n_layers * large * 4} large, {contractions} "
+        f"epilogues)")
     if got != want:
         raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
     if s["requests"]["finished"] != MOE_REQUESTS or \
@@ -1638,6 +1762,8 @@ def main() -> int:
         tag="serve_sm")
     paths["flash"] = phase_flash(dev)
     paths["serve_moe"], _ = phase_serve_moe(dev)
+    paths["serve_mla"], _ = phase_serve_moe(dev, "deepseek_v2_236b",
+                                            "serve_mla")
 
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -2,9 +2,10 @@
 per arch, each exposing ``full()`` (the exact published config) and
 ``smoke()`` (a reduced same-family config for CPU tests).
 
-The port carries the dense family's serving model, internlm2-1.8b, and
-the MoE family's deepseek-moe-16b; the other archs come with their
-families.
+The port carries the dense family's configs (internlm2-1.8b, the
+serving model; starcoder2-3b, phi4-mini-3.8b, deepseek-7b), the MoE
+family's deepseek-moe-16b and the MLA family's deepseek-v2-236b; the
+other archs come with their families.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCH_IDS = ("internlm2_1_8b", "deepseek_moe_16b")
+ARCH_IDS = ("internlm2_1_8b", "starcoder2_3b", "phi4_mini_3_8b",
+            "deepseek_7b", "deepseek_moe_16b", "deepseek_v2_236b")
 
 # accept hyphenated public names too
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -56,7 +56,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core.splitting import Split, _geo_exps, compute_r, ftz
+from repro_torch.core.splitting import (Split, _geo_exps, compute_r, ftz,
+                                        sm_decode_slice)
 from repro_torch.kernels import group_gemm as _gg
 
 __all__ = [
@@ -72,7 +73,9 @@ __all__ = [
     "oz2_num_chunks",
     "ladder_width",
     "slice_group_gemm",
+    "gemm_slice",
     "DF32",
+    "df32_add",
     "int32_to_df32",
 ]
 
@@ -90,6 +93,16 @@ def slice_group_gemm(sa: Split, sb: Split,
                           [t - 1 for _, t in pairs],
                           a_unsigned=[sa.signmag and s > 1 for s, _ in pairs],
                           b_unsigned=[sb.signmag and t > 1 for _, t in pairs])
+
+
+def gemm_slice(sp: Split, i: int) -> torch.Tensor:
+    """Slice ``i`` (0-indexed) of a split as the values it holds: signed
+    digits as stored (int8), sign-magnitude digits widened to int16 (slice
+    0 signed, the others un-wrapped to [0, 2^beta - 1]).  The group GEMM
+    reads stored slices in place; this is the reference's per-slice view
+    for callers that multiply one slice at a time."""
+    d = sp.digits[i]
+    return sm_decode_slice(d, i) if sp.signmag else d
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +138,15 @@ def df32_zero(shape, device) -> DF32:
     the fused epilogue updates them in place."""
     return DF32(torch.zeros(shape, dtype=torch.float32, device=device),
                 torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def df32_add(c: DF32, x: torch.Tensor) -> DF32:
+    """c += x (f32) with compensated two-float accumulation, each
+    operation flushed."""
+    hi, e = _two_sum(c.hi, x)
+    lo = ftz(c.lo + e)
+    hi2, e2 = _two_sum(hi, lo)
+    return DF32(hi2, e2)
 
 
 def df32_add_df(c: DF32, x: DF32) -> DF32:

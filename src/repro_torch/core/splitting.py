@@ -79,6 +79,7 @@ __all__ = [
     "sm_decode",
     "sm_decode_slice",
     "reconstruct",
+    "residual",
     "to_int8",
     "ftz",
     "kmajor_stack",
@@ -484,3 +485,12 @@ def reconstruct(split: Split, dtype=None) -> torch.Tensor:
     if split.axis == 0:
         return torch.sum(d * split.scale[..., :, None], dim=0)
     return torch.sum(d * split.scale[..., None, :], dim=0)
+
+
+def residual(split: Split, a: torch.Tensor) -> torch.Tensor:
+    """Truncation error V_k = A - sum_s A_s (== W_k for axis=1), in ``a``'s
+    dtype.  The slices are summed in f64 (the reference's x64 mode):
+    summing round-to-nearest slices in f32 would round away the very
+    residual being measured."""
+    wide = torch.float64
+    return ftz(ftz(a.to(wide) - reconstruct(split, wide)).to(a.dtype))

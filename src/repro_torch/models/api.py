@@ -1,5 +1,5 @@
 """Uniform model API — PyTorch port of ``repro.models.api`` for the
-families ported so far (dense, moe).
+families ported so far (dense, moe, mla_moe).
 
     init(cfg, generator=..., device=...)   -> params
     forward(params, cfg, batch)            -> logits (B, L, vocab) f32
@@ -7,9 +7,9 @@ families ported so far (dense, moe).
     cache_axes(cfg)                        -> logical axes of the cache
     decode_step(params, cfg, cache, tokens, cur_len) -> (logits, cache)
 
-``batch`` is a dict with ``tokens`` (B, L).  The other families
-(``mla_moe``, vlm, encdec, ssm, hybrid) come with later slices of the
-port, and ``get_model`` raises for them until then.
+``batch`` is a dict with ``tokens`` (B, L).  The other families (vlm,
+encdec, ssm, hybrid) come with later slices of the port, and
+``get_model`` raises for them until then.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from typing import Any, Dict
 from repro_torch.models import moe, transformer
 from repro_torch.models.common import ModelConfig
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "mla_moe": moe}
 
 
 class Model(types.SimpleNamespace):

@@ -20,7 +20,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config, cut to the fields the dense and MoE
+    """The reference's config, cut to the fields the dense, MoE and MLA
     families read; the other families' fields come with them."""
 
     name: str = "model"
@@ -42,6 +42,11 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
     moe_dispatch: str = "scatter"     # scatter | a2a (no mesh: scatter)
+    # MLA (deepseek-v2)
+    kv_lora: int = 0
+    q_lora: int = 0                   # carried, unused (a full Q projection)
+    rope_head_dim: int = 64
+    v_head_dim: int = 0
     dtype: str = "bfloat16"           # activation dtype
     norm_eps: float = 1e-5
     engine_spec: str = "bf16"         # MatmulEngine spec

@@ -1,5 +1,6 @@
-"""Mixture-of-Experts family, forward and decode — PyTorch port of
-``repro.models.moe`` (the ``moe`` family: deepseek-moe-16b).
+"""Mixture-of-Experts families, forward and decode — PyTorch port of
+``repro.models.moe``: ``moe`` (deepseek-moe-16b: GQA attention) and
+``mla_moe`` (deepseek-v2: multi-head latent attention).
 
 Routing is capacity-based (drop-on-overflow) with scatter dispatch into an
 ``(E, cap, d)`` expert buffer, and the expert FFN is three E-batched
@@ -8,10 +9,15 @@ experts are emulated in one batched ``dot_general`` per weight, the expert
 weights split on every call (the serving split cache freezes only plain
 projections, as the reference's does).
 
+MLA keeps a per-position cache of the compressed latent ``(L, B, max_len,
+kv_lora)`` and the shared rope key ``(L, B, max_len, rope_head_dim)``,
+both bf16, and up-projects the whole cache to K and V on every decode step
+(``engine(latent_full, w_uk)``, the reference's computation); its
+attention has one query head a KV head (G = 1), q/k head dim ``hd +
+rope_head_dim``, v head dim ``v_head_dim``.
+
 Left for later slices, and raising until then:
 
-* ``mla_moe`` (deepseek-v2: multi-head latent attention with a latent /
-  rope-key cache);
 * the expert-parallel all-to-all body of ``moe_ffn_a2a`` (a mesh; the
   distributed slice).  Without a mesh the reference's ``a2a`` dispatch is
   its scatter path, and so it is here;
@@ -33,10 +39,19 @@ _EXPERT_DNUMS = (((2,), (1,)), ((0,), (0,)))  # "ecd,edf->ecf": E-batched GEMM
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "moe":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family (multi-head latent attention and "
-            f"its latent cache) comes with the next MoE slice of the port")
+    if cfg.family not in ("moe", "mla_moe"):
+        raise ValueError(f"the {cfg.family!r} family is not a MoE family "
+                         f"(moe, mla_moe)")
+
+
+def _is_mla(cfg: ModelConfig) -> bool:
+    _check_family(cfg)
+    return cfg.family == "mla_moe"
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    """MLA rotates its rope head dim, GQA the whole head."""
+    return cfg.rope_head_dim if _is_mla(cfg) else cfg.hd
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +178,67 @@ def moe_ffn_dispatch(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# model assembly
+# MLA — multi-head latent attention (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, normal) -> Dict[str, Any]:
+    """MLA projection weights (the reference's ``init_mla``): the latent
+    down-projection, the shared rope key, a full Q projection, the latent
+    up-projections to K and V, and the output projection; ``normal(shape,
+    scale=None)`` draws a leaf."""
+    d, H = cfg.d_model, cfg.n_heads
+    dl, dr, hd = cfg.kv_lora, cfg.rope_head_dim, cfg.hd
+    vd = cfg.v_head_dim or hd
+    return {"w_dkv": normal((d, dl)), "w_krope": normal((d, dr)),
+            "w_q": normal((d, H * (hd + dr))), "w_uk": normal((dl, H * hd)),
+            "w_uv": normal((dl, H * vd)),
+            "w_o": normal((H * vd, d), (H * vd) ** -0.5)}
+
+
+def mla_attention(p, cfg: ModelConfig, x, cos, sin, *, cache=None,
+                  cur_len=None):
+    """MLA on the normed ``x`` (B, L, d).  ``cache=(latent, k_rope)``
+    (B, Lmax, kv_lora) and (B, Lmax, rope_head_dim) -> decode: the step's
+    rows are written at ``cur_len - 1`` and the WHOLE cache is
+    up-projected to K and V.  Returns ``(out, new_cache)``."""
+    eng = cfg.engine
+    B, Lq, _ = x.shape
+    H, hd, dr = cfg.n_heads, cfg.hd, cfg.rope_head_dim
+    vd = cfg.v_head_dim or hd
+
+    latent = eng(x, p["w_dkv"])                            # (B, L, dl)
+    k_rope = L.apply_rope(eng(x, p["w_krope"]).reshape(B, Lq, 1, dr), cos,
+                          sin)                             # shared by heads
+    q = eng(x, p["w_q"]).reshape(B, Lq, H, hd + dr)
+    q = torch.cat([q[..., :hd], L.apply_rope(q[..., hd:], cos, sin)], dim=-1)
+
+    new_cache = valid = None
+    if cache is not None:
+        lat_c, kr_c = cache
+        lat_c = L.cache_update_row(lat_c, latent, cur_len)
+        kr_c = L.cache_update_row(kr_c, k_rope[:, :, 0], cur_len)
+        new_cache = (lat_c, kr_c)
+        latent_full = lat_c.to(x.dtype)
+        k_rope_full = kr_c[:, :, None].to(x.dtype)
+        valid = torch.clamp(torch.as_tensor(cur_len, device=x.device),
+                            max=lat_c.shape[1])
+    else:
+        latent_full, k_rope_full = latent, k_rope
+
+    Lk = latent_full.shape[1]
+    k_nope = eng(latent_full, p["w_uk"]).reshape(B, Lk, H, hd)
+    v = eng(latent_full, p["w_uv"]).reshape(B, Lk, H, vd)
+    k = torch.cat([k_nope, k_rope_full.expand(B, Lk, H, dr)], dim=-1)
+    if cache is None:
+        out = L.attention_flash(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk, engine=eng)
+    else:
+        out = L.attention_decode(q, k, v, valid, engine=eng)
+    return eng(out.reshape(B, Lq, H * vd), p["w_o"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# model assembly (both MoE families)
 # ---------------------------------------------------------------------------
 
 def init(cfg: ModelConfig, *, generator: torch.Generator,
@@ -171,13 +246,13 @@ def init(cfg: ModelConfig, *, generator: torch.Generator,
     """Random parameters with the reference's tree, shapes and
     ``dense_param`` scale rule, drawn from ``generator`` on ``device`` (f32
     weights)."""
-    _check_family(cfg)
+    init_attn = init_mla if _is_mla(cfg) else T.init_attn
     d, g = cfg.d_model, generator
     return {
         "embed": dense_param(g, (cfg.padded_vocab, d), scale=1.0,
                              device=device),
         "layers": init_stacked(g, cfg.n_layers, lambda normal, zeros: {
-            "attn": T.init_attn(cfg, normal),
+            "attn": init_attn(cfg, normal),
             "moe": init_moe_ffn(cfg, normal),
             "ln1": zeros((d,)), "ln2": zeros((d,))}, device=device),
         "ln_f": torch.zeros((d,), dtype=torch.float32, device=device),
@@ -186,9 +261,15 @@ def init(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def layer_fwd(lp, cfg: ModelConfig, x, cos, sin, cache=None, cur_len=None):
-    _check_family(cfg)
-    x, new_cache = T.attn_block({"attn": lp["attn"], "ln1": lp["ln1"]}, cfg,
-                                x, cos, sin, cache=cache, cur_len=cur_len)
+    if _is_mla(cfg):
+        xn = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        attn_out, new_cache = mla_attention(lp["attn"], cfg, xn, cos, sin,
+                                            cache=cache, cur_len=cur_len)
+        x = x + attn_out
+    else:
+        x, new_cache = T.attn_block({"attn": lp["attn"], "ln1": lp["ln1"]},
+                                    cfg, x, cos, sin, cache=cache,
+                                    cur_len=cur_len)
     xn2 = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + moe_ffn_dispatch(lp["moe"], cfg, xn2), new_cache
 
@@ -196,19 +277,36 @@ def layer_fwd(lp, cfg: ModelConfig, x, cos, sin, cache=None, cur_len=None):
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions=None) -> torch.Tensor:
     """tokens (B, L) -> logits (B, L, padded_vocab) f32."""
-    return T.run_forward(params, cfg, tokens, positions, layer_fwd)
+    return T.run_forward(params, cfg, tokens, positions, layer_fwd,
+                         rope_dim=_rope_dim(cfg))
+
+
+_MLA_CACHE_AXES = {"latent": ("layers", "cache_batch", None, "kv_lora"),
+                   "k_rope": ("layers", "cache_batch", None, "cache_hd")}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    _check_family(cfg)
-    return T.init_cache(cfg, batch, max_len, device=device)
+    """``moe``: the dense K/V stacks.  ``mla_moe``: the latent and rope-key
+    stacks, bf16."""
+    if not _is_mla(cfg):
+        return T.init_cache(cfg, batch, max_len, device=device)
+    shape = (cfg.n_layers, batch, max_len)
+    return {"latent": torch.zeros(shape + (cfg.kv_lora,),
+                                  dtype=torch.bfloat16, device=device),
+            "k_rope": torch.zeros(shape + (cfg.rope_head_dim,),
+                                  dtype=torch.bfloat16, device=device)}
 
 
-cache_axes = T.cache_axes
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of :func:`init_cache`'s leaves (the reference's
+    ``api.get_model`` ``cache_axes`` for the MoE families)."""
+    return dict(_MLA_CACHE_AXES) if _is_mla(cfg) else T.cache_axes(cfg)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 cur_len):
-    """One-token decode over the dense K/V cache stacks; as
-    :func:`repro_torch.models.transformer.decode_step`."""
-    return T.run_decode(params, cfg, cache, tokens, cur_len, layer_fwd)
+    """One-token decode over the cache stacks (K/V, or latent / rope key);
+    as :func:`repro_torch.models.transformer.decode_step`."""
+    keys = tuple(_MLA_CACHE_AXES) if _is_mla(cfg) else ("k", "v")
+    return T.run_decode(params, cfg, cache, tokens, cur_len, layer_fwd,
+                        rope_dim=_rope_dim(cfg), cache_keys=keys)

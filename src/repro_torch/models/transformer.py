@@ -10,7 +10,7 @@ replicates KV heads for sharding only and has no counterpart.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -130,16 +130,18 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def run_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor], layer) -> torch.Tensor:
+                positions: Optional[torch.Tensor], layer, *,
+                rope_dim: Optional[int] = None) -> torch.Tensor:
     """The full-sequence forward of a decoder stack whose layer is
     ``layer(p, cfg, x, cos, sin)`` (the reference's ``scan_layers`` as a
-    Python loop over the stacked layers)."""
+    Python loop over the stacked layers).  RoPE rotates ``rope_dim``
+    features (default ``cfg.hd``; MLA rotates its rope head dim)."""
     B, Lq = tokens.shape
     x = L.embed_tokens(tokens, params["embed"], cfg.compute_dtype)
     if positions is None:
         positions = torch.arange(Lq, dtype=torch.int32,
                                  device=tokens.device).expand(B, Lq)
-    cos, sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    cos, sin = L.rope_cos_sin(positions, rope_dim or cfg.hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         x, _ = layer(layer_params(params["layers"], i), cfg, x, cos, sin)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -172,22 +174,26 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
 
 
 def run_decode(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
-               cur_len, layer):
+               cur_len, layer, *, rope_dim: Optional[int] = None,
+               cache_keys: Tuple[str, ...] = ("k", "v")):
     """:func:`decode_step` of a decoder stack whose layer is ``layer(p,
-    cfg, x, cos, sin, cache=(k, v), cur_len=...)`` over the K/V cache
-    stacks."""
+    cfg, x, cos, sin, cache=(...), cur_len=...)``, handed layer ``i`` of
+    the cache stacks ``cache_keys`` in that order (the K/V stacks by
+    default) and returning them updated in the same order.  RoPE rotates
+    ``rope_dim`` features (default ``cfg.hd``)."""
     B = tokens.shape[0]
     cur_len = torch.as_tensor(cur_len, device=tokens.device)
     x = L.embed_tokens(tokens, params["embed"], cfg.compute_dtype)
     pos = L.decode_positions(cur_len, B)
-    cos, sin = L.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
-    ks, vs = [], []
+    cos, sin = L.rope_cos_sin(pos, rope_dim or cfg.hd, cfg.rope_theta)
+    new = {name: [] for name in cache_keys}
     for i in range(cfg.n_layers):
-        x, (kc, vc) = layer(layer_params(params["layers"], i), cfg, x, cos,
-                            sin, cache=(cache["k"][i], cache["v"][i]),
-                            cur_len=cur_len)
-        ks.append(kc)
-        vs.append(vc)
+        x, leaves = layer(layer_params(params["layers"], i), cfg, x, cos,
+                          sin, cache=tuple(cache[name][i]
+                                           for name in cache_keys),
+                          cur_len=cur_len)
+        for name, leaf in zip(cache_keys, leaves):
+            new[name].append(leaf)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = L.logits_head(x, params["lm_head"], cfg.engine)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, {name: torch.stack(v) for name, v in new.items()}

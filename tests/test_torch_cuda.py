@@ -821,6 +821,58 @@ def test_oz2_df32_pipeline_one_launch_a_contraction(dev, spec, dtype,
     assert _same(out.cpu(), ozimmu_dot_general(a.cpu(), b.cpu(), dnums, cfg))
 
 
+def _plain_split(x, beta, axis, chunks):
+    """The plain split's digits, scales and bases of ``x``, run on
+    ``chunks`` slices of its leading axis (independent rows or columns per
+    batch element) and concatenated."""
+    from repro_torch.kernels import ops
+    parts = [ops.split_fused_ref(xc, 4, beta, axis=axis)
+             for xc in x.chunk(chunks)]
+    return (torch.cat([p.digits for p in parts], 1),
+            torch.cat([p.scale for p in parts], 1),
+            torch.cat([p.base for p in parts], 0))
+
+
+def _contraction_kernels(a, w, route, chunks=1):
+    """One k = 4 contraction of ``a`` (*batch, m, n) with ``w`` (*batch,
+    n, p) kernel by kernel, as the pipeline runs it: the split of both
+    sides, the four group GEMMs (groups 2..5) on ``route`` and the df32
+    epilogue, each bitwise to its plain version on the same tensors (the
+    plain split and group GEMM run on ``chunks`` slices of the leading
+    axis: a 160-expert stack's plain temporaries would not fit whole)."""
+    from repro_torch.core.splitting import compute_beta
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.kernels import group_gemm as gg
+    from repro_torch.kernels import scale_accum as sa
+    beta = compute_beta(a.shape[-1])
+    sps = []
+    for x, axis in ((a, 0), (w, 1)):
+        sp = ops.split_fused(x, 4, beta, axis=axis)
+        digits, scale, base = _plain_split(x, beta, axis, chunks)
+        assert torch.equal(sp.digits, digits)
+        assert _same(sp.scale, scale) and _same(sp.base, base)
+        sps.append(sp)
+    da, db = sps[0].digits, sps[1].digits
+    prods = []
+    for grp in range(2, 6):
+        pairs = [(i, grp - i) for i in range(1, grp) if i <= 4 and
+                 grp - i <= 4]
+        ia, ib = [s - 1 for s, _ in pairs], [t - 1 for _, t in pairs]
+        before = LAUNCHES[f"group_gemm_{route}"]
+        out = gg.group_gemm(da, db, ia, ib)
+        assert LAUNCHES[f"group_gemm_{route}"] == before + 1
+        ref = torch.cat([gg.group_gemm_ref(ac, bc, ia, ib) for ac, bc in
+                         zip(da.chunk(chunks, 1), db.chunk(chunks, 1))])
+        assert torch.equal(out, ref)
+        prods.append(out)
+    groups = [2, 3, 4, 5]
+    assert _same(sa.scale_accum_chunks(prods, groups, sps[0].base,
+                                       sps[1].base, beta),
+                 sa.scale_accum_chunks_ref(prods, groups, sps[0].base,
+                                           sps[1].base, beta))
+    return sps
+
+
 def _moe_buffer(g, dev, E, cap, n, live):
     """A MoE dispatch buffer (E, cap, n): ``live`` tokens' rows filled
     expert by expert from the front of each queue, the rest zero."""
@@ -836,47 +888,23 @@ def _moe_buffer(g, dev, E, cap, n, live):
 
 @pytest.mark.parametrize("E,cap,n,p", [(64, 8, 2048, 1408),
                                        (64, 8, 1408, 2048),
+                                       (160, 8, 5120, 1536),
                                        (8, 16, 200, 72)])
 def test_moe_expert_kernels(dev, E, cap, n, p):
-    """deepseek-moe-16b's expert contraction at decode (and a ragged
-    small one): the split of the E-batched A with mostly zero rows and of
-    the bf16-valued expert stack, the skinny group GEMM over the E batch
-    and the df32 epilogue, each bitwise to its plain version on the same
-    tensors, on the route the main path takes."""
-    from repro_torch.core.splitting import compute_beta
-    from repro_torch.kernels import LAUNCHES, ops
-    from repro_torch.kernels import group_gemm as gg
-    from repro_torch.kernels import scale_accum as sa
+    """deepseek-moe-16b's and deepseek-v2-236b's expert contractions at
+    decode (and a ragged small one): the split of the E-batched A with
+    mostly zero rows and of the bf16-valued expert stack, the skinny group
+    GEMM over the E batch (the experts on the grid's z axis) and the df32
+    epilogue, each bitwise to its plain version on the same tensors, on
+    the route the main path takes.  A 160-expert stack's plain versions
+    run in 8 expert chunks."""
     g = torch.Generator(device=dev).manual_seed(21)
     a = _moe_buffer(g, dev, E, cap, n, live=24)
     w = torch.randn((E, n, p), generator=g, device=dev).to(
         torch.bfloat16).float()
-    beta = compute_beta(n)
-    sps = []
-    for x, axis in ((a, 0), (w, 1)):
-        sp = ops.split_fused(x, 4, beta, axis=axis)
-        ref = ops.split_fused_ref(x, 4, beta, axis=axis)
-        assert torch.equal(sp.digits, ref.digits)
-        assert _same(sp.scale, ref.scale) and _same(sp.base, ref.base)
-        sps.append(sp)
-    dead = ~a.any(-1)
-    assert not sps[0].digits[:, dead].any()
-    prods = []
-    for grp in range(2, 6):
-        pairs = [(i, grp - i) for i in range(1, grp) if i <= 4 and
-                 grp - i <= 4]
-        ia, ib = [s - 1 for s, _ in pairs], [t - 1 for _, t in pairs]
-        before = LAUNCHES["group_gemm_skinny"]
-        out = gg.group_gemm(sps[0].digits, sps[1].digits, ia, ib)
-        assert LAUNCHES["group_gemm_skinny"] == before + 1
-        assert torch.equal(out, gg.group_gemm_ref(sps[0].digits,
-                                                  sps[1].digits, ia, ib))
-        prods.append(out)
-    groups = [2, 3, 4, 5]
-    assert _same(sa.scale_accum_chunks(prods, groups, sps[0].base,
-                                       sps[1].base, beta),
-                 sa.scale_accum_chunks_ref(prods, groups, sps[0].base,
-                                           sps[1].base, beta))
+    sps = _contraction_kernels(a, w, "skinny",
+                               chunks=8 if E * n * p > 1e9 else 1)
+    assert not sps[0].digits[:, ~a.any(-1)].any()
 
 
 def test_moe_expert_contraction_equals_cpu(dev):
@@ -901,3 +929,63 @@ def test_moe_expert_contraction_equals_cpu(dev):
     ref = eng.dot_general(buf.cpu(), w.cpu(), _EXPERT_DNUMS)
     assert out.dtype == torch.bfloat16
     assert torch.equal(out.cpu().view(torch.int16), ref.view(torch.int16))
+
+
+def test_mla_up_projection_large_route(dev):
+    """deepseek-v2-236b's latent up-projection at decode: the whole bf16
+    latent cache of 4 slots x max_len 24 (96 rows, the last 4 of each slot
+    zero) against w_uk (512 x 128 heads x 128), on the large route."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    lat = torch.randn((4, 24, 512), generator=g, device=dev)
+    lat[:, 20:] = 0.0
+    a = lat.to(torch.bfloat16).float().reshape(96, 512)
+    w = torch.randn((512, 16384), generator=g, device=dev) * 512 ** -0.5
+    sps = _contraction_kernels(a, w, "large")
+    assert not sps[0].digits.reshape(4, 4, 24, 512)[:, :, 20:].any()
+
+
+def test_mla_up_projection_equals_cpu(dev):
+    """The up-projection through the engine on the card (bf16 latent cache
+    as the model passes it) equals the CPU plain-version pipeline bit for
+    bit, with one split a side, 4 large-route group GEMMs and one
+    epilogue."""
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import LAUNCHES
+    g = torch.Generator(device=dev).manual_seed(24)
+    lat = torch.randn((4, 24, 512), generator=g, device=dev)
+    lat[:, 20:] = 0.0
+    lat = lat.to(torch.bfloat16)
+    w = torch.randn((512, 16384), generator=g, device=dev) * 512 ** -0.5
+    eng = make_engine("ozimmu_h-4:df32:fused")
+    before = dict(LAUNCHES)
+    out = eng(lat, w)
+    assert {k: LAUNCHES[k] - before[k] for k in
+            ("split_fused", "group_gemm", "group_gemm_large",
+             "scale_accum")} == {"split_fused": 2, "group_gemm": 4,
+                                 "group_gemm_large": 4, "scale_accum": 1}
+    ref = eng(lat.cpu(), w.cpu())
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu().view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("which", ["scores", "p@v"])
+def test_mla_decode_attention_kernels(dev, which):
+    """MLA's decode attention contractions at deepseek-v2-236b's width:
+    4 slots x 128 heads, one query row a head (G = 1), q/k head dim 192
+    (128 nope + 64 rope), v head dim 128, max_len 24; the B side is the
+    freshly concatenated k (or the up-projected v) as the engine reads it,
+    a permuted view."""
+    from repro_torch.core.ozimmu import canonical_rhs
+    g = torch.Generator(device=dev).manual_seed(25)
+    if which == "scores":
+        a = torch.randn((4, 128, 1, 192), generator=g, device=dev)
+        kv = torch.randn((4, 24, 128, 192), generator=g, device=dev)
+        dn = (((3,), (3,)), ((0, 1), (0, 2)))
+    else:
+        a = torch.rand((4, 128, 1, 24), generator=g, device=dev)
+        a[:, :, :, 20:] = 0.0              # positions past cur_len
+        kv = torch.randn((4, 24, 128, 128), generator=g, device=dev)
+        dn = (((3,), (1,)), ((0, 1), (0, 2)))
+    w = canonical_rhs(kv, dn)[0]
+    assert not w.is_contiguous()
+    _contraction_kernels(a, w, "skinny")
