@@ -67,7 +67,17 @@ Phases (each raises on failure, so any failure exits non-zero):
    oracle (2e-4), both in f32 (the 3xTF32 route); then the same in bf16
    (the wgmma route), held to the bf16 bound against the f32 route's
    results on the same (bf16-rounded) inputs.
-6. MoE serve (``serve_moe``): ``ServingRuntime`` on the published
+6. Train (``train``): internlm2-1.8b as published (24 layers, remat
+   blocks of 4, random weights from a seed) trained under
+   ``ozimmu_h-4:df32:fused`` at the reference launcher's global batch 8 x
+   seq 256 from the synthetic pipeline.  Step 0 in f32 activations
+   against the native f32 engine (TF32 off) on the same parameters and
+   batch: the loss within 1e-4, every gradient leaf within 1e-3 of its
+   max|g|.  Then ``launch.train.train`` (the published bf16 activations)
+   for 4 steps: every loss and grad norm finite, the exact launches a
+   step, ms a step, tokens/s and the peak device memory; one more step
+   traced by kernel class.
+7. MoE serve (``serve_moe``): ``ServingRuntime`` on the published
    deepseek-moe-16b config (28 layers, 64 experts top-6 plus 2 shared,
    random weights from a seed) under ``ozimmu_h-4:df32:fused``, after
    every earlier phase freed its model; the depth is cut, and the cut
@@ -75,14 +85,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    must equal a monolithic greedy loop, the prefill logits agree with the
    native f32 engine (isolated routing flips allowed), and the device
    memory and its peak are logged with a trace by kernel class.
-7. MLA serve (``serve_mla``): phase 6 on the published deepseek-v2-236b
+8. MLA serve (``serve_mla``): phase 7 on the published deepseek-v2-236b
    config (d_model 5120, 128 heads of multi-head latent attention over a
    512-wide latent / 64-wide rope-key cache, 160 experts top-6 plus 2
-   shared, vocab 102400) after phase 6 freed its model, at the most layers
+   shared, vocab 102400) after phase 7 freed its model, at the most layers
    ``moe_depth``'s reckoned peak allows (at least 2; the published 60
    hold ~970 GB of f32 weights), the cut logged with its reason.
 
-The launch counts of phases 3-7 are zeroed just before each path runs and
+The launch counts of phases 3-8 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
 GEMM must have taken the route assigned to the path (large for the DGEMM
 and the MLA up-projections, skinny for the rest of serving). A serve run
@@ -94,8 +104,11 @@ MoE serve run 28 x 17 + 1 splits, (28 x 12 + 1) x 4 group GEMMs, all
 skinny, and 28 x 12 + 1 epilogues a model step (the expert weights split
 every step; the f32 router launches none); the MLA serve run 19 splits, 14
 x 4 group GEMMs (the 8 of the latent up-projections on the large route, the
-rest skinny) and 14 epilogues a layer, plus the LM head's, a model step; a
-serve trace splits the device operations of a step by kernel into split,
+rest skinny) and 14 epilogues a layer, plus the LM head's, a model step;
+the train run 1782 splits, 3570 group GEMMs, all large (4 a contraction,
+10 for the LM head's input cotangent, whose contraction over the padded
+vocab leaves one pair a chunk) and 891 epilogues a step
+(:func:`train_step_launches`); a serve trace splits the device operations of a step by kernel into split,
 group GEMM, epilogue and other.  Phase 2 holds
 the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
@@ -151,6 +164,9 @@ MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_GEN = 4, 4, 16, 8
 # dim 128 over a 512-wide latent
 MLA = dict(E=160, cap=8, d=5120, fe=1536, K=6, H=128, dl=512, hd=128, dr=64,
            vd=128)
+# internlm2-1.8b training (train): the reference launcher's defaults of
+# global batch 8 and seq 256; step 0 and three more
+TRAIN = dict(batch=8, seq=256, steps=4)
 SEED = 0
 
 
@@ -263,7 +279,7 @@ def kernel_cases(dev):
     (the timed kernel call), ``library`` (a one-call PyTorch yardstick or
     None), and the bytes/operations the function must move/do."""
     import torch
-    from repro_torch.core.ozimmu import canonical_rhs
+    from repro_torch.core.ozimmu import canonical_lhs, canonical_rhs
     from repro_torch.core.splitting import compute_beta, compute_beta_sm
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
@@ -315,16 +331,22 @@ def kernel_cases(dev):
                 plain, moved)
 
     def split_case(label, shape, dtype, k, axis, reps, dnums=None,
-                   live=None, bf16_values=False, plain_chunks=1):
+                   live=None, bf16_values=False, plain_chunks=1,
+                   lhs_dnums=None):
         """``dnums``: ``x`` is the attention's KV cache (slots, L, KV, D),
         split as the B operand ``canonical_rhs`` makes of it under these
         dimension numbers: a permuted view, read through its strides.
+        ``lhs_dnums``: ``x`` is split as the A operand ``canonical_lhs``
+        makes of it (a cotangent contracted over its token axes: a
+        transposed view, which the split's wrapper copies to rows).
         ``live``: a (*batch, rows) mask; the other rows are zero, as in
         the MoE dispatch buffer.  ``bf16_values``: bf16 weights cast to
         the compute dtype, as the MoE step splits its expert weights."""
         x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
         if dnums is not None:
             x = canonical_rhs(x, dnums)[0]
+        if lhs_dnums is not None:
+            x = canonical_lhs(x, lhs_dnums)[0]
         if live is not None:
             x = x * live[..., None]
         if bf16_values:
@@ -513,11 +535,12 @@ def kernel_cases(dev):
                                                 retain_graph=True),
             tol=2e-4, flash_route=fa.route(dtype))
 
-    def chunks_case(label, prods, base_a, base_b, reps, beta=7):
+    def chunks_case(label, prods, base_a, base_b, reps, beta=7,
+                    groups=None):
         """The whole df32 epilogue of a contraction over its chunk
-        products (groups 2..C+1, one chunk a group, as k = C at decode):
-        bytes read the products and write the f32 result once."""
-        groups = list(range(2, len(prods) + 2))
+        products (by default groups 2..C+1, one chunk a group, as k = C at
+        decode): bytes read the products and write the f32 result once."""
+        groups = groups or list(range(2, len(prods) + 2))
         out_bytes = prods[0].numel() * 4
         add("scale_accum", label,
             lambda: sa.scale_accum_chunks(prods, groups, base_a, base_b,
@@ -528,18 +551,20 @@ def kernel_cases(dev):
             24.0 * len(prods) * prods[0].numel(), F32_FLOPS, reps,
             graph=True)
 
-    def decode_chunks_case(m, p, reps, batch=(), what="decode"):
+    def decode_chunks_case(m, p, reps, batch=(), what="decode",
+                           groups=None):
         g = gen
+        n_chunks = len(groups) if groups else 4
         prods = [torch.randint(-2 ** 30, 2 ** 30, batch + (m, p),
                                generator=g, device=dev, dtype=torch.int32)
-                 for _ in range(4)]
+                 for _ in range(n_chunks)]
         base_a = torch.pow(2.0, torch.randint(-20, 0, batch + (m,),
                                               generator=g, device=dev)).to(f32)
         base_b = torch.pow(2.0, torch.randint(-6, 2, batch + (p,),
                                               generator=g, device=dev)).to(f32)
         lead = f"{batch[0]} x " if batch else ""
-        chunks_case(f"{what} ({lead}{m}x{p}) C=4", prods, base_a, base_b,
-                    reps)
+        chunks_case(f"{what} ({lead}{m}x{p}) C={n_chunks}", prods, base_a,
+                    base_b, reps, groups=groups)
 
     def windows_case(label, prods, c, bases, reps, beta=7):
         """The whole Ozaki-II df32 epilogue of a contraction over its
@@ -817,6 +842,31 @@ def kernel_cases(dev):
                   plain_chunks=8)
         moe_chunks_case(f"MLA MoE {what} ({E}x{cap}x{p}) C=4", live, n, p,
                         50, shape=MLA)
+    # internlm2-1.8b's train step (train: global batch 8 x seq 256, T =
+    # 2048 tokens, one attention chunk): the A side of a weight cotangent
+    # (w_gate's output cotangent contracted over its token axes: a
+    # transposed view the wrapper copies to rows) and the B side of an
+    # input cotangent (the weight contracted over its output axis: a
+    # transposed view read through its strides); the large-route group
+    # GEMM at that weight cotangent's shape (8192 x 2048 tokens x 2048)
+    # and at the 64-batched (B x KV) attention scores of one chunk; the
+    # df32 epilogue at the weight cotangent's output, and at the LM head's
+    # input cotangent, whose contraction over the padded vocab (92672)
+    # leaves r = 1: ten one-pair chunks
+    Bt, Lt = TRAIN["batch"], TRAIN["seq"]
+    T, G = Bt * Lt, 16 // 8
+    split_case(f"train dW A: w_gate cotangent ({Bt}x{Lt}x{f} -> {f}x{T} "
+               f"view) f32 k=4", (Bt, Lt, f), f32, 4, 0, 10,
+               lhs_dnums=(((0, 1), (0, 1)), ((), ())))
+    split_case(f"train dx B: w_gate ({d}x{f} -> {f}x{d} view) f32 k=4 "
+               f"axis=1", (d, f), f32, 4, 1, 10,
+               dnums=(((2,), (1,)), ((), ())))
+    gemm_case(f"train dW w_gate ({f}x{T}x{d}) G=4", f, T, d, 4, 5)
+    gemm_case(f"train scores ({Bt * 8} x {G * Lt}x128x{Lt}) G=4", G * Lt,
+              128, Lt, 4, 10, batch=(Bt * 8,))
+    decode_chunks_case(f, d, 10, what="train dW w_gate")
+    decode_chunks_case(T, d, 10, what="train LM-head dx r=1",
+                       groups=[2, 3, 3, 4, 4, 4, 5, 5, 5, 5])
     return cases
 
 
@@ -1526,7 +1576,6 @@ def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
     position by position over the scheduler's bucket length (serve: 11
     steps here, 94 in ``untraced``).  The five largest kernels of the
     "other" class are listed by name."""
-    import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     rt.reset_metrics()
@@ -1536,6 +1585,24 @@ def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         s = rt.run()
         torch.cuda.synchronize()
+    # a prefill call runs the decode step over its prompt's bucket length
+    bucket = rt.sched.bucket_fn
+    steps = s["prefill_calls"] * bucket(trace_prompt) + s["decode_steps"]
+    step_ms = s["elapsed_s"] / steps * 1e3
+    base_ms = untraced["elapsed_s"] / (
+        untraced["prefill_calls"] * bucket(prompt_len)
+        + untraced["decode_steps"]) * 1e3
+    trace_summary(prof, tag, steps, step_ms, base_ms)
+
+
+def trace_summary(prof, tag, steps, step_ms, base_ms, what="model steps"):
+    """Log a CUDA profiler trace of ``steps`` steps: the device's busy
+    time and idle share (the union of the kernel, copy and set intervals,
+    over the span from the first one's start to the last one's end), the
+    operations and device ms a step by kernel class (:func:`trace_class`)
+    and the five largest kernels of the "other" class by name, beside the
+    traced (``step_ms``) and untraced (``base_ms``) wall ms a step."""
+    import tempfile
     with tempfile.TemporaryDirectory() as tmp:     # tens of MB: not kept
         out = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(out))
@@ -1544,13 +1611,6 @@ def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
            ("kernel", "gpu_memcpy", "gpu_memset")]
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in ops)
-    # a prefill call runs the decode step over its prompt's bucket length
-    bucket = rt.sched.bucket_fn
-    steps = s["prefill_calls"] * bucket(trace_prompt) + s["decode_steps"]
-    step_ms = s["elapsed_s"] / steps * 1e3
-    base_ms = untraced["elapsed_s"] / (
-        untraced["prefill_calls"] * bucket(prompt_len)
-        + untraced["decode_steps"]) * 1e3
     if not spans:
         log(f"[{tag}] trace: no device events recorded; the device's idle "
             f"share is not measured")
@@ -1564,7 +1624,7 @@ def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
             hi = max(hi, b)
     busy += hi - lo
     span = spans[-1][1] - spans[0][0]
-    log(f"[{tag}] trace ({steps} model steps, {len(spans)} device "
+    log(f"[{tag}] trace ({steps} {what}, {len(spans)} device "
         f"operations, {len(spans) / steps:.0f} a step): device busy "
         f"{busy / 1e3:.2f} of {span / 1e3:.2f} ms, idle share "
         f"{1 - busy / span:.4f}; {busy / steps / 1e3:.3f} ms of device time "
@@ -1579,12 +1639,12 @@ def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
             name = e.get("name", "")[:110]
             n, us = other.get(name, (0, 0.0))
             other[name] = (n + 1, us + float(e["dur"]))
-    log(f"[{tag}] trace by kernel, a model step: " + "; ".join(
+    log(f"[{tag}] trace by kernel, a {what[:-1]}: " + "; ".join(
         f"{cls} {by.get(cls, (0, 0.0))[0] / steps:.1f} operations, "
         f"{by.get(cls, (0, 0.0))[1] / steps / 1e3:.3f} ms"
         for cls in TRACE_CLASSES))
     top = sorted(other.items(), key=lambda kv: -kv[1][1])[:5]
-    log(f"[{tag}] trace, the largest other PyTorch kernels a model step: "
+    log(f"[{tag}] trace, the largest other PyTorch kernels a {what[:-1]}: "
         + "; ".join(f"{name} x{n / steps:.1f} {us / steps / 1e3:.3f} ms"
                     for name, (n, us) in top))
 
@@ -1696,6 +1756,234 @@ def phase_flash(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: train
+# ---------------------------------------------------------------------------
+
+def train_step_contractions(cfg, B: int, L: int):
+    """``(n, m)`` of every emulated contraction of one dense train step at
+    one attention chunk (L <= q_chunk, kv_chunk): its contraction length
+    and rows.  The forward runs 9 a layer (7 projections, the scores and
+    p@v) and the LM head's; the remat recompute every layer's 9 again; the
+    backward both cotangents of each of the 7 projections a layer (the
+    input cotangent contracts the output width over T = B L rows, the
+    weight cotangent the T tokens over the input width's rows), the flash
+    backward's 5 (s, dv, dp, dq, dk) a layer and both of the LM head."""
+    d, f, V, hd = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.hd
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G, T = H // KV, B * L
+    outs = [H * hd, KV * hd, KV * hd, d, f, f, d]
+    ins = [d, d, d, H * hd, d, d, f]
+    fwd = [(n, T) for n in ins] + [(hd, G * L), (L, G * L)]
+    bwd = [(o, T) for o in outs] + [(T, i) for i in ins] + \
+        [(hd, G * L), (G * L, L), (hd, G * L), (L, G * L), (G * L, L)]
+    n = cfg.n_layers
+    return fwd * n + [(d, T)] + fwd * n + bwd * n + [(V, T), (T, V)]
+
+
+def train_step_launches(cfg, B: int, L: int):
+    """Kernel launches of one train step under ``MODEL_SPEC`` by
+    construction: two splits and one df32 epilogue a contraction, and a
+    group GEMM for each chunk of the anti-diagonal groups 2..5 at the
+    group-EF limit r of its contraction length (r >= 4 gives one chunk a
+    group; the LM head's input cotangent, n = 92672, has r = 1 and ten
+    one-pair chunks); a group GEMM takes the large route above
+    ``SKINNY_MAX_M`` rows (every stack here is TMA-aligned)."""
+    from repro_torch.core.accumulate import _group_chunks
+    from repro_torch.core.splitting import compute_beta, compute_r
+    from repro_torch.kernels.group_gemm import SKINNY_MAX_M
+    cs = train_step_contractions(cfg, B, L)
+    chunks = [len(list(_group_chunks(4, compute_r(n, compute_beta(n)))))
+              for n, _ in cs]
+    large = sum(c for c, (_, m) in zip(chunks, cs) if m > SKINNY_MAX_M)
+    return {"split_fused": 2 * len(cs), "group_gemm": sum(chunks),
+            "group_gemm_large": large,
+            "group_gemm_skinny": sum(chunks) - large,
+            "scale_accum": len(cs)}, len(cs)
+
+
+def phase_train(dev):
+    """Train full-width internlm2-1.8b (24 layers, remat blocks of 4;
+    random weights from the seed; the synthetic pipeline at global batch 8
+    x seq 256; the launcher's AdamW warmup rule) under ``MODEL_SPEC``.
+
+    1. Step 0 against the native f32 engine (TF32 off) on the same
+       parameters and batch, both with f32 activations so that the
+       comparison sees the GEMMs and not bf16 rounding: the loss within
+       1e-4, every gradient leaf within 1e-3 of its max|g|; forward +
+       backward timed for both engines.
+    2. ``repro_torch.launch.train.train`` (the user's entry point, the
+       published bf16 activations) for 4 steps: exact kernel launches a
+       step (:func:`train_step_launches`, routes included), every loss and
+       grad norm finite, ms a step (step 0 apart), tokens/s and the peak
+       device memory.
+    3. One more step under torch.profiler: device time by kernel class;
+       then the comparison of 1 on the trained parameters, logged.
+    4. The run of 2 under the native f32 engine: its ms a step.
+    """
+    import gc
+    import torch
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import train
+    from repro_torch.models import api
+    from repro_torch.models.common import param_count
+    B, L, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    cfg = configs.get_config("internlm2_1_8b", engine_spec=MODEL_SPEC)
+    per_step, n_contr = train_step_launches(cfg, B, L)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers (depth not cut), "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, remat blocks of "
+        f"{cfg.remat_block}; global batch {B} x seq {L}; engine "
+        f"{MODEL_SPEC}; {n_contr} emulated contractions a step")
+    pipe = Pipeline(DataConfig(seq_len=L, global_batch=B, vocab=cfg.vocab,
+                               seed=SEED, d_model=cfg.d_model))
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(step).items()}
+
+    def against_native(params, batch, what):
+        """Loss and gradients of ``params`` on ``batch`` under both engines
+        in f32 activations (each timed after a warm-up call): ``(|loss
+        difference|, worst leaf's max|diff| / max|g|, its name)``, logged
+        with the forward + backward times."""
+        cfg32 = cfg.with_(dtype="float32")
+        res, fb_ms = {}, {}
+        for spec in ("f32", MODEL_SPEC):
+            c = cfg32.with_(engine_spec=spec)
+            S.loss_and_grads(c, params, batch)             # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[spec] = S.loss_and_grads(c, params, batch)
+            torch.cuda.synchronize()
+            fb_ms[spec] = (time.perf_counter() - t0) * 1e3
+        (nl, ng), (el, eg) = res.pop("f32"), res.pop(MODEL_SPEC)
+        dloss = abs(float(el) - float(nl))
+        worst, worst_name = 0.0, None
+        for name, a, b in zip(_leaf_paths(ng), tree.leaves(eg),
+                              tree.leaves(ng)):
+            r = float((a - b).abs().max() / b.abs().max())
+            if not math.isfinite(r) or r >= worst:
+                worst, worst_name = r, name
+        log(f"[train] {what} in f32 activations, emulated vs the native f32 "
+            f"engine (TF32 off): loss {float(el):.6f} vs {float(nl):.6f}, "
+            f"|diff| {dloss:.3e}; worst gradient leaf {worst_name}: "
+            f"max|diff| / max|g| = {worst:.3e}; forward + backward "
+            f"{fb_ms[MODEL_SPEC]:.1f} ms emulated, {fb_ms['f32']:.1f} ms "
+            f"native f32 ({fb_ms[MODEL_SPEC] / fb_ms['f32']:.2f}x)")
+        return dloss, worst, worst_name
+
+    # 1. step 0 against the native f32 engine, f32 activations
+    params = api.get_model(cfg).init(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    dloss, worst, worst_name = against_native(params, batch_at(0), "step 0")
+    if not math.isfinite(dloss) or dloss > 1e-4:
+        raise AssertionError(f"train: step-0 loss off the f32 engine by "
+                             f"{dloss:.3e} (> 1e-4)")
+    if not math.isfinite(worst) or worst > 1e-3:
+        raise AssertionError(f"train: gradient {worst_name} off the f32 "
+                             f"engine by {worst:.3e} of its max|g| (> 1e-3)")
+    log("[train] step 0 within its limits: |loss diff| <= 1e-4, every "
+        "gradient leaf within 1e-3 of its max|g|")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the trainer, the user's entry point
+    def run(engine, tag):
+        """``train()`` under ``engine``: (state, per-step (metrics,
+        seconds), peak bytes); logs the steps' losses, times and peak."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        seen = []
+        state, _ = train(
+            "internlm2_1_8b", smoke=False, n_steps=n_steps, global_batch=B,
+            seq_len=L, engine=engine, seed=SEED, log_every=1, device=dev,
+            print_fn=log, on_step=lambda step, m, sec: seen.append((m, sec)))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        bad = [m for m, _ in seen if not (math.isfinite(m["loss"]) and
+                                          math.isfinite(m["grad_norm"]))]
+        if len(seen) != n_steps or bad:
+            raise AssertionError(f"train ({tag}): {len(seen)} steps, "
+                                 f"non-finite metrics {bad}")
+        step_s = [sec for _, sec in seen[1:]]
+        mean_s = sum(step_s) / len(step_s)
+        log(f"[train] {tag}: {param_count(state.params) / 1e9:.3f} B f32 "
+            f"parameters; losses {[round(m['loss'], 6) for m, _ in seen]}, "
+            f"grad norms {[round(m['grad_norm'], 4) for m, _ in seen]}; "
+            f"step 0 {seen[0][1] * 1e3:.1f} ms, steps 1-{n_steps - 1} "
+            f"{[round(x * 1e3, 1) for x in step_s]} ms: {mean_s * 1e3:.1f} "
+            f"ms a step, {B * L / mean_s:.0f} tokens/s; peak device memory "
+            f"{peak / 1e9:.2f} GB (max_memory_allocated; "
+            f"{held / 1e9:.2f} GB held before)")
+        return state, mean_s
+
+    reset_launches()
+    state, mean_s = run(MODEL_SPEC, MODEL_SPEC)
+    counts = dict(LAUNCHES)
+    want = {k: v * n_steps for k, v in per_step.items()}
+    got = {k: counts[k] for k in want}
+    log(f"[train] kernel launches {counts}")
+    log(f"[train] {n_steps} steps: launches {got}, expected {want} (a step: "
+        f"{per_step['split_fused']} splits, {per_step['group_gemm']} group "
+        f"GEMMs of which {per_step['group_gemm_large']} large, "
+        f"{per_step['scale_accum']} df32 epilogues)")
+    if got != want:
+        raise AssertionError(f"train: launch counts {got}, expected {want}")
+    for name in ("split_fused", "group_gemm", "scale_accum"):
+        if counts[name] <= 0:
+            raise AssertionError(f"train path launched no {name} kernel")
+
+    # 3. one more step traced by kernel class
+    step_fn = S.make_train_step(cfg, optim.OptConfig(  # the launcher's
+        lr=3e-3, warmup_steps=min(20, n_steps // 5 + 1),
+        total_steps=n_steps))
+    batch = batch_at(n_steps)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    trace_summary(prof, "train", 1, traced_ms, mean_s * 1e3,
+                  what="train steps")
+    # the comparison of 1 again on the trained parameters, logged only:
+    # is a gradient that parts from the native run's emulation error?
+    params = state.params
+    del state, metrics, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    against_native(params, batch, f"after {n_steps + 1} steps")
+    del params, batch
+
+    # 4. the same run under the native f32 engine (TF32 off), for its time
+    state, native_s = run("f32", "native f32 engine")
+    log(f"[train] a step: {mean_s * 1e3:.1f} ms under {MODEL_SPEC}, "
+        f"{native_s * 1e3:.1f} ms under the native f32 engine "
+        f"({mean_s / native_s:.2f}x)")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaf_paths(tree, prefix=""):
+    """The paths of a nested dict's leaves, in flatten order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
 def main() -> int:
     try:
         import torch
@@ -1761,6 +2049,7 @@ def main() -> int:
         dev, SM_MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
         tag="serve_sm")
     paths["flash"] = phase_flash(dev)
+    paths["train"] = phase_train(dev)
     paths["serve_moe"], _ = phase_serve_moe(dev)
     paths["serve_mla"], _ = phase_serve_moe(dev, "deepseek_v2_236b",
                                             "serve_mla")

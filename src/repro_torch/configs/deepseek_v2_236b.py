@@ -9,9 +9,9 @@ keeps a full Q projection, and so does the port: it does not change cache
 or FFN shapes.)
 
 The reference's mesh keys (``RULES_OVERRIDES``: experts on the data axis,
-the expert MLP, the latent and the rope key on the model axis), its
-training-only ``remat_block`` and its benchmark's ``SKIP_SHAPES`` have no
-counterpart until the distributed and training slices of the port.
+the expert MLP, the latent and the rope key on the model axis) and its
+benchmark's ``SKIP_SHAPES`` have no counterpart until the distributed
+slice of the port.
 ``moe_dispatch="a2a"`` without a mesh takes the reference's own no-mesh
 branch, the scatter dispatch."""
 from repro_torch.models.common import ModelConfig
@@ -26,6 +26,7 @@ def full() -> ModelConfig:
         d_ff_expert=1536, n_experts=160, n_shared_experts=2, topk=6,
         vocab=102400, rope_theta=1e4,
         moe_dispatch="a2a",
+        remat_block=6,
     )
 
 
@@ -34,4 +35,4 @@ def smoke() -> ModelConfig:
                         head_dim=16, kv_lora=32, rope_head_dim=8,
                         v_head_dim=16, d_ff=64, d_ff_expert=32, n_experts=8,
                         topk=2, n_shared_experts=1, vocab=256,
-                        q_chunk=64, kv_chunk=64)
+                        remat_block=1, q_chunk=64, kv_chunk=64)

@@ -8,9 +8,11 @@ def full() -> ModelConfig:
         name="internlm2_1_8b", family="dense",
         n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8,
         d_ff=8192, vocab=92544, rope_theta=1e6,
+        remat_block=4,
     )
 
 
 def smoke() -> ModelConfig:
     return full().with_(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                        d_ff=96, vocab=256, q_chunk=64, kv_chunk=64)
+                        d_ff=96, vocab=256, remat_block=1,
+                        q_chunk=64, kv_chunk=64)

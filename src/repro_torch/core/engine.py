@@ -13,7 +13,10 @@ dtype) or any ozimmu spec of :func:`repro_torch.core.ozimmu.parse_spec`
 
 For ozimmu specs the compute dtype is f64 for ``:f64`` and f32 for
 ``:f32``/``:df32``; PyTorch always has f64, so the reference's
-x64-off downgrade has no counterpart.
+x64-off downgrade has no counterpart.  Both entry points differentiate:
+the casts to the compute dtype and back are autograd's, and the emulated
+contraction between them is ``ozimmu``'s autograd Function, whose
+cotangents run the same emulation.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Public API: high-precision GEMM emulation on integer matmul units —
-PyTorch port of ``repro.core.ozimmu`` (forward only).
+PyTorch port of ``repro.core.ozimmu``.
 
 The named variants and the spec grammar are the reference's:
 
@@ -32,7 +32,10 @@ Two entry points: ``ozimmu_matmul(a, b, cfg)`` (rank 2) and
 ``jax.lax.dot_general`` on tensors: batch dims stay batch dims all the way
 into the int8 group GEMMs.  Both run on whatever device the caller placed
 the operands on: on CUDA every int8 product goes through the hand-written
-group-GEMM kernel.
+group-GEMM kernel.  Both are differentiable: a ``torch.autograd.Function``
+evaluates the two cotangents through the same emulation under the
+transposed dimension numbers (the reference's custom VJP), so the
+backward's contractions run the same kernels as the forward's.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core import accumulate, splitting
 
@@ -432,17 +436,87 @@ def _dot_general_impl(a: torch.Tensor, b: torch.Tensor,
                        + rhs_free_shape(b.shape, dnums))
 
 
+# ---------------------------------------------------------------------------
+# the VJP against general dimension numbers
+# ---------------------------------------------------------------------------
+
+def _ranges_like(*seqs):
+    start = 0
+    out = []
+    for s in seqs:
+        out.append(list(range(start, start + len(s))))
+        start += len(s)
+    return out
+
+
+def _argsort(seq):
+    return sorted(range(len(seq)), key=seq.__getitem__)
+
+
+def _transpose_operand(g, other, target_ndim: int, dnums: DimensionNumbers,
+                       cfg: OzimmuConfig, swap_ans: bool):
+    """Cotangent of the lhs of ``dot_general(x, y, dnums)`` (lax's
+    ``_dot_general_transpose_lhs`` with the contraction itself emulated).
+    For the rhs cotangent, call with the roles of x and y swapped in
+    ``dnums`` and ``swap_ans=True``."""
+    (xc, yc), (xb, yb) = dnums
+    x_kept = _remaining(target_ndim, xc, xb)
+    y_kept = _remaining(other.ndim, yc, yb)
+    if swap_ans:
+        g_batch, g_y_kept, _ = _ranges_like(xb, y_kept, x_kept)
+    else:
+        g_batch, _, g_y_kept = _ranges_like(xb, x_kept, y_kept)
+    dims = ((tuple(g_y_kept), tuple(y_kept)), (tuple(g_batch), tuple(yb)))
+    dx = _dot_general_impl(g, other, _canonicalize_dnums(dims), cfg)
+    xc_sorted_by_yc = [xc[i] for i in _argsort(yc)]
+    out_axes = _argsort(list(xb) + x_kept + xc_sorted_by_yc)
+    return dx.permute(out_axes)
+
+
+class _OzDotGeneral(torch.autograd.Function):
+    """The emulated ``dot_general`` with the reference's custom VJP: the
+    residuals are the operands, and each cotangent is one emulated
+    contraction of ``g`` with the other operand (transposed dimension
+    numbers are free re-slices; no precision leaves the scheme).  A frozen
+    B split (``rhs_presplit``) only accelerates the forward: it rides
+    along as a plain argument, gets no gradient, and both cotangents run
+    the regular emulation.  Cotangents an input does not need are not
+    computed (the reference's jitted backward drops them as dead code)."""
+
+    @staticmethod
+    def forward(ctx, a, b, dnums, cfg, rhs_presplit):
+        ctx.dnums, ctx.cfg = dnums, cfg
+        ctx.save_for_backward(a, b)
+        return _dot_general_impl(a, b, dnums, cfg, rhs_presplit=rhs_presplit)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        dnums, cfg = ctx.dnums, ctx.cfg
+        (ac, bc), (ab, bb) = dnums
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _transpose_operand(g, b, a.ndim, dnums, cfg, swap_ans=False)
+        if ctx.needs_input_grad[1]:
+            db = _transpose_operand(g, a, b.ndim, ((bc, ac), (bb, ab)), cfg,
+                                    swap_ans=True)
+        return da, db, None, None, None
+
+
 def ozimmu_dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers,
                        cfg: OzimmuConfig = VARIANTS["ozimmu_h"],
                        rhs_presplit: Optional[splitting.Split] = None
                        ) -> torch.Tensor:
-    """Emulated ``jax.lax.dot_general`` via k-slice INT8 GEMMs (forward).
+    """Emulated ``jax.lax.dot_general`` via k-slice INT8 GEMMs.
 
     ``dimension_numbers`` is the lax contract ``((lhs_contract,
     rhs_contract), (lhs_batch, rhs_batch))``; the output layout is lax's.
     ``rhs_presplit`` (serving): a frozen column-scale Split of the
     canonical rhs (:class:`repro_torch.core.split_cache.SplitCache`) makes
     the call skip the B-side splitter, bit-identical to the uncached path.
+    Differentiable (:class:`_OzDotGeneral`) when autograd records and an
+    operand requires grad; otherwise the emulation runs directly.
     """
     dnums = _canonicalize_dnums(dimension_numbers)
     if rhs_presplit is not None:
@@ -458,6 +532,8 @@ def ozimmu_dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers,
         if sp.beta != beta:
             raise ValueError(f"rhs_presplit beta={sp.beta} disagrees with "
                              f"the contraction's beta={beta}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _OzDotGeneral.apply(a, b, dnums, cfg, rhs_presplit)
     return _dot_general_impl(a, b, dnums, cfg, rhs_presplit=rhs_presplit)
 
 

@@ -49,6 +49,7 @@ class ModelConfig:
     v_head_dim: int = 0
     dtype: str = "bfloat16"           # activation dtype
     norm_eps: float = 1e-5
+    remat_block: int = 1              # layers per remat unit (training)
     engine_spec: str = "bf16"         # MatmulEngine spec
     q_chunk: int = 1024               # attention chunking (flash-style)
     kv_chunk: int = 1024

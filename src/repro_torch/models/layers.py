@@ -1,10 +1,10 @@
 """Layer library: norms, RoPE, GQA attention, MLPs, embeddings — PyTorch
-port of ``repro.models.layers`` (forward).
+port of ``repro.models.layers``.
 
 All contractions route through the model's ``MatmulEngine``, so any layer
-runs its GEMMs through the INT8 Ozaki emulation under an ozimmu spec.  The
-reference's ``shard(...)`` layout hints have no counterpart: this slice has
-no mesh.  The flash-attention backward comes with the training slice.
+runs its GEMMs through the INT8 Ozaki emulation under an ozimmu spec, in
+the forward and in the backward alike.  The reference's ``shard(...)``
+layout hints have no counterpart: the port has no mesh yet.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core.engine import dot_general
 
@@ -92,18 +93,41 @@ def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_chunk: int = 1024, kv_chunk: int = 1024,
                     q_offset: int = 0, engine=None) -> torch.Tensor:
-    """Chunked online-softmax (flash-style) GQA attention, forward.
+    """Chunked online-softmax (flash-style) GQA attention.
 
     q (B, Lq, H, D); k, v (B, Lk, KV, D/Dv) with H % KV == 0.  The score
     and output contractions are (B, KV)-batched dot_generals through
     ``engine`` — the reference's loop structure, with its scans written as
-    Python loops."""
+    Python loops.  Differentiable through :class:`_Flash`, the reference's
+    recompute backward: score blocks are recomputed, never stored, and
+    every backward contraction goes through ``engine`` too.  No flash
+    kernel runs here (the reference's training attention reaches none)."""
+    args = (engine, bool(causal), window, int(q_chunk), int(kv_chunk),
+            int(q_offset))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, *args)
+    return _flash_fwd_impl(q, k, v, *args)[0]
+
+
+def _flash_dims(q, k, v, q_chunk, kv_chunk):
     B, Lq, H, D = q.shape
     _, Lk, KV, _ = k.shape
     Dv = v.shape[-1]
     G = H // KV
     qc, kc = min(q_chunk, Lq), min(kv_chunk, Lk)
     nq, nk = -(-Lq // qc), -(-Lk // kc)
+    return B, Lq, H, D, Lk, KV, Dv, G, qc, kc, nq, nk
+
+
+def _flash_fwd_impl(q, k, v, engine, causal, window, q_chunk, kv_chunk,
+                    q_offset):
+    """``(out, (outs, lses))``: the attention and, per q chunk, the
+    normalized outputs ``(nq, B, KV, G, qc, Dv)`` and log-sum-exps
+    ``(nq, B, KV, G, qc)`` (+inf on rows with every key masked) the
+    backward recomputes from."""
+    B, Lq, H, D, Lk, KV, Dv, G, qc, kc, nq, nk = _flash_dims(
+        q, k, v, q_chunk, kv_chunk)
     dev = q.device
     q = _pad_seq(q, nq * qc)
     k = _pad_seq(k, nk * kc)
@@ -112,7 +136,7 @@ def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(B, nq, qc, KV, G, D)
     kg = k.reshape(B, nk, kc, KV, D)
     vg = v.reshape(B, nk, kc, KV, Dv)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = qg[:, qi] * scale                      # (B, qc, KV, G, D)
         q_pos = qi * qc + torch.arange(qc, device=dev) + q_offset
@@ -141,9 +165,100 @@ def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * corr[..., None] + pv
             m_run = m_new
         outs.append(acc / torch.clamp(l_run, min=1e-30)[..., None])
-    out = torch.stack(outs)                           # (nq, B, KV, G, qc, Dv)
-    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, nq * qc, H, Dv)
-    return out[:, :Lq].to(q.dtype)
+        # logsumexp per row; +inf on fully masked (padding) rows, so that
+        # exp(s - lse) == 0 in the backward's recomputation
+        lses.append(torch.where(
+            l_run > 0, m_run + torch.log(torch.clamp(l_run, min=1e-30)),
+            torch.full_like(l_run, float("inf"))))
+    outs, lses = torch.stack(outs), torch.stack(lses)
+    out = outs.permute(1, 0, 4, 2, 3, 5).reshape(B, nq * qc, H, Dv)
+    return out[:, :Lq].to(q.dtype), (outs, lses)
+
+
+def _flash_bwd_impl(q, k, v, outs, lses, dout, engine, causal, window,
+                    q_chunk, kv_chunk, q_offset):
+    """The flash backward: recompute p block by block from ``lses``; never
+    materialize L^2.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    B, Lq, H, D, Lk, KV, Dv, G, qc, kc, nq, nk = _flash_dims(
+        q, k, v, q_chunk, kv_chunk)
+    dev, f32 = q.device, torch.float32
+    q_pad = _pad_seq(q, nq * qc)
+    k_pad = _pad_seq(k, nk * kc)
+    v_pad = _pad_seq(v, nk * kc)
+    dout = _pad_seq(dout.to(f32), nq * qc)
+    scale = D ** -0.5
+    qg = q_pad.reshape(B, nq, qc, KV, G, D)
+    kg = k_pad.reshape(B, nk, kc, KV, D)
+    vg = v_pad.reshape(B, nk, kc, KV, Dv)
+    # dout in (nq, B, KV, G, qc, Dv) to match the outs/lses block layout
+    dg = dout.reshape(B, nq, qc, KV, G, Dv).permute(1, 0, 3, 4, 2, 5)
+    # delta_i = rowsum(dout_i * out_i): (nq, B, KV, G, qc)
+    delta = (dg * outs).sum(dim=-1)
+    dq_acc = torch.zeros((B, nq, qc, KV, G, D), dtype=f32, device=dev)
+    dks, dvs = [], []
+    for ki in range(nk):
+        kblk, vblk = kg[:, ki], vg[:, ki]            # (B, kc, KV, D/Dv)
+        k_pos = ki * kc + torch.arange(kc, device=dev)
+        dk_blk = torch.zeros((B, kc, KV, D), dtype=f32, device=dev)
+        dv_blk = torch.zeros((B, kc, KV, Dv), dtype=f32, device=dev)
+        for qi in range(nq):
+            qblk = qg[:, qi] * scale                  # (B, qc, KV, G, D)
+            q_pos = qi * qc + torch.arange(qc, device=dev) + q_offset
+            # recomputed scores (the forward's contraction)
+            s = _edot(engine, qblk, kblk, (((4,), (3,)), ((0, 2), (0, 2))),
+                      out_dtype=f32).permute(0, 1, 3, 2, 4)
+            mask = _scores_mask(q_pos, k_pos, causal, window)
+            mask &= (k_pos < Lk)[None, :]
+            s = s.masked_fill(~mask[None, None, None], NEG_INF)
+            p = torch.exp(s - lses[qi][..., None])   # (B, KV, G, qc, kc)
+            do_blk = dg[qi]                           # (B, KV, G, qc, Dv)
+            # dv: einsum "bkgqs,bkgqd->bskd" (contract g, q)
+            dv_blk = dv_blk + _edot(
+                engine, p, do_blk, (((2, 3), (2, 3)), ((0, 1), (0, 1))),
+                out_dtype=f32).permute(0, 2, 1, 3)
+            # dp: einsum "bkgqd,bskd->bkgqs" (contract d)
+            dp = _edot(engine, do_blk, vblk.to(f32),
+                       (((4,), (3,)), ((0, 1), (0, 2))), out_dtype=f32)
+            ds = p * (dp - delta[qi][..., None])      # (B, KV, G, qc, kc)
+            # dq: einsum "bkgqs,bskd->bqkgd" (contract s)
+            dq_blk = _edot(engine, ds, kblk.to(f32),
+                           (((4,), (1,)), ((0, 1), (0, 2))),
+                           out_dtype=f32).permute(0, 3, 1, 2, 4) * scale
+            dq_acc[:, qi] += dq_blk
+            # dk: einsum "bkgqs,bqkgd->bskd" (contract g, q); qblk
+            # already carries `scale`, so dk needs no extra factor
+            dk_blk = dk_blk + _edot(
+                engine, ds, qblk.to(f32),
+                (((2, 3), (3, 1)), ((0, 1), (0, 2))),
+                out_dtype=f32).permute(0, 2, 1, 3)
+        dks.append(dk_blk)
+        dvs.append(dv_blk)
+    dq = dq_acc.reshape(B, nq * qc, H, D)[:, :Lq]
+    dk = torch.stack(dks, dim=1).reshape(B, nk * kc, KV, D)[:, :Lk]
+    dv = torch.stack(dvs, dim=1).reshape(B, nk * kc, KV, Dv)[:, :Lk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """:func:`attention_flash` with the reference's custom VJP: the
+    residuals are q, k, v and the per-chunk outputs and log-sum-exps;
+    the backward recomputes the score blocks (:func:`_flash_bwd_impl`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, engine, causal, window, q_chunk, kv_chunk,
+                q_offset):
+        out, (outs, lses) = _flash_fwd_impl(q, k, v, engine, causal, window,
+                                            q_chunk, kv_chunk, q_offset)
+        ctx.save_for_backward(q, k, v, outs, lses)
+        ctx.args = (engine, causal, window, q_chunk, kv_chunk, q_offset)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, outs, lses = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, outs, lses, dout, *ctx.args)
+        return (dq, dk, dv) + (None,) * 6
 
 
 def decode_positions(cur_len, batch: int) -> torch.Tensor:

@@ -4,15 +4,17 @@ PyTorch port of ``repro.models.transformer``.
 Parameters keep the reference's layout: one dict whose ``"layers"`` leaves
 are stacked along a leading layer axis, ``(n_layers, ...)``.  The
 reference's ``lax.scan`` over that axis is a Python loop here
-(:func:`layer_params` slices one layer).  Remat blocks are a training
-concern and come with the training slice.  The reference's ``expand_kv``
-replicates KV heads for sharding only and has no counterpart.
+(:func:`layer_params` slices one layer), and its remat blocks are
+``torch.utils.checkpoint`` blocks of ``cfg.remat_block`` layers
+(:func:`scan_layers`).  The reference's ``expand_kv`` replicates KV heads
+for sharding only and has no counterpart.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import PresplitWeight
 from repro_torch.models import layers as L
@@ -61,8 +63,9 @@ def init(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def layer_params(stacked, i: int):
-    """Layer ``i`` of the stacked ``"layers"`` tree (tensors and
-    :class:`PresplitWeight` wrappers alike)."""
+    """Layer ``i`` of the stacked ``"layers"`` tree (tensors,
+    :class:`PresplitWeight` wrappers and lists of one tensor a layer
+    alike)."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     if isinstance(stacked, PresplitWeight):
@@ -120,7 +123,44 @@ def dense_layer(p, cfg, x, cos, sin, cache=None, cur_len=None):
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (prefill)
+# layer stack with remat blocks
+# ---------------------------------------------------------------------------
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, list):        # one tensor a layer (training)
+        yield from tree
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def scan_layers(body, stacked, x, *, n_layers: int, remat_block: int = 1):
+    """``x = body(layer_params, x)`` over the stacked layers in order (the
+    reference's ``scan_layers``).  When autograd records through the
+    layers (grad enabled and a layer parameter requiring grad), every
+    block of ``remat_block`` layers runs under non-reentrant
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    blocks: the block keeps only its input, and the backward recomputes
+    its forward, kernels included."""
+    def block(x, lo, hi):
+        for i in range(lo, hi):
+            x = body(layer_params(stacked, i), x)
+        return x
+
+    if not (torch.is_grad_enabled() and
+            any(t.requires_grad for t in _tensor_leaves(stacked))):
+        return block(x, 0, n_layers)
+    rb = max(1, remat_block)
+    assert n_layers % rb == 0, (n_layers, rb)
+    for lo in range(0, n_layers, rb):
+        x = checkpoint(block, x, lo, lo + rb, use_reentrant=False)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -133,17 +173,18 @@ def run_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor], layer, *,
                 rope_dim: Optional[int] = None) -> torch.Tensor:
     """The full-sequence forward of a decoder stack whose layer is
-    ``layer(p, cfg, x, cos, sin)`` (the reference's ``scan_layers`` as a
-    Python loop over the stacked layers).  RoPE rotates ``rope_dim``
-    features (default ``cfg.hd``; MLA rotates its rope head dim)."""
+    ``layer(p, cfg, x, cos, sin)``, through :func:`scan_layers` with
+    ``cfg.remat_block``.  RoPE rotates ``rope_dim`` features (default
+    ``cfg.hd``; MLA rotates its rope head dim)."""
     B, Lq = tokens.shape
     x = L.embed_tokens(tokens, params["embed"], cfg.compute_dtype)
     if positions is None:
         positions = torch.arange(Lq, dtype=torch.int32,
                                  device=tokens.device).expand(B, Lq)
     cos, sin = L.rope_cos_sin(positions, rope_dim or cfg.hd, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x, _ = layer(layer_params(params["layers"], i), cfg, x, cos, sin)
+    x = scan_layers(lambda lp, x: layer(lp, cfg, x, cos, sin)[0],
+                    params["layers"], x, n_layers=cfg.n_layers,
+                    remat_block=cfg.remat_block)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return L.logits_head(x, params["lm_head"], cfg.engine)
 

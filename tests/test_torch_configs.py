@@ -50,3 +50,18 @@ def test_dense_config_matches_reference(arch):
         pcfg, {"tokens": torch.from_numpy(toks)}).numpy()
     assert out.shape == ref.shape and np.isfinite(out).all()
     assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", P_configs.ARCH_IDS)
+def test_every_config_field_matches_reference(arch, smoke):
+    """Every field of the port's config (the reference's fields the port
+    carries, ``remat_block`` among them) has the reference's value, in the
+    published config and in the smoke one."""
+    import dataclasses
+    ref = R_configs.get_config(arch, smoke=smoke)
+    port = P_configs.get_config(arch, smoke=smoke)
+    fields = [f.name for f in dataclasses.fields(port)]
+    assert "remat_block" in fields
+    for name in fields:
+        assert getattr(port, name) == getattr(ref, name), name

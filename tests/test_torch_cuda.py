@@ -989,3 +989,96 @@ def test_mla_decode_attention_kernels(dev, which):
     w = canonical_rhs(kv, dn)[0]
     assert not w.is_contiguous()
     _contraction_kernels(a, w, "skinny")
+
+
+# internlm2-1.8b's train step at global batch 8 x seq 256 (one attention
+# chunk): (lhs shape, rhs shape, dimension numbers) of a contraction, each
+# operand as the emulation's canonical layout makes it
+_TRAIN_CONTRACTIONS = {
+    # w_gate's weight cotangent: its output cotangent contracted over the
+    # token axes (a transposed view) with the layer input
+    "dW w_gate": ((8, 256, 8192), (8, 256, 2048),
+                  (((0, 1), (0, 1)), ((), ()))),
+    # w_gate's input cotangent: B is the weight contracted over its output
+    # axis (a transposed view)
+    "dx w_gate": ((8, 256, 8192), (2048, 8192), (((2,), (1,)), ((), ()))),
+    # the scores of the forward, the remat recompute and the flash
+    # backward: (B x KV = 64)-batched, m = G x qc = 512
+    "scores": ((8, 256, 8, 2, 128), (8, 256, 8, 128),
+               (((4,), (3,)), ((0, 2), (0, 2)))),
+    # the flash backward's dk (contract g, q)
+    "dk": ((8, 8, 2, 256, 256), (8, 256, 8, 2, 128),
+           (((2, 3), (3, 1)), ((0, 1), (0, 2)))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TRAIN_CONTRACTIONS))
+def test_train_contraction_kernels(dev, case):
+    """The train step's contractions at full width kernel by kernel on the
+    large route: the splits of the canonical operands (transposed and
+    permuted views among them), four group GEMMs and the df32 epilogue,
+    each bitwise to its plain version."""
+    from repro_torch.core.ozimmu import canonical_lhs, canonical_rhs
+    a_shape, b_shape, dn = _TRAIN_CONTRACTIONS[case]
+    g = torch.Generator(device=dev).manual_seed(30)
+    a = canonical_lhs(torch.randn(a_shape, generator=g, device=dev), dn)[0]
+    w = canonical_rhs(torch.randn(b_shape, generator=g, device=dev), dn)[0]
+    _contraction_kernels(a, w, "large")
+
+
+def test_train_contraction_vjp_equals_cpu(dev):
+    """A projection through the engine with autograd on the card: the
+    output and both cotangents equal the CPU plain-version pipeline bit
+    for bit, with 2 splits, 4 large-route group GEMMs and one epilogue for
+    each of the three contractions."""
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import LAUNCHES
+    eng = make_engine("ozimmu_h-4:df32:fused")
+    g = torch.Generator().manual_seed(31)
+    x = torch.randn((2, 64, 512), generator=g)
+    w = torch.randn((512, 1024), generator=g) * 512 ** -0.5
+    gout = torch.randn((2, 64, 1024), generator=g)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        xl, wl = (t.to(d).requires_grad_() for t in (x, w))
+        before = dict(LAUNCHES)
+        out = eng(xl, wl)
+        dx, dw = torch.autograd.grad(out, (xl, wl), gout.to(d))
+        res[d.type] = (out.detach().cpu(), dx.cpu(), dw.cpu())
+        if d.type == "cuda":
+            assert {k: LAUNCHES[k] - before[k] for k in
+                    ("split_fused", "group_gemm", "group_gemm_large",
+                     "scale_accum")} == {"split_fused": 6, "group_gemm": 12,
+                                         "group_gemm_large": 12,
+                                         "scale_accum": 3}
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _same(a, b)
+
+
+def test_smoke_train_step_on_card_equals_cpu(dev):
+    """One smoke train step (internlm2-1.8b ``smoke()``, f32 activations,
+    ``ozimmu_h-4:df32:fused``) on the card against the CPU: the loss within
+    1e-5 and every gradient leaf within 1e-4 of its max|g| (the card's
+    elementwise exp, rsqrt and sums differ from the CPU's by an ulp; every
+    contraction is bitwise), and the full step's loss and grad norm
+    finite."""
+    import math
+    from repro_torch import configs, optim, tree
+    from repro_torch.launch import steps as S
+    cfg = configs.get_config("internlm2_1_8b", smoke=True, dtype="float32",
+                             engine_spec="ozimmu_h-4:df32:fused")
+    state = S.init_state(cfg, optim.OptConfig(),
+                         torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    lc, gc = S.loss_and_grads(cfg, state.params, {"tokens": toks})
+    on_card = tree.tree_map(lambda t: t.to(dev), state)
+    ld, gd = S.loss_and_grads(cfg, on_card.params, {"tokens": toks.to(dev)})
+    assert abs(float(ld) - float(lc)) <= 1e-5
+    for a, b in zip(tree.leaves(gd), tree.leaves(gc)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * float(b.abs().max())
+    _, metrics = S.make_train_step(cfg, optim.OptConfig())(
+        on_card, {"tokens": toks.to(dev)})
+    assert math.isfinite(float(metrics["loss"]))
+    assert math.isfinite(float(metrics["grad_norm"]))
