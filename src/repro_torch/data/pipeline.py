@@ -19,7 +19,7 @@ Design for 1000+-node training:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -31,10 +31,6 @@ class DataConfig:
     vocab: int = 1024
     seed: int = 0
     source: str = "synthetic"       # synthetic | file:<path>
-    # modality stubs (assignment: frontends provide precomputed embeddings)
-    vision_seq: int = 0
-    frames: int = 0
-    d_model: int = 0
 
 
 def _host_slice(cfg: DataConfig, host_id: int, num_hosts: int):
@@ -109,22 +105,9 @@ class Pipeline:
         self._start, self._per_host = _host_slice(cfg, host_id, num_hosts)
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
-        cfg = self.cfg
         rows = [self.source.row(step, self._start + r)
                 for r in range(self._per_host)]
-        batch = {"tokens": np.stack(rows)}
-        if cfg.vision_seq:
-            rng = np.random.default_rng(
-                np.random.SeedSequence([cfg.seed, step, 1 << 20]))
-            batch["image_embeds"] = rng.standard_normal(
-                (self._per_host, cfg.vision_seq, cfg.d_model)).astype(
-                    np.float32)
-        if cfg.frames:
-            rng = np.random.default_rng(
-                np.random.SeedSequence([cfg.seed, step, 1 << 21]))
-            batch["frames"] = rng.standard_normal(
-                (self._per_host, cfg.frames, cfg.d_model)).astype(np.float32)
-        return batch
+        return {"tokens": np.stack(rows)}
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

@@ -55,32 +55,15 @@ def init_state(cfg: ModelConfig, opt_cfg: optim.OptConfig,
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """``(loss, grads)`` of ``next_token_loss(forward(params, batch))``
     (the reference's ``jax.value_and_grad(loss_fn)``): the loss detached,
-    the gradients a tree shaped like ``params``.  Each stacked
-    ``"layers"`` leaf enters autograd as one leaf a layer, whose gradients
-    are stacked afterwards: the gradient of a slice of one stacked leaf
-    would add a zero-filled copy of the whole stack for every layer."""
-    def leaf(p):
-        return p.detach().requires_grad_()
-
-    inputs = {k: tree.tree_map(
-        (lambda p: [leaf(p[i]) for i in range(p.shape[0])])
-        if k == "layers" else leaf, v) for k, v in params.items()}
+    the gradients a tree shaped like ``params``."""
+    inputs = tree.tree_map(lambda p: p.detach().requires_grad_(), params)
     flat, treedef = tree.flatten(inputs)
     with torch.enable_grad():
         logits = api.get_model(cfg).forward(inputs, cfg, batch)
         loss = api.next_token_loss(logits, batch["tokens"])
         del logits
         grads = tree.unflatten(treedef, list(torch.autograd.grad(loss, flat)))
-    if "layers" in grads:
-        grads["layers"] = _restack(grads["layers"])
     return loss.detach(), grads
-
-
-def _restack(t):
-    """The per-layer gradient lists of a ``"layers"`` tree, stacked."""
-    if isinstance(t, dict):
-        return {k: _restack(v) for k, v in t.items()}
-    return torch.stack(t)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,

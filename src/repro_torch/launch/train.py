@@ -57,8 +57,7 @@ def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
                               total_steps=n_steps)
     tcfg = S.TrainConfig(microbatches=microbatches)
     pipe = Pipeline(DataConfig(seq_len=seq_len, global_batch=global_batch,
-                               vocab=cfg.vocab, seed=seed,
-                               d_model=cfg.d_model))
+                               vocab=cfg.vocab, seed=seed))
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
 
     gen = torch.Generator(device=device).manual_seed(seed)

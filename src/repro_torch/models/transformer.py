@@ -20,6 +20,7 @@ from repro_torch.core.engine import PresplitWeight
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, dense_param,
                                        init_stacked)
+from repro_torch.tree import leaves as tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -63,9 +64,8 @@ def init(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def layer_params(stacked, i: int):
-    """Layer ``i`` of the stacked ``"layers"`` tree (tensors,
-    :class:`PresplitWeight` wrappers and lists of one tensor a layer
-    alike)."""
+    """Layer ``i`` of the stacked ``"layers"`` tree (tensors and
+    :class:`PresplitWeight` wrappers alike)."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     if isinstance(stacked, PresplitWeight):
@@ -126,14 +126,10 @@ def dense_layer(p, cfg, x, cos, sin, cache=None, cur_len=None):
 # layer stack with remat blocks
 # ---------------------------------------------------------------------------
 
-def _tensor_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensor_leaves(v)
-    elif isinstance(tree, list):        # one tensor a layer (training)
-        yield from tree
-    elif isinstance(tree, torch.Tensor):
-        yield tree
+def _unbind(t):
+    if isinstance(t, dict):
+        return {k: _unbind(v) for k, v in t.items()}
+    return t.unbind(0)
 
 
 def scan_layers(body, stacked, x, *, n_layers: int, remat_block: int = 1):
@@ -143,17 +139,21 @@ def scan_layers(body, stacked, x, *, n_layers: int, remat_block: int = 1):
     block of ``remat_block`` layers runs under non-reentrant
     ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
     blocks: the block keeps only its input, and the backward recomputes
-    its forward, kernels included."""
+    its forward, kernels included.  The stacks are unbound once, so the
+    backward stacks each leaf's layer gradients once (the gradient of a
+    slice would add a zero-filled copy of the whole stack a layer)."""
     def block(x, lo, hi):
         for i in range(lo, hi):
             x = body(layer_params(stacked, i), x)
         return x
 
     if not (torch.is_grad_enabled() and
-            any(t.requires_grad for t in _tensor_leaves(stacked))):
+            any(isinstance(t, torch.Tensor) and t.requires_grad
+                for t in tree_leaves(stacked))):
         return block(x, 0, n_layers)
     rb = max(1, remat_block)
     assert n_layers % rb == 0, (n_layers, rb)
+    stacked = _unbind(stacked)
     for lo in range(0, n_layers, rb):
         x = checkpoint(block, x, lo, lo + rb, use_reentrant=False)
     return x

@@ -1,21 +1,12 @@
-"""Profiler tracing: named emulation phases and run-level trace capture —
-PyTorch port of ``repro.obs.tracing`` on ``torch.profiler``.
+"""Run-level trace capture — the ``profile`` part of ``repro.obs.tracing``
+on ``torch.profiler``.
 
-Two scope flavours, both no-ops when the obs layer is disabled
-(``registry.enabled()``):
-
-* :func:`phase_scope` — a ``record_function`` range named
-  ``ozimmu/<phase>`` around the operations launched under it, so a
-  profiler trace groups the kernels of a phase.  Pure metadata: the same
-  operations run in the same order.
-* :func:`host_scope` — the same range for host work (splitter dispatch,
-  cache freezes) on the Python thread's timeline.
-
-Run-level capture: :func:`profile` brackets a whole run with
-``torch.profiler.profile`` (the trainer's ``--profile-dir``) and writes
-``<trace_dir>/trace.json`` (Chrome trace format; Perfetto reads it).
-Failures to start or write the trace degrade to a warning: observability
-never takes the workload down.
+:func:`profile` brackets a whole run with ``torch.profiler.profile`` (the
+trainer's ``--profile-dir``) and writes ``<trace_dir>/trace.json``
+(Chrome trace format; Perfetto reads it).  Failures to start or write the
+trace degrade to a warning: observability never takes the workload down.
+The reference's named emulation-phase scopes have no caller in the port
+yet and come with its observability slice.
 """
 from __future__ import annotations
 
@@ -26,29 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.obs import registry as _registry
-
-__all__ = ["phase_scope", "host_scope", "profile", "PHASES"]
-
-# the emulation pipeline's phase names: every scope this module emits is
-# ozimmu/<one of these>
-PHASES = ("split", "group_gemm", "ladder", "scale_accum")
-
-_NULL = contextlib.nullcontext()
-
-
-def phase_scope(name: str):
-    """A profiler range naming the operations launched under it."""
-    if not _registry.enabled():
-        return _NULL
-    return torch.profiler.record_function(f"ozimmu/{name}")
-
-
-def host_scope(name: str):
-    """A profiler range around host-side work."""
-    if not _registry.enabled():
-        return _NULL
-    return torch.profiler.record_function(f"ozimmu/{name}")
+__all__ = ["profile"]
 
 
 @contextlib.contextmanager

@@ -21,9 +21,6 @@ from repro_torch import tree
 
 __all__ = ["OptConfig", "OptState", "init", "lr_at", "global_norm", "step"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
     lr: float = 3e-4
@@ -35,7 +32,6 @@ class OptConfig:
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
     master_f32: bool = False        # keep f32 master params
-    state_dtype: str = "float32"
 
 
 class OptState(NamedTuple):
@@ -46,10 +42,9 @@ class OptState(NamedTuple):
 
 
 def init(params, cfg: OptConfig = OptConfig()) -> OptState:
-    """Zero moments in ``cfg.state_dtype`` (and the f32 master copy) on
-    each parameter's device."""
-    dt = _DTYPES[cfg.state_dtype]
-    mu = tree.tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
+    """Zero f32 moments (and the f32 master copy) on each parameter's
+    device."""
+    mu = tree.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
     nu = tree.tree_map(torch.clone, mu)
     master = (tree.tree_map(lambda p: p.to(torch.float32, copy=True), params)
@@ -91,10 +86,10 @@ def step(grads, params, state: OptState, cfg: OptConfig):
 
     def upd(g, p, m, v, master):
         g = g.to(torch.float32) * clip
-        m = b1 * m + (1 - b1) * g.to(m.dtype)
-        v = b2 * v + (1 - b2) * (g * g).to(v.dtype)
-        mhat = m.to(torch.float32) / c1
-        vhat = v.to(torch.float32) / c2
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * (g * g)
+        mhat = m / c1
+        vhat = v / c2
         base = master if master is not None else p.to(torch.float32)
         new = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
                            + cfg.weight_decay * base)
