@@ -33,7 +33,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    route, with ``torch._int_mm`` beside it), the G = 1 attention over
    4 x 128 (slot, head) batches (D 192, Dv 128) and the 160-expert
    contractions (stacks of 160 x 5120 x 1536, their plain versions run in
-   expert chunks).  The group GEMM's, the split's
+   expert chunks).  mamba2-780m and recurrentgemma-9b add the tied LM
+   heads' B side (the transposed view ``embed.T``, 1536 x 50432 and 4096
+   x 256000) and their group GEMM (4 x 4096 x 256000) and epilogue,
+   mamba2's ``w_in`` (1536 x 6448: the freeze, the decode A side, the
+   group GEMM) and recurrentgemma's MQA contractions (16 query heads of
+   256 on a 48-row cache, the large route).  The group GEMM's, the split's
    and the epilogues' times are device times (CUDA-graph replay; the
    group GEMM's
    B operands rotated past the L2 cache), with the eager per-call time
@@ -94,6 +99,22 @@ Phases (each raises on failure, so any failure exits non-zero):
    shared, vocab 102400) after phase 7 freed its model, at the most layers
    ``moe_depth``'s reckoned peak allows (at least 2; the published 60
    hold ~970 GB of f32 weights), the cut logged with its reason.
+9. SSM serve (``serve_ssm``): ``ServingRuntime`` on the published
+   mamba2-780m config (48 layers, d_model 1536, 48 SSD heads of 64, state
+   128, tied head over vocab 50280) under ``ozimmu_h-4:df32:fused``: 8
+   requests of 24 / 32 prompt tokens (two exact-length buckets) in
+   prefill chunks of 8, so decode steps run beside mid-prefill slots
+   (frozen by the runtime's per-slot select).
+10. Hybrid serve (``serve_hybrid``): the published recurrentgemma-9b
+   (12 (R, R, A) blocks + 2 tail R layers, d_model 4096, MQA 16 heads of
+   256 on one KV head, window 2048, GELU d_ff 12288, tied head over vocab
+   256000), whole 32-token prompts; its depth is cut, and the cut logged,
+   only if ``state_depth``'s predicted peak does not fit.  Phases 9-10
+   check request 0 against the monolithic loop, the f32 prefill logits
+   against the native f32 engine (1e-3, every token), that the tied
+   head's ``embed.T`` reaches the split uncopied, and log tok/s, TTFT, ms
+   a model step, the peak against its prediction and a trace by kernel
+   class with the tied head apart.
 
 The launch counts of phases 3-8 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
@@ -108,6 +129,11 @@ skinny, and 28 x 12 + 1 epilogues a model step (the expert weights split
 every step; the f32 router launches none); the MLA serve run 19 splits, 14
 x 4 group GEMMs (the 8 of the latent up-projections on the large route, the
 rest skinny) and 14 epilogues a layer, plus the LM head's, a model step;
+the SSM serve run 98 splits, 388 group GEMMs (skinny) and 97 epilogues,
+the hybrid one 252 splits, 908 group GEMMs (the 96 of the MQA scores and
+p@v, 16 A rows, large) and 227 epilogues a model step
+(:func:`state_step_launches`; a model step is a position a prefill call
+feeds or a decode step);
 the train run 1782 splits, 3570 group GEMMs, all large (4 a contraction,
 10 for the LM head's input cotangent, whose contraction over the padded
 vocab leaves one pair a chunk) and 891 epilogues a step
@@ -167,6 +193,12 @@ MOE_SLOTS, MOE_REQUESTS, MOE_PROMPT, MOE_GEN = 4, 4, 16, 8
 # dim 128 over a 512-wide latent
 MLA = dict(E=160, cap=8, d=5120, fe=1536, K=6, H=128, dl=512, hd=128, dr=64,
            vd=128)
+# the state families' published widths (serve_ssm, serve_hybrid):
+# mamba2-780m's d_model, w_in output (2 x 3072 + 2 x 128 + 48) and padded
+# vocab; recurrentgemma-9b's d_model, padded vocab and MQA (16 query heads
+# of 256 on one KV head)
+SSM = dict(d=1536, p_in=6448, V=50432)
+HYB = dict(d=4096, V=256000, H=16, hd=256)
 # internlm2-1.8b training (train): the reference launcher's defaults of
 # global batch 8 and seq 256; step 0 and three more
 TRAIN = dict(batch=8, seq=256, steps=4)
@@ -335,17 +367,23 @@ def kernel_cases(dev):
 
     def split_case(label, shape, dtype, k, axis, reps, dnums=None,
                    live=None, bf16_values=False, plain_chunks=1,
-                   lhs_dnums=None):
+                   lhs_dnums=None, transposed=False):
         """``dnums``: ``x`` is the attention's KV cache (slots, L, KV, D),
         split as the B operand ``canonical_rhs`` makes of it under these
         dimension numbers: a permuted view, read through its strides.
+        ``transposed``: ``x`` is the transposed view of a ``shape[::-1]``
+        tensor, as the tied LM head hands ``embed.T`` (vocab, d) -> (d,
+        vocab) to the engine, read through its strides.
         ``lhs_dnums``: ``x`` is split as the A operand ``canonical_lhs``
         makes of it (a cotangent contracted over its token axes: a
         transposed view, which the split's wrapper copies to rows).
         ``live``: a (*batch, rows) mask; the other rows are zero, as in
         the MoE dispatch buffer.  ``bf16_values``: bf16 weights cast to
         the compute dtype, as the MoE step splits its expert weights."""
-        x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+        x = torch.randn(shape[::-1] if transposed else shape, generator=gen,
+                        dtype=dtype, device=dev)
+        if transposed:
+            x = x.T
         if dnums is not None:
             x = canonical_rhs(x, dnums)[0]
         if lhs_dnums is not None:
@@ -361,7 +399,7 @@ def kernel_cases(dev):
             graph=True)
 
     def gemm_case(label, m, n, p, k, reps, batch=(), sm=False, route=None,
-                  live=None, plain_chunks=1):
+                  live=None, plain_chunks=1, plain_cols=1):
         """The group g = k + 1 (all k pairs) of split digits, signed or the
         sign-magnitude split's stored digits (slice 0 signed, the others
         unsigned bytes), B K-major as the axis=1 split stores it.  Timed
@@ -374,7 +412,8 @@ def kernel_cases(dev):
         and the operations of the nonzero rows, what this data needs.
         ``plain_chunks``: the plain version runs on that many slices of
         the batch, concatenated (its f64 copy of a 160-expert stack's
-        digits alone would take 40 GB)."""
+        digits alone would take 40 GB); ``plain_cols`` on that many
+        column blocks of B (a 256000-column LM head's: 33 GB)."""
         dtype = f64 if k == 8 else f32
         a = torch.randn(batch + (m, n), generator=gen, device=dev,
                         dtype=dtype)
@@ -418,10 +457,12 @@ def kernel_cases(dev):
         rows = B * m if live is None else int(live.sum())
 
         def plain():
-            return torch.cat([gg.group_gemm_ref(ac, bc, ia, ib,
-                                                a_unsigned=ua, b_unsigned=ub)
-                              for ac, bc in zip(da.chunk(plain_chunks, 1),
-                                                db.chunk(plain_chunks, 1))])
+            return torch.cat([torch.cat([
+                gg.group_gemm_ref(ac, bcc, ia, ib, a_unsigned=ua,
+                                  b_unsigned=ub)
+                for bcc in bc.chunk(plain_cols, -1)], dim=-1)
+                for ac, bc in zip(da.chunk(plain_chunks, 1),
+                                  db.chunk(plain_chunks, 1))])
         add("group_gemm", label,
             lambda: call(da, db, ia, ib, **kw), plain,
             G * (B * m * n + live_b * n * p) + 4 * B * m * p,
@@ -870,6 +911,38 @@ def kernel_cases(dev):
     decode_chunks_case(f, d, 10, what="train dW w_gate")
     decode_chunks_case(T, d, 10, what="train LM-head dx r=1",
                        groups=[2, 3, 3, 4, 4, 4, 5, 5, 5, 5])
+    # the state families at decode (serve_ssm, serve_hybrid): mamba2's
+    # w_in (1536 -> 6448) frozen and its decode A side; the tied LM heads'
+    # B side, the transposed view embed.T split every step (mamba2 1536 x
+    # 50432, recurrentgemma 4096 x 256000), its group GEMM and epilogue;
+    # recurrentgemma's MQA (16 query heads on one KV head of 256) against
+    # a 48-row cache: 16 A rows, the large route
+    for dm, V in ((SSM["d"], SSM["V"]), (HYB["d"], HYB["V"])):
+        split_case(f"tied head B (embed.T view {dm}x{V}) f32 k=4 axis=1",
+                   (dm, V), f32, 4, 1, 5 if V > 100000 else 20,
+                   transposed=True)
+    split_case(f"freeze mamba2 w_in B ({SSM['d']}x{SSM['p_in']}) f32 k=4 "
+               f"axis=1", (SSM["d"], SSM["p_in"]), f32, 4, 1, 10)
+    split_case(f"decode A ({SLOTS}x{SSM['d']}) f32 k=4", (SLOTS, SSM["d"]),
+               f32, 4, 0, 50)
+    gemm_case(f"decode mamba2 w_in ({SLOTS}x{SSM['d']}x{SSM['p_in']}) G=4",
+              SLOTS, SSM["d"], SSM["p_in"], 4, 50)
+    gemm_case(f"decode tied head ({SLOTS}x{HYB['d']}x{HYB['V']}) G=4", SLOTS,
+              HYB["d"], HYB["V"], 4, 5, plain_cols=16)
+    decode_chunks_case(SLOTS, HYB["V"], 50, what="decode tied head")
+    hk, G, Lh = HYB["hd"], HYB["H"], PROMPT + GEN
+    split_case(f"MQA decode scores B ({SLOTS}x1 x {hk}x{Lh} cache view) f32 "
+               f"k=4 axis=1", (SLOTS, Lh, 1, hk), f32, 4, 1, 50,
+               dnums=(((3,), (3,)), ((0, 1), (0, 2))))
+    split_case(f"MQA decode p@v B ({SLOTS}x1 x {Lh}x{hk} cache view) f32 "
+               f"k=4 axis=1", (SLOTS, Lh, 1, hk), f32, 4, 1, 50,
+               dnums=(((3,), (1,)), ((0, 1), (0, 2))))
+    gemm_case(f"MQA decode scores ({SLOTS} x {G}x{hk}x{Lh}) G=4", G, hk, Lh,
+              4, 50, batch=(SLOTS,))
+    gemm_case(f"MQA decode p@v ({SLOTS} x {G}x{Lh}x{hk}) G=4", G, Lh, hk, 4,
+              50, batch=(SLOTS,))
+    decode_chunks_case(G, Lh, 50, batch=(SLOTS,), what="MQA decode scores")
+    decode_chunks_case(G, hk, 50, batch=(SLOTS,), what="MQA decode p@v")
     return cases
 
 
@@ -1567,8 +1640,294 @@ def check_monolithic(tag, model, cfg, rt, req, slots, gen, dev):
         f"{got[plen:].tolist()}")
 
 
+# the state families served (serve_ssm, serve_hybrid): STATE_SLOTS slots,
+# STATE_REQUESTS requests of STATE_GEN new tokens, max_len 48.  mamba2's
+# prompts alternate 24 / 32 tokens (two exact-length buckets) fed in
+# prefill chunks of 8, so decode steps run beside mid-prefill slots;
+# recurrentgemma's are 32 tokens, prefilled whole
+STATE_SLOTS, STATE_REQUESTS, STATE_GEN, STATE_MAX_LEN = 4, 8, 16, 48
+# the tied head reads the residual stream against the embedding: at the
+# init's embedding scale of 1 the token's own embedding dominates the
+# stream and greedy decoding echoes the last prompt token whatever the
+# layers compute, so the phases scale the random embedding down (as
+# tests/test_torch_{ssm,hybrid}.py do) and the monolithic check sees them
+STATE_EMBED_SCALE = 0.05
+STATE_SERVE = {"mamba2_780m": dict(tag="serve_ssm", prompts=(24, 32),
+                                   chunk=8),
+               "recurrentgemma_9b": dict(tag="serve_hybrid", prompts=(32,),
+                                         chunk=None)}
+
+
+def state_step_launches(cfg):
+    """``(contractions, split launches, large-route contractions)`` of one
+    model step under ``MODEL_SPEC`` with the weight splits frozen.  ssm: 2
+    a layer (``w_in``, ``w_out``) and the tied head.  hybrid: 5 a
+    recurrent layer (``w_x``, ``w_gate``, ``w_out``, ``w_up``, ``w_down``),
+    8 an attention layer (4 projections, the scores, p@v, 2 MLP), 18 a
+    pattern block, and the head.  One split per A side, per attention B
+    side (the K/V cache) and for the head's unfrozen ``embed.T``.  The
+    MQA contractions have G = H / KV A rows, on the large route past
+    ``group_gemm.SKINNY_MAX_M``; ``lru_a`` (plain f32) launches none."""
+    from repro_torch.kernels import group_gemm as gg
+    if cfg.family == "ssm":
+        c = 2 * cfg.n_layers + 1
+        return c, c + 1, 0
+    nb = cfg.n_pattern_blocks
+    c = 18 * nb + 5 * cfg.n_tail_layers + 1
+    large = gg.route(cfg.n_heads // cfg.n_kv_heads, True) == "large"
+    return c, c + 2 * nb + 1, 2 * nb * large
+
+
+def state_memory(cfg):
+    """``(predicted peak bytes, f32 parameters, wrapped parameters)`` of a
+    state-family serve phase, from the parameter tree built on the meta
+    device: the f32 weights (4 B an element), the k = 4 int8 frozen
+    digits of the wrapped ones (4 B an element), the tied head's digits
+    split every step (4 B an element of ``embed``), three copies of the
+    slot cache (the runtime's, the step's new one, the prefill's
+    ``before``) and ``DEPTH_HEADROOM``."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models.common import param_count
+    from repro_torch.serving import presplit
+    model = api.get_model(cfg)
+    tree = model.init(cfg, generator=torch.Generator(), device="meta")
+
+    def leaf(path):
+        t = tree
+        for k in path:
+            t = t[k]
+        return t
+    n = param_count(tree)
+    wrapped = sum(leaf(p).numel() for p in presplit.wrappable_paths(tree))
+    cache = sum(t.numel() * t.element_size() for t in model.init_cache(
+        cfg, STATE_SLOTS, STATE_MAX_LEN, device="meta").values())
+    peak = 4 * n + 4 * wrapped + 4 * tree["embed"].numel() + 3 * cache + \
+        DEPTH_HEADROOM
+    return int(peak), n, wrapped
+
+
+def state_depth(cfg, free_bytes: int):
+    """``(cfg, predicted peak, why)``: the published depth if its
+    predicted peak (:func:`state_memory`) fits ``free_bytes``, else (the
+    hybrid) the most pattern blocks that fit, the tail kept."""
+    peak = state_memory(cfg)[0]
+    if peak <= free_bytes:
+        return cfg, peak, "depth not cut"
+    if cfg.family != "hybrid":
+        raise AssertionError(f"{cfg.name}: predicted peak {peak / 1e9:.1f} "
+                             f"GB exceeds the {free_bytes / 1e9:.1f} GB free")
+    nb = cfg.n_pattern_blocks
+    per_block = peak - state_memory(cfg.with_(n_pattern_blocks=nb - 1))[0]
+    keep = int((free_bytes - (peak - nb * per_block)) // per_block)
+    if keep < 2:
+        raise AssertionError(f"{cfg.name}: fewer than two pattern blocks "
+                             f"fit {free_bytes / 1e9:.1f} GB")
+    why = (f"depth cut {nb} -> {keep} pattern blocks: the published depth's "
+           f"predicted peak {peak / 1e9:.1f} GB exceeds the "
+           f"{free_bytes / 1e9:.1f} GB free ({per_block / 1e9:.2f} GB a "
+           f"block)")
+    cfg = cfg.with_(n_pattern_blocks=keep,
+                    n_layers=keep * len(cfg.pattern) + cfg.n_tail_layers)
+    return cfg, state_memory(cfg)[0], why
+
+
+def tied_head_copies(tag, cfg, params, dev):
+    """The tied head's B side is the transposed view ``embed.T``: under a
+    dispatch mode, one engine contraction of the decode step's shape must
+    create no f32 tensor of ``embed``'s size besides views of it (no
+    contiguous copy; the split's kernel reads the view through its
+    strides).  A check of the card: on the CPU the split's plain version
+    makes such temporaries."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    size = params["embed"].numel()
+    home = params["embed"].untyped_storage().data_ptr()
+    big = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and \
+                        t.dtype == torch.float32 and t.numel() >= size and \
+                        t.untyped_storage().data_ptr() != home:
+                    big.append(str(func))
+            return out
+
+    x = torch.randn((STATE_SLOTS, 1, cfg.d_model), device=dev)
+    with torch.no_grad(), Record():
+        cfg.engine(x, params["embed"].T)
+    if big:
+        raise AssertionError(f"{tag}: the tied head's contraction made "
+                             f"{len(big)} f32 tensors of embed's size "
+                             f"({sorted(set(big))})")
+    log(f"[{tag}] the tied head's B side (embed.T, {cfg.d_model} x "
+        f"{cfg.padded_vocab} f32, {size * 4 / 1e9:.2f} GB) is split through "
+        f"its strides: no f32 tensor of its size made on the way")
+
+
+def phase_serve_state(dev, arch, card):
+    """Serve a state family's ``full()`` (random weights from the seed)
+    under ``MODEL_SPEC`` through ``ServingRuntime`` (``STATE_SERVE[arch]``:
+    mamba2-780m at all 48 layers with chunked prefill, recurrentgemma-9b
+    at its 12 pattern blocks + 2 tail layers unless :func:`state_depth`'s
+    predicted peak does not fit, the cut logged).  A model step is a
+    position a prefill call feeds (the sum of its calls' bucket lengths)
+    or a decode step; every one must count exactly
+    :func:`state_step_launches` (4 group GEMMs and one df32 epilogue a
+    contraction).  Request 0 must equal the monolithic loop, the
+    weight-split hit rate be 1.0, and the 1x16 prefill logits of
+    ``forward`` in f32 activations lie within 1e-3 of max|logit| of the
+    native f32 engine at every token (no routing: no flip allowed).
+    Logs tok/s, TTFT, ms a model step and the peak against its
+    prediction beside ``card``, and traces a few steps."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import api
+    from repro_torch.serving import ServingRuntime
+    spec = STATE_SERVE[arch]
+    tag = spec["tag"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    cfg, predicted, why = state_depth(
+        configs.get_config(arch, engine_spec=MODEL_SPEC), free)
+    _, n_params, n_wrapped = state_memory(cfg)
+    if cfg.family == "ssm":
+        shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+                 f"{cfg.expand * cfg.d_model} in "
+                 f"{cfg.expand * cfg.d_model // cfg.ssm_headdim} heads of "
+                 f"{cfg.ssm_headdim}, state {cfg.d_state}, conv "
+                 f"{cfg.d_conv}")
+    else:
+        shape = (f"{cfg.n_layers} layers ({cfg.n_pattern_blocks} x "
+                 f"{''.join(cfg.pattern)} + {cfg.n_tail_layers} R), d_model "
+                 f"{cfg.d_model}, LRU width {cfg.lru_width}, MQA "
+                 f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, window "
+                 f"{cfg.window}, GELU d_ff {cfg.d_ff}")
+    log(f"[{tag}] {cfg.name}: {shape}, vocab {cfg.vocab} (tied head); "
+        f"{why}; {n_params / 1e9:.3f} B f32 parameters, "
+        f"{n_wrapped / 1e9:.3f} B of them frozen; predicted peak "
+        f"{predicted / 1e9:.1f} GB of {free / 1e9:.1f} GB free (card "
+        f"{total / 1e9:.1f} GB); engine {MODEL_SPEC}")
+    model = api.get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init(cfg, generator=gen, device=dev)
+    params["embed"].mul_(STATE_EMBED_SCALE)
+    rt = ServingRuntime(cfg, params, slots=STATE_SLOTS,
+                        max_len=STATE_MAX_LEN,
+                        prefill_chunk=spec["chunk"], device=dev)
+    torch.cuda.synchronize()
+    st = rt.split_cache.stats
+    log(f"[{tag}] init (embedding scaled by {STATE_EMBED_SCALE}: at 1 "
+        f"the tied head echoes the last token) + weight freeze "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{st.misses} weight splits, {st.cached_bytes / 1e9:.2f} GB "
+        f"resident; device memory {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB ({(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB of it "
+        f"this phase's)")
+
+    fed = []                   # the bucket length of every prefill call
+    prefill = rt._prefill
+
+    def counted(toks, *args):
+        fed.append(toks.shape[1])
+        return prefill(toks, *args)
+    rt._prefill = counted
+    rng = np.random.default_rng(SEED)
+    lens = spec["prompts"]
+    prompts = [rng.integers(0, cfg.vocab, size=lens[i % len(lens)],
+                            dtype=np.int32) for i in range(STATE_REQUESTS)]
+    reset_launches()
+    reqs = [rt.submit(p, STATE_GEN) for p in prompts]
+    s = rt.run()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    sc = s["split_cache"]
+    steps = sum(fed) + s["decode_steps"]
+    log(f"[{tag}] {card}: {s['tokens_generated']} tokens from "
+        f"{s['requests']['finished']} requests in {s['elapsed_s']:.2f} s: "
+        f"{s['tokens_per_s']:.2f} tok/s; TTFT mean {s['ttft_s']['mean']:.3f}"
+        f" s p95 {s['ttft_s']['p95']:.3f} s; {steps} model steps "
+        f"({s['elapsed_s'] / steps * 1e3:.1f} ms a step): prefill calls "
+        f"{s['prefill_calls']} of bucket lengths {sorted(set(fed))} "
+        f"({sum(fed)} positions, {s['prefill_chunks']} non-final chunks), "
+        f"decode steps {s['decode_steps']}; weight-split hit rate "
+        f"{sc['weight_split_hit_rate']:.3f}")
+    log(f"[{tag}] kernel launches {counts}")
+    for name in ("split_fused", "group_gemm", "scale_accum"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{tag} path launched no {name} kernel")
+    c, splits, large = state_step_launches(cfg)
+    want = {"split_fused": steps * splits, "group_gemm": steps * c * 4,
+            "group_gemm_large": steps * large * 4,
+            "scale_accum": steps * c}
+    want["group_gemm_skinny"] = want["group_gemm"] - want["group_gemm_large"]
+    got = {name: counts[name] for name in want}
+    log(f"[{tag}] launches {got}, expected {want} ({steps} steps x {splits} "
+        f"splits, {c * 4} group GEMMs of which {large * 4} large, {c} "
+        f"epilogues)")
+    if got != want:
+        raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
+    if spec["chunk"] is not None and not (rt._decode_select and
+                                          s["prefill_chunks"]):
+        raise AssertionError(f"{tag}: chunked prefill did not interleave")
+    if s["requests"]["finished"] != STATE_REQUESTS or \
+            s["tokens_generated"] != STATE_REQUESTS * STATE_GEN:
+        raise AssertionError(f"{tag} finished {s['requests']} with "
+                             f"{s['tokens_generated']} tokens")
+    if sc["weight_split_hit_rate"] != 1.0:
+        raise AssertionError(f"{tag}: weight-split hit rate "
+                             f"{sc['weight_split_hit_rate']}")
+    check_monolithic(tag, model, cfg, rt, reqs[0], STATE_SLOTS, STATE_GEN,
+                     dev)
+    if len({t for r in reqs for t in r.generated}) <= STATE_REQUESTS:
+        raise AssertionError(f"{tag}: the continuations barely vary; the "
+                             f"monolithic check would not see the layers")
+    tied_head_copies(tag, cfg, params, dev)
+
+    with torch.no_grad():
+        tk = torch.from_numpy(prompts[1][None, :16]).to(dev)
+        emu = model.forward(rt.params, cfg.with_(dtype="float32"),
+                            {"tokens": tk})
+        nat = model.forward(params, cfg.with_(dtype="float32",
+                                              engine_spec="f32"),
+                            {"tokens": tk})
+    if not bool(torch.isfinite(emu).all()) or emu.shape != nat.shape:
+        raise AssertionError(f"{tag}: prefill logits not finite or "
+                             f"misshapen")
+    err_tok = ((emu - nat).abs().amax(dim=-1) / nat.abs().max())[0]
+    log(f"[{tag}] prefill logits (1x16, f32 activations) vs the f32 engine: "
+        f"max|diff| / max|logit| {float(err_tok.max()):.3e}; per token "
+        f"{[float(f'{e:.2e}') for e in err_tok.tolist()]}")
+    if float(err_tok.max()) >= 1e-3:
+        raise AssertionError(f"{tag}: emulated prefill logits off by "
+                             f"{float(err_tok.max()):.3e}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {card}: device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated since the phase began; "
+        f"predicted {predicted / 1e9:.1f} GB) of {total / 1e9:.1f} GB")
+    del emu, nat
+    rt._prefill = prefill
+    serve_trace(rt, prompts, tag, s, trace_prompt=8, trace_gen=2,
+                untraced_steps=steps, head=True)
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, s
+
+
 def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
-                trace_prompt=8, trace_gen=4):
+                trace_prompt=8, trace_gen=4, untraced_steps=None,
+                head=False):
     """The device's idle share while serving: one more request a slot
     (prompt ``trace_prompt``, ``trace_gen`` new tokens) through the same
     runtime under torch.profiler, tracing the card only (CUPTI).  Busy
@@ -1577,8 +1936,10 @@ def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
     decode step of the model: every prefill call here and in ``untraced``
     (prompts of ``prompt_len``) feeds whole prompts of one length
     position by position over the scheduler's bucket length (serve: 11
-    steps here, 94 in ``untraced``).  The five largest kernels of the
-    "other" class are listed by name."""
+    steps here, 94 in ``untraced``); ``untraced_steps`` overrides the
+    count of ``untraced``'s (chunked or mixed-length prefills).  The five
+    largest kernels of the "other" class are listed by name; ``head``: the
+    tied LM head's split and group GEMMs apart (:func:`trace_summary`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     rt.reset_metrics()
@@ -1592,19 +1953,25 @@ def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
     bucket = rt.sched.bucket_fn
     steps = s["prefill_calls"] * bucket(trace_prompt) + s["decode_steps"]
     step_ms = s["elapsed_s"] / steps * 1e3
-    base_ms = untraced["elapsed_s"] / (
-        untraced["prefill_calls"] * bucket(prompt_len)
-        + untraced["decode_steps"]) * 1e3
-    trace_summary(prof, tag, steps, step_ms, base_ms)
+    if untraced_steps is None:
+        untraced_steps = untraced["prefill_calls"] * bucket(prompt_len) + \
+            untraced["decode_steps"]
+    base_ms = untraced["elapsed_s"] / untraced_steps * 1e3
+    trace_summary(prof, tag, steps, step_ms, base_ms, head=head)
 
 
-def trace_summary(prof, tag, steps, step_ms, base_ms, what="model steps"):
+def trace_summary(prof, tag, steps, step_ms, base_ms, what="model steps",
+                  head=False):
     """Log a CUDA profiler trace of ``steps`` steps: the device's busy
     time and idle share (the union of the kernel, copy and set intervals,
     over the span from the first one's start to the last one's end), the
     operations and device ms a step by kernel class (:func:`trace_class`)
     and the five largest kernels of the "other" class by name, beside the
-    traced (``step_ms``) and untraced (``base_ms``) wall ms a step."""
+    traced (``step_ms``) and untraced (``base_ms``) wall ms a step.
+    ``head``: the tied LM head's share of the split and group GEMM classes
+    apart, told by its launch grid (its B split and its group GEMMs have
+    the largest grids of their classes: a block per 32 vocab columns, a
+    tile per vocab columns)."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:     # tens of MB: not kept
         out = Path(tmp) / "trace.json"
@@ -1650,6 +2017,21 @@ def trace_summary(prof, tag, steps, step_ms, base_ms, what="model steps"):
     log(f"[{tag}] trace, the largest other PyTorch kernels a {what[:-1]}: "
         + "; ".join(f"{name} x{n / steps:.1f} {us / steps / 1e3:.3f} ms"
                     for name, (n, us) in top))
+    if head:
+        parts = []
+        for cls in ("split", "group GEMM"):
+            grid = {id(e): math.prod(e.get("args", {}).get("grid", [0]))
+                    for e in ops if trace_class(e) == cls}
+            top = max(grid.values(), default=0)
+            if not top:
+                parts.append(f"{cls} not measured (no launch grid traced)")
+                continue
+            evs = [e for e in ops if grid.get(id(e)) == top]
+            ms = sum(float(e["dur"]) for e in evs) / steps / 1e3
+            parts.append(f"{cls} {len(evs) / steps:.1f} operations, "
+                         f"{ms:.3f} ms ({top} blocks a launch)")
+        log(f"[{tag}] trace, the tied LM head a {what[:-1]}: "
+            + "; ".join(parts))
 
 
 TRACE_CLASSES = ("split", "group GEMM", "epilogue", "other (PyTorch)",
@@ -2107,6 +2489,9 @@ def main() -> int:
     paths["serve_moe"], _ = phase_serve_moe(dev)
     paths["serve_mla"], _ = phase_serve_moe(dev, "deepseek_v2_236b",
                                             "serve_mla")
+    for arch in STATE_SERVE:
+        paths[STATE_SERVE[arch]["tag"]], _ = phase_serve_state(dev, arch,
+                                                                card)
 
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -4,8 +4,9 @@ per arch, each exposing ``full()`` (the exact published config) and
 
 The port carries the dense family's configs (internlm2-1.8b, the
 serving model; starcoder2-3b, phi4-mini-3.8b, deepseek-7b), the MoE
-family's deepseek-moe-16b and the MLA family's deepseek-v2-236b; the
-other archs come with their families.
+family's deepseek-moe-16b, the MLA family's deepseek-v2-236b, the SSM
+family's mamba2-780m and the hybrid family's recurrentgemma-9b; the vlm
+and encdec archs come with their families.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 ARCH_IDS = ("internlm2_1_8b", "starcoder2_3b", "phi4_mini_3_8b",
-            "deepseek_7b", "deepseek_moe_16b", "deepseek_v2_236b")
+            "deepseek_7b", "deepseek_moe_16b", "deepseek_v2_236b",
+            "mamba2_780m", "recurrentgemma_9b")
 
 # accept hyphenated public names too
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

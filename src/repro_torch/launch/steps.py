@@ -28,6 +28,15 @@ __all__ = ["TrainConfig", "TrainState", "init_state", "loss_and_grads",
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
 
+# what training each served family still lacks in the port
+_UNTRAINED = {
+    "moe": "its routing gradient and load-balance loss",
+    "mla_moe": "its routing gradient and load-balance loss",
+    "ssm": "the gradient of its chunked SSD scan, held to the reference's",
+    "hybrid": "the gradients of its RG-LRU scan and windowed attention, "
+              "held to the reference's",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -75,9 +84,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,
                                   "compression across the pod axis) comes "
                                   "with the distributed slice of the port")
     if cfg.family != "dense":
-        raise NotImplementedError(f"training the {cfg.family!r} family (its "
-                                  f"routing gradient) comes with a later "
-                                  f"slice of the port")
+        raise NotImplementedError(f"training the {cfg.family!r} family "
+                                  f"({_UNTRAINED.get(cfg.family, 'its model')}"
+                                  f") comes with a later slice of the port")
     acc_dt = _DTYPES[tcfg.accum_dtype]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):

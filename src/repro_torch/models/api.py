@@ -1,5 +1,5 @@
 """Uniform model API — PyTorch port of ``repro.models.api`` for the
-families ported so far (dense, moe, mla_moe).
+families ported so far (dense, moe, mla_moe, ssm, hybrid).
 
     init(cfg, generator=..., device=...)   -> params
     forward(params, cfg, batch)            -> logits (B, L, vocab) f32
@@ -7,11 +7,11 @@ families ported so far (dense, moe, mla_moe).
     cache_axes(cfg)                        -> logical axes of the cache
     decode_step(params, cfg, cache, tokens, cur_len) -> (logits, cache)
 
-``batch`` is a dict with ``tokens`` (B, L).  The other families (vlm,
-encdec, ssm, hybrid) come with later slices of the port, and
-``get_model`` raises for them until then.  The shared next-token loss
-lives here too; of the ported families only the dense one trains
-(``launch/steps.py``): the MoE families' routing gradient comes later.
+``batch`` is a dict with ``tokens`` (B, L).  The vlm and encdec families
+(per-slot context) come with later slices of the port, and ``get_model``
+raises for them until then.  The shared next-token loss lives here too;
+of the ported families only the dense one trains (``launch/steps.py``
+says what each other family lacks).
 """
 from __future__ import annotations
 
@@ -20,10 +20,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import moe, transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 from repro_torch.models.common import ModelConfig
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe, "mla_moe": moe}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "mla_moe": moe,
+                   "ssm": ssm, "hybrid": hybrid}
 
 
 class Model(types.SimpleNamespace):

@@ -8,7 +8,7 @@ plain function.  Every random draw takes an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -20,8 +20,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config, cut to the fields the dense, MoE and MLA
-    families read; the other families' fields come with them."""
+    """The reference's config, cut to the fields the dense, MoE, MLA,
+    SSM and hybrid families read; the vlm and encdec families' fields come
+    with them."""
 
     name: str = "model"
     family: str = "dense"
@@ -33,7 +34,7 @@ class ModelConfig:
     vocab: int = 1024
     head_dim: Optional[int] = None
     rope_theta: float = 1e4
-    mlp_type: str = "swiglu"          # swiglu (gelu: with its configs)
+    mlp_type: str = "swiglu"          # swiglu | gelu
     window: Optional[int] = None      # sliding-window (local) attention
     # MoE
     n_experts: int = 0
@@ -47,12 +48,25 @@ class ModelConfig:
     q_lora: int = 0                   # carried, unused (a full Q projection)
     rope_head_dim: int = 64
     v_head_dim: int = 0
+    # SSM (mamba2)
+    d_state: int = 0
+    d_conv: int = 4
+    expand: int = 2
+    ssm_headdim: int = 64
+    chunk: int = 256
+    # hybrid (recurrentgemma)
+    pattern: Tuple[str, ...] = ()     # e.g. ("R", "R", "A")
+    n_pattern_blocks: int = 0
+    n_tail_layers: int = 0
+    lru_width: int = 0
     dtype: str = "bfloat16"           # activation dtype
     norm_eps: float = 1e-5
     remat_block: int = 1              # layers per remat unit (training)
     engine_spec: str = "bf16"         # MatmulEngine spec
     q_chunk: int = 1024               # attention chunking (flash-style)
     kv_chunk: int = 1024
+    # skips long-context cells (pure full-attention archs) in the reference
+    subquadratic: bool = False
 
     @property
     def hd(self) -> int:
@@ -88,9 +102,11 @@ def dense_param(generator: torch.Generator, shape, scale=None,
     return out.mul_(scale)
 
 
-def init_stacked(generator: torch.Generator, n: int,
+def init_stacked(generator: torch.Generator, n: Union[int, Tuple[int, ...]],
                  layer_init: Callable[..., Any], device=None) -> Any:
-    """The parameters of ``n`` stacked layers, every leaf ``(n, ...)``.
+    """The parameters of ``n`` stacked layers, every leaf ``(n, ...)``; a
+    tuple ``n`` stacks on several leading axes (the reference's nested
+    vmaps: the hybrid's pattern blocks of R layers).
 
     The reference vmaps a one-layer init over n seeds; here the one-layer
     init runs once and draws each leaf's whole stack in one call:
@@ -98,13 +114,15 @@ def init_stacked(generator: torch.Generator, n: int,
     ``normal(shape, scale=None)`` is :func:`dense_param` of ``(n, *shape)``
     with the per-layer scale rule (``shape[0] ** -0.5`` by default) and
     ``zeros(shape)`` a zero stack."""
+    lead = (n,) if isinstance(n, int) else tuple(n)
+
     def normal(shape, scale=None):
         scale = shape[0] ** -0.5 if scale is None else scale
-        return dense_param(generator, (n,) + tuple(shape), scale=scale,
+        return dense_param(generator, lead + tuple(shape), scale=scale,
                            device=device)
 
     def zeros(shape):
-        return torch.zeros((n,) + tuple(shape), dtype=torch.float32,
+        return torch.zeros(lead + tuple(shape), dtype=torch.float32,
                            device=device)
 
     return layer_init(normal, zeros)

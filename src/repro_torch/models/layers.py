@@ -8,6 +8,7 @@ layout hints have no counterpart: the port has no mesh yet.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -330,9 +331,33 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 # projections / MLPs / embeddings
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def ieee_f32_matmul():
+    """Full f32 products on the card whatever the caller set
+    (``torch.backends.cuda.matmul.allow_tf32``): the plain f32 products
+    the reference keeps outside the engine (the MoE router, the RG-LRU
+    gate)."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
 def swiglu(x, w_gate, w_up, w_down, engine):
     h = F.silu(engine(x, w_gate)) * engine(x, w_up)
     return engine(h, w_down)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form (PyTorch's default, the erf
+    form, differs by up to ~1e-3)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(x, w_up, w_down, engine):
+    return engine(gelu(engine(x, w_up)), w_down)
 
 
 def embed_tokens(tokens: torch.Tensor, emb: torch.Tensor,

@@ -25,7 +25,6 @@ Left for later slices, and raising until then:
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict
 
 import torch
@@ -76,23 +75,11 @@ def init_moe_ffn(cfg: ModelConfig, normal) -> Dict[str, Any]:
     return params
 
 
-@contextlib.contextmanager
-def _ieee_f32_matmul():
-    """Full f32 products on the card whatever the caller set
-    (``torch.backends.cuda.matmul.allow_tf32``)."""
-    flag = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
-
-
 def _router_gates(xt: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
     """Router logits in f32 regardless of the engine dtype (a native f32
     product, never TF32): expert selection is discrete, and a quantized
     near-tie flips top-k choices that no tolerance absorbs."""
-    with _ieee_f32_matmul():
+    with L.ieee_f32_matmul():
         return torch.matmul(xt.to(torch.float32),
                             router_w.to(torch.float32))
 

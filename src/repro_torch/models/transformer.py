@@ -38,13 +38,23 @@ def init_attn(cfg: ModelConfig, normal) -> Dict[str, Any]:
 
 def init_mlp(cfg: ModelConfig, normal,
              d_ff: Optional[int] = None) -> Dict[str, Any]:
-    """SwiGLU weights of width ``d_ff`` (default ``cfg.d_ff``)."""
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"the {cfg.mlp_type!r} MLP comes with the "
-                                  f"configs that use it")
+    """SwiGLU (or, with ``mlp_type="gelu"``, GELU) weights of width
+    ``d_ff`` (default ``cfg.d_ff``)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_type == "gelu":
+        return {"w_up": normal((d, f)), "w_down": normal((f, d), f ** -0.5)}
+    if cfg.mlp_type != "swiglu":
+        raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
     return {"w_gate": normal((d, f)), "w_up": normal((d, f)),
             "w_down": normal((f, d), f ** -0.5)}
+
+
+def init_dense_layer(cfg: ModelConfig, normal, zeros) -> Dict[str, Any]:
+    """One attention + MLP layer (``normal``/``zeros`` as
+    :func:`repro_torch.models.common.init_stacked` hands them)."""
+    d = cfg.d_model
+    return {"attn": init_attn(cfg, normal), "mlp": init_mlp(cfg, normal),
+            "ln1": zeros((d,)), "ln2": zeros((d,))}
 
 
 def init(cfg: ModelConfig, *, generator: torch.Generator,
@@ -55,9 +65,9 @@ def init(cfg: ModelConfig, *, generator: torch.Generator,
     return {
         "embed": dense_param(g, (cfg.padded_vocab, d), scale=1.0,
                              device=device),
-        "layers": init_stacked(g, cfg.n_layers, lambda normal, zeros: {
-            "attn": init_attn(cfg, normal), "mlp": init_mlp(cfg, normal),
-            "ln1": zeros((d,)), "ln2": zeros((d,))}, device=device),
+        "layers": init_stacked(g, cfg.n_layers,
+                               lambda normal, zeros: init_dense_layer(
+                                   cfg, normal, zeros), device=device),
         "ln_f": torch.zeros((d,), dtype=torch.float32, device=device),
         "lm_head": dense_param(g, (d, cfg.padded_vocab), device=device),
     }
@@ -111,8 +121,12 @@ def attn_block(p, cfg: ModelConfig, x, cos, sin, *, cache=None,
 
 def mlp_block(p, cfg: ModelConfig, x):
     xn = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    out = L.swiglu(xn, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                   p["mlp"]["w_down"], cfg.engine)
+    if cfg.mlp_type == "gelu":
+        out = L.gelu_mlp(xn, p["mlp"]["w_up"], p["mlp"]["w_down"],
+                         cfg.engine)
+    else:
+        out = L.swiglu(xn, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                       p["mlp"]["w_down"], cfg.engine)
     return x + out
 
 

@@ -15,7 +15,13 @@ presplit weight wrapping around two eager device steps:
   C each scheduler round feeds at most C prompt tokens per pending slot
   and then decodes the resident slots.  Splitting the loop is bitwise
   exact: each chunk resumes from exactly the cache the previous one
-  wrote.  Slots not in the call are frozen by a per-slot select.
+  wrote.  Slots not in the call are frozen by a per-slot select.  State
+  families (ssm, hybrid) bucket by exact length: their recurrent states
+  integrate every fed position, so a right-aligned slice padded at its
+  front would be integrated too.  Under chunking their decode step also
+  freezes the mid-prefill slots by a per-slot select (``_decode_select``):
+  a neighbour's decode step must not integrate into a half-prefilled
+  state (attention rows need no select: ``cur == 0`` writes nothing).
 
 The weight split-cache: with an ozimmu engine, ``wrap_params`` freezes
 every projection weight's int8 digit slices once, and every step consumes
@@ -28,7 +34,9 @@ every contraction to the static plan, as the reference's jitted steps do
 probe.
 
 The block-paged KV pool (``page_block``) and the prefix cache come with
-the paged-KV slice of the port and raise until then.
+the paged-KV slice of the port and raise until then; every ported family,
+the state families included, serves on the monolithic slot cache, as the
+reference does with ``page_block=None``.
 """
 from __future__ import annotations
 
@@ -48,6 +56,8 @@ from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.scheduler import Request, Scheduler
 
 __all__ = ["ServingRuntime"]
+
+_STATE_FAMILIES = ("ssm", "hybrid")
 
 
 def _to_device(tree, device):
@@ -109,7 +119,9 @@ class ServingRuntime:
                 self.params, engine)
         else:
             self.params = params
-        self.sched = Scheduler(slots, bucket="pow2")
+        self.sched = Scheduler(
+            slots, bucket="exact" if cfg.family in _STATE_FAMILIES
+            else "pow2")
         self.ops = SlotCacheOps(cfg, self.model)
         self.metrics = ServingMetrics(now=now)
         self._now = now
@@ -117,6 +129,10 @@ class ServingRuntime:
                                                device=self.device)
         self.cache = self.model.init_cache(cfg, slots, max_len,
                                            device=self.device)
+        # under chunking, decode freezes mid-prefill slots' recurrent
+        # states (the reference's monolithic-cache rule)
+        self._decode_select = (prefill_chunk is not None
+                               and cfg.family in _STATE_FAMILIES)
         # host-side per-slot decode state
         self._cur = np.ones((slots,), np.int32)
         self._last_tok = np.zeros((slots,), np.int32)
@@ -136,11 +152,20 @@ class ServingRuntime:
                             dim=-1).to(torch.int32).cpu().numpy()
 
     @torch.no_grad()
-    def _decode(self, toks: np.ndarray, cur: np.ndarray) -> np.ndarray:
+    def _decode(self, toks: np.ndarray, cur: np.ndarray,
+                active: np.ndarray) -> np.ndarray:
+        """One decode step.  Idle slots carry ``cur == 0`` (their attention
+        rows are not written; their other leaves are reset at admission);
+        with ``_decode_select`` only the ``active`` slots take the step's
+        cache."""
         with plan.static_plan():
-            logits, self.cache = self.model.decode_step(
+            logits, cache = self.model.decode_step(
                 self.params, self.cfg, self.cache, self._tensor(toks),
                 self._tensor(cur))
+        if self._decode_select:
+            cache = self.ops.select_slots(cache, self.cache,
+                                          self._tensor(active))
+        self.cache = cache
         return self._argmax(logits)
 
     @torch.no_grad()
@@ -244,7 +269,7 @@ class ServingRuntime:
         cur = np.where(active, self._cur, 0).astype(np.int32)
         toks = self._last_tok[:, None].astype(np.int32)
         t0 = self._now()
-        nxt = self._decode(toks, cur)
+        nxt = self._decode(toks, cur, active)
         now = self._now()
         self.metrics.decode_steps += 1
         self.metrics.observe_timing("decode_step", now - t0)

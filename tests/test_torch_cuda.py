@@ -1082,3 +1082,95 @@ def test_smoke_train_step_on_card_equals_cpu(dev):
         on_card, {"tokens": toks.to(dev)})
     assert math.isfinite(float(metrics["loss"]))
     assert math.isfinite(float(metrics["grad_norm"]))
+
+
+@pytest.mark.parametrize("mode", ["rn_const", "sm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_whole_kernel_reads_a_transposed_head(dev, mode, dtype):
+    """The tied LM head's B side, ``embed.T``: a transposed view (unit row
+    stride) of a (vocab, d) table, split along its columns through its
+    strides (hostile rows, ragged vocab) bitwise to the split of the
+    contiguous copy, and with no PyTorch operation but the outputs' (no
+    copy of the table first)."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(23)
+    table = _hostile_rows(g, dev, dtype, (), 1037, 96)   # (vocab, d)
+    view = table.T
+    assert not view.is_contiguous()
+    beta = 8 if mode == "sm" else 7
+    sp = ops.split_fused(view, 4, beta, mode=mode, axis=1)
+    ref = ops.split_fused_ref(view.contiguous(), 4, beta, mode=mode, axis=1)
+    assert torch.equal(sp.digits, ref.digits)
+    assert _same(sp.scale, ref.scale) and _same(sp.base, ref.base)
+    seen = _dispatched(lambda: ops.split_fused(view, 4, beta, mode=mode,
+                                               axis=1))
+    assert set(seen) <= _ALLOC_OR_VIEW, seen
+
+
+@pytest.mark.parametrize("m", [4, 1])
+def test_group_gemm_kernel_state_shapes(dev, m):
+    """mamba2-780m's ``w_in`` at decode (n = 1536, p = 6448, G = 4, the
+    skinny route) and a tied head's ragged vocab (p = 50432 / 4 + 3)."""
+    from repro_torch.kernels.group_gemm import group_gemm, group_gemm_ref
+    g = torch.Generator(device=dev).manual_seed(24)
+    for n, p in ((1536, 6448), (384, 12611)):
+        da = _stack_a(g, dev, 4, (), m, n)
+        db = _stack_b(g, dev, 4, (), n, p)
+        ia, ib = [0, 1, 2, 3], [3, 2, 1, 0]
+        assert torch.equal(group_gemm(da, db, ia, ib),
+                           group_gemm_ref(da, db, ia, ib))
+
+
+def test_smoke_hybrid_decode_past_window_on_card_equals_cpu(dev):
+    """recurrentgemma-9b ``smoke()`` (window 32, f32 activations,
+    ``ozimmu_h-4:df32:fused``, the weights frozen as the runtime freezes
+    them) teacher-forced over 40 positions, so the 32-row K/V ring wraps:
+    the card's logits within 1e-4 of max|logit| of the CPU's at every
+    position, and the runtime's greedy tokens on the card equal to its
+    tokens on the CPU (whole and chunked prefill)."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serving import ServingRuntime
+    from repro_torch.serving import presplit
+    cfg = configs.get_config("recurrentgemma_9b", smoke=True,
+                             dtype="float32",
+                             engine_spec="ozimmu_h-4:df32:fused")
+    model = api.get_model(cfg)
+    params = model.init(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    params["embed"] = params["embed"] * 0.05   # the layers steer the head
+    toks = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for d in (torch.device("cpu"), dev):
+        p = presplit.wrap_params({k: _to(v, d) for k, v in params.items()},
+                                 cfg.engine)[0]
+        cache = model.init_cache(cfg, 2, 40, device=d)
+        outs = []
+        with torch.no_grad():
+            for t in range(40):
+                lg, cache = model.decode_step(p, cfg, cache,
+                                              toks[:, t:t + 1].to(d),
+                                              torch.tensor(t + 1))
+                outs.append(lg[:, 0].cpu())
+        assert cache["k"].shape[2] == 32
+        logits[d.type] = torch.stack(outs, dim=1)
+    ref = logits["cpu"]
+    err = (logits["cuda"] - ref).abs().amax(dim=(0, 2)) / ref.abs().max()
+    assert float(err.max()) <= 1e-4, err
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=torch.Generator(
+        ).manual_seed(n)).numpy().astype("int32") for n in (4, 7, 5)]
+    for chunk in (None, 2):
+        got = {}
+        for d in ("cpu", "cuda"):
+            rt = ServingRuntime(cfg, params, slots=2, max_len=48,
+                                prefill_chunk=chunk, device=d)
+            got[d] = [o.tolist() for o in rt.generate(
+                [q.copy() for q in prompts], 12)]
+        assert got["cuda"] == got["cpu"], chunk
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    return tree.to(d)

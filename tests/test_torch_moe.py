@@ -206,7 +206,7 @@ def test_a2a_without_a_mesh_is_the_scatter_path(ref_params):
         P_moe.moe_ffn_dispatch(
             lp, pcfg.with_(engine_spec="ozimmu_h-4:df32@model"), x)
     with pytest.raises(NotImplementedError, match="later slice"):
-        P_api.get_model(pcfg.with_(family="ssm"))
+        P_api.get_model(pcfg.with_(family="vlm"))
     with pytest.raises(ValueError, match="not a MoE family"):
         P_moe.init(pcfg.with_(family="dense"),
                    generator=torch.Generator(), device="cpu")
