@@ -38,7 +38,15 @@ Phases (each raises on failure, so any failure exits non-zero):
    x 256000) and their group GEMM (4 x 4096 x 256000) and epilogue,
    mamba2's ``w_in`` (1536 x 6448: the freeze, the decode A side, the
    group GEMM) and recurrentgemma's MQA contractions (16 query heads of
-   256 on a 48-row cache, the large route).  The group GEMM's, the split's
+   256 on a 48-row cache, the large route).  llama-3.2-vision-11b and
+   seamless-m4t-medium add theirs: the context-time split and group GEMM
+   of the vlm's cross ``wk``/``wv`` (1600 patch rows, and 6400 at 4
+   slots, x 4096 -> 1024, the large route, beside ``torch._int_mm``), the
+   B split of a cross-attention key chunk (a (1024 x 128) view of the
+   padded cross K/V, read through its strides) and its skinny group GEMMs,
+   the encoder's contractions at 32 frames (the large route), and the
+   df32 epilogue at both LM heads' widths (4 x 128256, 4 x 256256).  The
+   group GEMM's, the split's
    and the epilogues' times are device times (CUDA-graph replay; the
    group GEMM's
    B operands rotated past the L2 cache), with the eager per-call time
@@ -109,12 +117,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    (12 (R, R, A) blocks + 2 tail R layers, d_model 4096, MQA 16 heads of
    256 on one KV head, window 2048, GELU d_ff 12288, tied head over vocab
    256000), whole 32-token prompts; its depth is cut, and the cut logged,
-   only if ``state_depth``'s predicted peak does not fit.  Phases 9-10
+   only if ``serve_depth``'s predicted peak does not fit.  Phases 9-10
    check request 0 against the monolithic loop, the f32 prefill logits
    against the native f32 engine (1e-3, every token), that the tied
    head's ``embed.T`` reaches the split uncopied, and log tok/s, TTFT, ms
    a model step, the peak against its prediction and a trace by kernel
    class with the tied head apart.
+11. Context serves (``serve_encdec``, then ``serve_vlm``): the published
+   seamless-m4t-medium (12 encoder + 12 decoder layers, d_model 1024, 16
+   heads, GELU d_ff 4096, vocab 256206) and llama-3.2-vision-11b (8 groups
+   of 4 self + 1 gated cross layer, d_model 4096, 32/8 heads, d_ff 14336,
+   vocab 128256, 1600 patch rows; cut in whole groups, and the cut logged,
+   only if ``serve_depth``'s predicted peak does not fit), served through
+   ``ServingRuntime`` with a per-slot context drawn from the seed (the
+   encoder's output over 32 frames; the patch embeddings) and, for the
+   vlm, gates drawn from the seed (the reference's zero gates make every
+   cross layer the identity).  Checks as phases 9-10, plus: every group
+   GEMM at context time (the runtime's construction, and the encoder) on
+   the large route, every one in a step on the skinny route, and a second
+   context that must move the prefill logits past the 1e-3 tolerance.
 
 The launch counts of phases 3-8 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
@@ -133,7 +154,9 @@ the SSM serve run 98 splits, 388 group GEMMs (skinny) and 97 epilogues,
 the hybrid one 252 splits, 908 group GEMMs (the 96 of the MQA scores and
 p@v, 16 A rows, large) and 227 epilogues a model step
 (:func:`state_step_launches`; a model step is a position a prefill call
-feeds or a decode step);
+feeds or a decode step); the encdec serve run 193 splits, 580 group GEMMs
+and 145 epilogues, the vlm one 457, 1444 and 361 a model step
+(:func:`ctx_step_launches`), all skinny;
 the train run 1782 splits, 3570 group GEMMs, all large (4 a contraction,
 10 for the LM head's input cotangent, whose contraction over the padded
 vocab leaves one pair a chunk) and 891 epilogues a step
@@ -199,6 +222,13 @@ MLA = dict(E=160, cap=8, d=5120, fe=1536, K=6, H=128, dl=512, hd=128, dr=64,
 # of 256 on one KV head)
 SSM = dict(d=1536, p_in=6448, V=50432)
 HYB = dict(d=4096, V=256000, H=16, hd=256)
+# the context families' published widths (serve_vlm, serve_encdec):
+# llama-3.2-vision-11b's d_model, cross K/V width (8 KV heads of 128),
+# patch rows, key chunk and padded vocab; seamless-m4t-medium's d_model,
+# GELU d_ff, heads of 64, padded vocab and encoder frames (the prompt
+# length)
+VLM = dict(d=4096, kv=1024, Lv=1600, chunk=1024, V=128256, KV=8, hd=128)
+ENC = dict(d=1024, f=4096, H=16, hd=64, V=256256, F=32)
 # internlm2-1.8b training (train): the reference launcher's defaults of
 # global batch 8 and seq 256; step 0 and three more
 TRAIN = dict(batch=8, seq=256, steps=4)
@@ -367,7 +397,7 @@ def kernel_cases(dev):
 
     def split_case(label, shape, dtype, k, axis, reps, dnums=None,
                    live=None, bf16_values=False, plain_chunks=1,
-                   lhs_dnums=None, transposed=False):
+                   lhs_dnums=None, transposed=False, take=None):
         """``dnums``: ``x`` is the attention's KV cache (slots, L, KV, D),
         split as the B operand ``canonical_rhs`` makes of it under these
         dimension numbers: a permuted view, read through its strides.
@@ -379,11 +409,15 @@ def kernel_cases(dev):
         transposed view, which the split's wrapper copies to rows).
         ``live``: a (*batch, rows) mask; the other rows are zero, as in
         the MoE dispatch buffer.  ``bf16_values``: bf16 weights cast to
-        the compute dtype, as the MoE step splits its expert weights."""
+        the compute dtype, as the MoE step splits its expert weights.
+        ``take``: ``x`` is ``take`` of the drawn tensor (a view of it),
+        before ``dnums`` apply."""
         x = torch.randn(shape[::-1] if transposed else shape, generator=gen,
                         dtype=dtype, device=dev)
         if transposed:
             x = x.T
+        if take is not None:
+            x = take(x)
         if dnums is not None:
             x = canonical_rhs(x, dnums)[0]
         if lhs_dnums is not None:
@@ -943,6 +977,46 @@ def kernel_cases(dev):
               50, batch=(SLOTS,))
     decode_chunks_case(G, Lh, 50, batch=(SLOTS,), what="MQA decode scores")
     decode_chunks_case(G, hk, 50, batch=(SLOTS,), what="MQA decode p@v")
+    # the context families (serve_vlm, serve_encdec): the vlm's
+    # context-time cross wk/wv (the A side of 1600 patch rows; 1600 and,
+    # for the 4-slot cache, 6400 rows x 4096 -> 1024 on the large route);
+    # at decode the B side of a cross-attention key chunk (the second of
+    # 2 chunks of 1024 of the padded 1600-row cross K/V: rows 1600-2047
+    # zero; a permuted view read through its strides) and its skinny
+    # group GEMMs (4 query heads a KV head); the encoder's contractions
+    # at 32 frames (large); the df32 epilogue at both LM heads' widths
+    dv, kvw, Lv, kc = VLM["d"], VLM["kv"], VLM["Lv"], VLM["chunk"]
+    nk = -(-Lv // kc)
+    split_case(f"vlm context A ({Lv}x{dv}) f32 k=4", (Lv, dv), f32, 4, 0,
+               20)
+    for rows in (Lv, SLOTS * Lv):
+        gemm_case(f"vlm context cross wk/wv ({rows}x{dv}x{kvw}) G=4", rows,
+                  dv, kvw, 4, 10)
+    pad_chunk = (lambda x: torch.cat([x, x.new_zeros(
+        (SLOTS, nk * kc - Lv, VLM["KV"], VLM["hd"]))], dim=1).reshape(
+        SLOTS, nk, kc, VLM["KV"], VLM["hd"])[:, nk - 1])
+    for what, dn, np_ in (
+            ("scores", (((3,), (3,)), ((0, 1), (0, 2))),
+             f"{VLM['hd']}x{kc}"),
+            ("p@v", (((3,), (1,)), ((0, 1), (0, 2))), f"{kc}x{VLM['hd']}")):
+        split_case(f"vlm decode cross {what} B ({SLOTS}x{VLM['KV']} x "
+                   f"{np_} view of the padded cross K/V) f32 k=4 axis=1",
+                   (SLOTS, Lv, VLM["KV"], VLM["hd"]), f32, 4, 1, 50,
+                   dnums=dn, take=pad_chunk)
+    Gv, bv = 32 // VLM["KV"], SLOTS * VLM["KV"]
+    gemm_case(f"vlm decode cross scores ({bv} x {Gv}x{VLM['hd']}x{kc}) G=4",
+              Gv, VLM["hd"], kc, 4, 50, batch=(bv,))
+    gemm_case(f"vlm decode cross p@v ({bv} x {Gv}x{kc}x{VLM['hd']}) G=4",
+              Gv, kc, VLM["hd"], 4, 50, batch=(bv,))
+    de, F_ = ENC["d"], ENC["F"]
+    split_case(f"encoder A ({F_}x{de}) f32 k=4", (F_, de), f32, 4, 0, 50)
+    gemm_case(f"encoder wq ({F_}x{de}x{de}) G=4", F_, de, de, 4, 20)
+    gemm_case(f"encoder w_up ({F_}x{de}x{ENC['f']}) G=4", F_, de, ENC["f"],
+              4, 20)
+    gemm_case(f"encoder scores ({ENC['H']} x {F_}x{ENC['hd']}x{F_}) G=4",
+              F_, ENC["hd"], F_, 4, 50, batch=(ENC["H"],))
+    for V, what in ((VLM["V"], "vlm"), (ENC["V"], "encdec")):
+        decode_chunks_case(SLOTS, V, 50, what=f"decode {what} lm_head")
     return cases
 
 
@@ -1609,18 +1683,28 @@ def phase_serve_moe(dev, arch="deepseek_moe_16b", tag="serve_moe"):
     return counts, s
 
 
-def check_monolithic(tag, model, cfg, rt, req, slots, gen, dev):
+def check_monolithic(tag, model, cfg, rt, req, slots, gen, dev, ctx=None):
     """The runtime's contract: ``req`` (served in slot 0) equals a
     monolithic greedy loop on the runtime's parameters.  The loop keeps
     the runtime's slot width (the request in slot 0, the other slots idle
     at cur = 0): PyTorch's CUDA reductions (the norm's mean, the softmax
     sum) choose their summation order from the tensor's shape, and every
-    row is computed independently of the others only at equal shapes."""
+    row is computed independently of the others only at equal shapes.
+    ``ctx``: one slot's context; the loop's cache is built as the
+    runtime builds its own (the context repeated across the slots) and
+    slot 0 reset from the single-slot cache, as at admission."""
     import numpy as np
     import torch
     plen = len(req.prompt)
     with torch.no_grad():
-        cache = model.init_cache(cfg, slots, plen + gen, device=dev)
+        if ctx is None:
+            cache = model.init_cache(cfg, slots, plen + gen, device=dev)
+        else:
+            cache = model.init_cache(cfg, slots, plen + gen,
+                                     params=rt.params,
+                                     ctx=torch.cat([ctx] * slots))
+            rt.ops.reset_slot(cache, 0, model.init_cache(
+                cfg, 1, plen + gen, params=rt.params, ctx=ctx))
         toks = list(req.prompt)
         for t in range(plen + gen - 1):
             step_toks = torch.zeros((slots, 1), dtype=torch.int32,
@@ -1678,14 +1762,16 @@ def state_step_launches(cfg):
     return c, c + 2 * nb + 1, 2 * nb * large
 
 
-def state_memory(cfg):
+def serve_memory(cfg):
     """``(predicted peak bytes, f32 parameters, wrapped parameters)`` of a
-    state-family serve phase, from the parameter tree built on the meta
-    device: the f32 weights (4 B an element), the k = 4 int8 frozen
-    digits of the wrapped ones (4 B an element), the tied head's digits
-    split every step (4 B an element of ``embed``), three copies of the
-    slot cache (the runtime's, the step's new one, the prefill's
-    ``before``) and ``DEPTH_HEADROOM``."""
+    state or context serve phase, from the parameter tree built on the
+    meta device: the f32 weights (4 B an element), the k = 4 int8 frozen
+    digits of the wrapped ones (4 B an element), a tied head's digits
+    split every step (4 B an element of ``embed``; none with an
+    ``lm_head``), three copies of the slot cache (the runtime's, the
+    step's new one, the prefill's ``before``; the context families' cross
+    K/V at their zero-context length: ``vision_seq`` rows, or ``max_len``
+    for encdec, at least the prompt's) and ``DEPTH_HEADROOM``."""
     import torch
     from repro_torch.models import api
     from repro_torch.models.common import param_count
@@ -1702,34 +1788,45 @@ def state_memory(cfg):
     wrapped = sum(leaf(p).numel() for p in presplit.wrappable_paths(tree))
     cache = sum(t.numel() * t.element_size() for t in model.init_cache(
         cfg, STATE_SLOTS, STATE_MAX_LEN, device="meta").values())
-    peak = 4 * n + 4 * wrapped + 4 * tree["embed"].numel() + 3 * cache + \
-        DEPTH_HEADROOM
+    tied = 0 if "lm_head" in tree else 4 * tree["embed"].numel()
+    peak = 4 * n + 4 * wrapped + tied + 3 * cache + DEPTH_HEADROOM
     return int(peak), n, wrapped
 
 
-def state_depth(cfg, free_bytes: int):
+def serve_depth(cfg, free_bytes: int):
     """``(cfg, predicted peak, why)``: the published depth if its
-    predicted peak (:func:`state_memory`) fits ``free_bytes``, else (the
-    hybrid) the most pattern blocks that fit, the tail kept."""
-    peak = state_memory(cfg)[0]
+    predicted peak (:func:`serve_memory`) fits ``free_bytes``, else the
+    most whole depth units that fit: the hybrid's pattern blocks (the
+    tail kept), the vlm's groups of ``cross_every`` layers."""
+    peak = serve_memory(cfg)[0]
     if peak <= free_bytes:
         return cfg, peak, "depth not cut"
-    if cfg.family != "hybrid":
+    if cfg.family == "hybrid":
+        n, what = cfg.n_pattern_blocks, "pattern blocks"
+
+        def cut(k):
+            return cfg.with_(n_pattern_blocks=k, n_layers=k * len(
+                cfg.pattern) + cfg.n_tail_layers)
+    elif cfg.family == "vlm":
+        n = cfg.n_layers // cfg.cross_every
+        what = f"groups of {cfg.cross_every} layers"
+
+        def cut(k):
+            return cfg.with_(n_layers=k * cfg.cross_every)
+    else:
         raise AssertionError(f"{cfg.name}: predicted peak {peak / 1e9:.1f} "
                              f"GB exceeds the {free_bytes / 1e9:.1f} GB free")
-    nb = cfg.n_pattern_blocks
-    per_block = peak - state_memory(cfg.with_(n_pattern_blocks=nb - 1))[0]
-    keep = int((free_bytes - (peak - nb * per_block)) // per_block)
+    per_unit = peak - serve_memory(cut(n - 1))[0]
+    keep = int((free_bytes - (peak - n * per_unit)) // per_unit)
     if keep < 2:
-        raise AssertionError(f"{cfg.name}: fewer than two pattern blocks "
-                             f"fit {free_bytes / 1e9:.1f} GB")
-    why = (f"depth cut {nb} -> {keep} pattern blocks: the published depth's "
+        raise AssertionError(f"{cfg.name}: fewer than two {what} fit "
+                             f"{free_bytes / 1e9:.1f} GB")
+    why = (f"depth cut {n} -> {keep} {what}: the published depth's "
            f"predicted peak {peak / 1e9:.1f} GB exceeds the "
-           f"{free_bytes / 1e9:.1f} GB free ({per_block / 1e9:.2f} GB a "
-           f"block)")
-    cfg = cfg.with_(n_pattern_blocks=keep,
-                    n_layers=keep * len(cfg.pattern) + cfg.n_tail_layers)
-    return cfg, state_memory(cfg)[0], why
+           f"{free_bytes / 1e9:.1f} GB free ({per_unit / 1e9:.2f} GB a "
+           f"unit)")
+    cfg = cut(keep)
+    return cfg, serve_memory(cfg)[0], why
 
 
 def tied_head_copies(tag, cfg, params, dev):
@@ -1771,7 +1868,7 @@ def phase_serve_state(dev, arch, card):
     """Serve a state family's ``full()`` (random weights from the seed)
     under ``MODEL_SPEC`` through ``ServingRuntime`` (``STATE_SERVE[arch]``:
     mamba2-780m at all 48 layers with chunked prefill, recurrentgemma-9b
-    at its 12 pattern blocks + 2 tail layers unless :func:`state_depth`'s
+    at its 12 pattern blocks + 2 tail layers unless :func:`serve_depth`'s
     predicted peak does not fit, the cut logged).  A model step is a
     position a prefill call feeds (the sum of its calls' bucket lengths)
     or a decode step; every one must count exactly
@@ -1796,9 +1893,9 @@ def phase_serve_state(dev, arch, card):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     free, total = torch.cuda.mem_get_info()
-    cfg, predicted, why = state_depth(
+    cfg, predicted, why = serve_depth(
         configs.get_config(arch, engine_spec=MODEL_SPEC), free)
-    _, n_params, n_wrapped = state_memory(cfg)
+    _, n_params, n_wrapped = serve_memory(cfg)
     if cfg.family == "ssm":
         shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
                  f"{cfg.expand * cfg.d_model} in "
@@ -1920,6 +2017,231 @@ def phase_serve_state(dev, arch, card):
     serve_trace(rt, prompts, tag, s, trace_prompt=8, trace_gen=2,
                 untraced_steps=steps, head=True)
     del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, s
+
+
+# the context families served (serve_encdec, serve_vlm): SLOTS slots,
+# REQUESTS requests of PROMPT tokens and GEN new ones, max_len PROMPT +
+# GEN, whole prompts (pow2 buckets), after every earlier phase freed its
+# model (the vlm last: its predicted peak is the script's largest)
+CTX_SERVE = {"seamless_m4t_medium": "serve_encdec",
+             "llama32_vision_11b": "serve_vlm"}
+# the context's scale: N(0, CTX_SCALE^2) patch embeddings (vlm) or frames
+# (encdec); the vlm's gates drawn as +-U(0.5, 1.5) (tanh 0.46-0.91)
+CTX_SCALE = 1.0
+
+
+def ctx_step_launches(cfg, cross_len: int):
+    """``(contractions, split launches, large-route contractions)`` of one
+    model step of a context family under ``MODEL_SPEC`` with the weight
+    splits frozen, the cross K/V of ``cross_len`` rows taken in key chunks
+    of ``kv_chunk``: each chunk adds a scores and a p@v contraction (both
+    sides split).  vlm: 9 contractions and 11 splits a self layer (7
+    projection A sides, both sides of the 2 attention products); a cross
+    layer 5 projections (``wq``, ``wo``, the MLP's 3) and the chunks'.
+    encdec: a decoder layer's 4 self projections and 2 attention
+    contractions, the cross ``wq``/``wo`` and the chunks', the GELU MLP's
+    2.  Plus the LM head.  Decode attention has at most 4 query rows a KV
+    head: the skinny route throughout."""
+    nk = -(-cross_len // cfg.kv_chunk)
+    if cfg.family == "vlm":
+        ng, n_self = cfg.n_layers // cfg.cross_every, cfg.cross_every - 1
+        c = ng * (n_self * 9 + 5 + 2 * nk) + 1
+        return c, ng * (n_self * 11 + 5 + 4 * nk) + 1, 0
+    c = cfg.n_layers * (10 + 2 * nk) + 1
+    return c, cfg.n_layers * (12 + 4 * nk) + 1, 0
+
+
+def ctx_context_gemms(cfg) -> int:
+    """Group GEMMs of the context (all on the large route): the cross
+    ``wk``/``wv`` of every cross layer, for the runtime's single-slot
+    template and again for its slot cache; for encdec first the encoder
+    over the frames (8 contractions a layer).  4 a contraction."""
+    if cfg.family == "vlm":
+        return 4 * 2 * 2 * (cfg.n_layers // cfg.cross_every)
+    return 4 * (8 * cfg.enc_layers + 2 * 2 * cfg.n_layers)
+
+
+def phase_serve_ctx(dev, arch, card):
+    """Serve a context family's ``full()`` (random weights from the seed)
+    under ``MODEL_SPEC`` through ``ServingRuntime`` with a per-slot
+    context drawn from the seed (``CTX_SERVE``: seamless-m4t-medium at its
+    12 + 12 layers, the context the encoder's output over PROMPT frames;
+    llama-3.2-vision-11b at its 8 groups unless :func:`serve_depth`'s
+    predicted peak does not fit, the context its 1600 patch rows, the
+    gates drawn nonzero).  Checks: every group GEMM of the context on the
+    large route (:func:`ctx_context_gemms`), every model step exactly
+    :func:`ctx_step_launches` on the skinny route, request 0 equal to the
+    monolithic loop, the weight-split hit rate 1.0, the 1x16 prefill
+    logits in f32 activations within 1e-3 of max|logit| of the native f32
+    engine at every token, and a second context moving them by more than
+    that.  Logs tok/s, TTFT, ms a model step, the peak against its
+    prediction beside ``card``, and traces a few steps."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import api, encdec
+    from repro_torch.serving import ServingRuntime
+    tag = CTX_SERVE[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    cfg, predicted, why = serve_depth(
+        configs.get_config(arch, engine_spec=MODEL_SPEC), free)
+    _, n_params, n_wrapped = serve_memory(cfg)
+    vlm = cfg.family == "vlm"
+    if vlm:
+        shape = (f"{cfg.n_layers} layers ({cfg.n_layers // cfg.cross_every}"
+                 f" groups of {cfg.cross_every - 1} self + 1 gated cross), "
+                 f"d_model {cfg.d_model}, heads {cfg.n_heads}/"
+                 f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, {cfg.vision_seq} "
+                 f"patch rows in key chunks of {cfg.kv_chunk}")
+    else:
+        shape = (f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder "
+                 f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+                 f"{cfg.n_kv_heads} of {cfg.hd}, GELU d_ff {cfg.d_ff}, "
+                 f"{PROMPT} encoder frames")
+    log(f"[{tag}] {cfg.name}: {shape}, vocab {cfg.vocab}; {why}; "
+        f"{n_params / 1e9:.3f} B f32 parameters, {n_wrapped / 1e9:.3f} B of "
+        f"them frozen; predicted peak {predicted / 1e9:.1f} GB of "
+        f"{free / 1e9:.1f} GB free (card {total / 1e9:.1f} GB); engine "
+        f"{MODEL_SPEC}")
+    model = api.get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init(cfg, generator=gen, device=dev)
+    gates = ""
+    if vlm:
+        for name in ("gate_attn", "gate_mlp"):
+            g = params["groups"]["cross"][name]
+            sign = torch.where(torch.rand(g.shape, generator=gen, device=dev)
+                               < 0.5, -1.0, 1.0)
+            g.copy_((torch.rand(g.shape, generator=gen, device=dev) + 0.5)
+                    * sign)
+        gates = (f"; gates drawn (the reference's are zero), tanh "
+                 + ", ".join(f"{n} " + str([round(float(v), 2) for v in
+                                            torch.tanh(params['groups'][
+                                                'cross'][n]).tolist()])
+                             for n in ("gate_attn", "gate_mlp")))
+    rows = cfg.vision_seq if vlm else PROMPT
+
+    def draw():
+        return torch.randn((1, rows, cfg.d_model), generator=gen,
+                           device=dev) * CTX_SCALE
+    raw, raw2 = draw(), draw()        # patch embeddings, or frames
+
+    def context(x):
+        if vlm:
+            return x
+        with torch.no_grad():
+            return encdec.encode(params, cfg, x)
+    reset_launches()
+    ctx = context(raw)
+    rt = ServingRuntime(cfg, params, slots=SLOTS, max_len=PROMPT + GEN,
+                        ctx=ctx, device=dev)
+    torch.cuda.synchronize()
+    ctx_counts = dict(LAUNCHES)
+    st = rt.split_cache.stats
+    want_ctx = ctx_context_gemms(cfg)
+    log(f"[{tag}] init{gates} + context (N(0, {CTX_SCALE}^2) "
+        f"{'patch embeddings' if vlm else 'frames through the encoder'}, "
+        f"1 x {rows} x {cfg.d_model}) + weight freeze + cross K/V "
+        f"{time.perf_counter() - t0:.1f} s: {st.misses} weight splits, "
+        f"{st.cached_bytes / 1e9:.2f} GB resident; context group GEMMs "
+        f"large {ctx_counts['group_gemm_large']}, skinny "
+        f"{ctx_counts['group_gemm_skinny']} (expected {want_ctx} large); "
+        f"device memory {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB of it this "
+        f"phase's)")
+    if (ctx_counts["group_gemm_large"], ctx_counts["group_gemm_skinny"]) \
+            != (want_ctx, 0):
+        raise AssertionError(f"{tag}: context group GEMMs {ctx_counts}, "
+                             f"expected {want_ctx}, all large")
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=PROMPT, dtype=np.int32)
+               for _ in range(REQUESTS)]
+    reset_launches()
+    reqs = [rt.submit(p, GEN) for p in prompts]
+    s = rt.run()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    sc = s["split_cache"]
+    bucket = rt.sched.bucket_fn(PROMPT)
+    steps = s["prefill_calls"] * bucket + s["decode_steps"]
+    log(f"[{tag}] {card}: {s['tokens_generated']} tokens from "
+        f"{s['requests']['finished']} requests in {s['elapsed_s']:.2f} s: "
+        f"{s['tokens_per_s']:.2f} tok/s; TTFT mean {s['ttft_s']['mean']:.3f}"
+        f" s p95 {s['ttft_s']['p95']:.3f} s; {steps} model steps "
+        f"({s['elapsed_s'] / steps * 1e3:.1f} ms a step): prefill calls "
+        f"{s['prefill_calls']} of bucket {bucket}, decode steps "
+        f"{s['decode_steps']}; weight-split hit rate "
+        f"{sc['weight_split_hit_rate']:.3f}")
+    log(f"[{tag}] kernel launches {counts}")
+    for name in ("split_fused", "group_gemm", "scale_accum"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{tag} path launched no {name} kernel")
+    c, splits, large = ctx_step_launches(cfg, rows)
+    want = {"split_fused": steps * splits, "group_gemm": steps * c * 4,
+            "group_gemm_large": steps * large * 4,
+            "scale_accum": steps * c}
+    want["group_gemm_skinny"] = want["group_gemm"] - want["group_gemm_large"]
+    got = {name: counts[name] for name in want}
+    log(f"[{tag}] launches {got}, expected {want} ({steps} steps x {splits} "
+        f"splits, {c * 4} group GEMMs, all skinny, {c} epilogues)")
+    if got != want:
+        raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
+    if s["requests"]["finished"] != REQUESTS or \
+            s["tokens_generated"] != REQUESTS * GEN:
+        raise AssertionError(f"{tag} finished {s['requests']} with "
+                             f"{s['tokens_generated']} tokens")
+    if sc["weight_split_hit_rate"] != 1.0:
+        raise AssertionError(f"{tag}: weight-split hit rate "
+                             f"{sc['weight_split_hit_rate']}")
+    check_monolithic(tag, model, cfg, rt, reqs[0], SLOTS, GEN, dev, ctx=ctx)
+    if len({t for r in reqs for t in r.generated}) <= REQUESTS:
+        raise AssertionError(f"{tag}: the continuations barely vary; the "
+                             f"monolithic check would not see the layers")
+
+    key = "image_embeds" if vlm else "frames"
+    f32 = cfg.with_(dtype="float32")
+    with torch.no_grad():
+        tk = torch.from_numpy(prompts[1][None, :16]).to(dev)
+        emu, emu2 = (model.forward(rt.params, f32, {"tokens": tk, key: x})
+                     for x in (raw, raw2))
+        nat = model.forward(params, f32.with_(engine_spec="f32"),
+                            {"tokens": tk, key: raw})
+    if not bool(torch.isfinite(emu).all()) or emu.shape != nat.shape:
+        raise AssertionError(f"{tag}: prefill logits not finite or "
+                             f"misshapen")
+    scale = nat.abs().max()
+    err_tok = ((emu - nat).abs().amax(dim=-1) / scale)[0]
+    moved = float((emu2 - emu).abs().max() / scale)
+    log(f"[{tag}] prefill logits (1x16, f32 activations) vs the f32 engine: "
+        f"max|diff| / max|logit| {float(err_tok.max()):.3e}; per token "
+        f"{[float(f'{e:.2e}') for e in err_tok.tolist()]}; a second context "
+        f"moves them by {moved:.3e} of max|logit| (must exceed 1e-3)")
+    if float(err_tok.max()) >= 1e-3:
+        raise AssertionError(f"{tag}: emulated prefill logits off by "
+                             f"{float(err_tok.max()):.3e}")
+    if moved <= 1e-3:
+        raise AssertionError(f"{tag}: a second context moves the logits by "
+                             f"only {moved:.3e}: the cross path is vacuous")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {card}: device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated since the phase began; "
+        f"predicted {predicted / 1e9:.1f} GB) of {total / 1e9:.1f} GB")
+    del emu, emu2, nat
+    serve_trace(rt, prompts, tag, s, trace_prompt=8, trace_gen=2,
+                untraced_steps=steps)
+    del rt, params, ctx
     gc.collect()
     torch.cuda.empty_cache()
     return counts, s
@@ -2492,6 +2814,8 @@ def main() -> int:
     for arch in STATE_SERVE:
         paths[STATE_SERVE[arch]["tag"]], _ = phase_serve_state(dev, arch,
                                                                 card)
+    for arch, tag in CTX_SERVE.items():
+        paths[tag], _ = phase_serve_ctx(dev, arch, card)
 
     records = []
     for name, (source, replaces) in KERNELS.items():

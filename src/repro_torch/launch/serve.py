@@ -8,22 +8,55 @@
 Runs on the CUDA card unless ``--device cpu`` is given (the kernels' plain
 versions).  Like the reference it serves the arch's smoke config unless
 ``--full`` asks for the published one; weights are random, drawn from
-``--seed``.  ``--page-block``, ``--prefix-cache``, ``--mesh``,
-``--metrics-json`` and ``--profile-dir`` keep the reference's flags and
-raise until the slices that bring them (paged KV, distributed, obs).
+``--seed``.  The vlm and encdec archs serve with the reference's static
+per-slot context (:func:`slot_context`).  ``--page-block``,
+``--prefix-cache``, ``--mesh``, ``--metrics-json`` and ``--profile-dir``
+keep the reference's flags and raise until the slices that bring them
+(paged KV, distributed, obs).
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.core import plan
-from repro_torch.models import api
+from repro_torch.models import api, encdec
 from repro_torch.serving import ServingRuntime
+
+
+def make_runtime(cfg, params, *, slots: int, max_len: int,
+                 page_block: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 presplit: Optional[bool] = None, ctx=None,
+                 device=None) -> ServingRuntime:
+    return ServingRuntime(cfg, params, slots=slots, max_len=max_len,
+                          page_block=page_block, prefill_chunk=prefill_chunk,
+                          prefix_cache=prefix_cache, presplit=presplit,
+                          ctx=ctx, device=device)
+
+
+def slot_context(cfg, params, prompt_len: int):
+    """Static single-slot context for the vlm/encdec families (shared
+    across slots), exactly the reference's: zero patch embeddings (1,
+    vision_seq, d_model) for vlm, the encoder's output over zero frames
+    (1, prompt_len, d_model) for encdec; None for the other families.
+    On the parameters' device."""
+    device = params["embed"].device
+    if cfg.family == "vlm":
+        return torch.zeros((1, cfg.vision_seq, cfg.d_model),
+                           dtype=torch.float32, device=device)
+    if cfg.family == "encdec":
+        frames = torch.zeros((1, prompt_len, cfg.d_model),
+                             dtype=torch.float32, device=device)
+        with torch.no_grad():
+            return encdec.encode(params, cfg, frames)
+    return None
 
 
 def main(argv=None):
@@ -82,11 +115,12 @@ def main(argv=None):
     model = api.get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(cfg, generator=gen, device=device)
-    runtime = ServingRuntime(cfg, params, slots=args.slots,
-                             max_len=args.max_len,
-                             prefill_chunk=args.prefill_chunk,
-                             presplit=False if args.no_presplit else None,
-                             device=device)
+    ctx = slot_context(cfg, params, args.prompt_len)
+    runtime = make_runtime(cfg, params, slots=args.slots,
+                           max_len=args.max_len,
+                           prefill_chunk=args.prefill_chunk,
+                           presplit=False if args.no_presplit else None,
+                           ctx=ctx, device=device)
     if runtime.split_cache is not None:
         st = runtime.split_cache.stats
         print(f"[serve] split-cache: froze {st.misses} weight splits "

@@ -8,8 +8,8 @@ backward, the layer stack in remat blocks), optionally over strided
 microbatches accumulated in ``accum_dtype``, then one AdamW update.  The
 reference's int8 gradient compression across the ``pod`` axis and its
 ZeRO-1 state sharding come with the distributed slice of the port; the
-dense family trains, the MoE families (their routing gradient) come
-later.  The serve steps live in :mod:`repro_torch.serving`.
+dense family trains, every other family raises naming what it lacks
+(``_UNTRAINED``).  The serve steps live in :mod:`repro_torch.serving`.
 """
 from __future__ import annotations
 
@@ -35,6 +35,10 @@ _UNTRAINED = {
     "ssm": "the gradient of its chunked SSD scan, held to the reference's",
     "hybrid": "the gradients of its RG-LRU scan and windowed attention, "
               "held to the reference's",
+    "vlm": "the data pipeline's patch-embedding input and the gradient of "
+           "its gated cross-attention path, held to the reference's",
+    "encdec": "the data pipeline's frame input and the gradient of its "
+              "encoder and cross-attention path, held to the reference's",
 }
 
 

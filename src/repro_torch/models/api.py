@@ -1,17 +1,19 @@
-"""Uniform model API — PyTorch port of ``repro.models.api`` for the
-families ported so far (dense, moe, mla_moe, ssm, hybrid).
+"""Uniform model API across the seven families — PyTorch port of
+``repro.models.api``.
 
     init(cfg, generator=..., device=...)   -> params
     forward(params, cfg, batch)            -> logits (B, L, vocab) f32
-    init_cache(cfg, batch_size, max_len, device=None) -> cache
+    init_cache(cfg, batch_size, max_len, params=None, ctx=None,
+               device=None)                -> cache
     cache_axes(cfg)                        -> logical axes of the cache
     decode_step(params, cfg, cache, tokens, cur_len) -> (logits, cache)
 
-``batch`` is a dict with ``tokens`` (B, L).  The vlm and encdec families
-(per-slot context) come with later slices of the port, and ``get_model``
-raises for them until then.  The shared next-token loss lives here too;
-of the ported families only the dense one trains (``launch/steps.py``
-says what each other family lacks).
+``batch`` is a dict: ``tokens`` (B, L) always; ``image_embeds`` (B,
+vision_seq, d) for the vlm family; ``frames`` (B, F, d) for encdec.
+``ctx`` is the context the cache's cross K/V are projected from (the
+patch embeddings for vlm, the encoder output for encdec; ``params`` then
+required).  The shared next-token loss lives here too; only the dense
+family trains (``launch/steps.py`` says what each other family lacks).
 """
 from __future__ import annotations
 
@@ -20,11 +22,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import hybrid, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer, vlm
 from repro_torch.models.common import ModelConfig
 
 _FAMILY_MODULES = {"dense": transformer, "moe": moe, "mla_moe": moe,
-                   "ssm": ssm, "hybrid": hybrid}
+                   "vlm": vlm, "encdec": encdec, "ssm": ssm,
+                   "hybrid": hybrid}
 
 
 class Model(types.SimpleNamespace):
@@ -32,15 +35,28 @@ class Model(types.SimpleNamespace):
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    mod = _FAMILY_MODULES.get(cfg.family)
-    if mod is None:
-        raise NotImplementedError(f"the {cfg.family!r} family comes with a "
-                                  f"later slice of the port")
+    mod = _FAMILY_MODULES[cfg.family]
 
     def forward(params, cfg, batch: Dict[str, Any]):
-        return mod.forward(params, cfg, batch["tokens"])
+        tokens = batch["tokens"]
+        if cfg.family == "vlm":
+            return mod.forward(params, cfg, tokens, batch["image_embeds"])
+        if cfg.family == "encdec":
+            return mod.forward(params, cfg, tokens, batch["frames"])
+        return mod.forward(params, cfg, tokens)
 
-    return Model(init=mod.init, forward=forward, init_cache=mod.init_cache,
+    def init_cache(cfg, batch_size, max_len, params=None, ctx=None,
+                   device=None):
+        if cfg.family == "vlm":
+            return mod.init_cache(cfg, batch_size, max_len,
+                                  image_embeds=ctx, params=params,
+                                  device=device)
+        if cfg.family == "encdec":
+            return mod.init_cache(cfg, batch_size, max_len, memory=ctx,
+                                  params=params, device=device)
+        return mod.init_cache(cfg, batch_size, max_len, device=device)
+
+    return Model(init=mod.init, forward=forward, init_cache=init_cache,
                  cache_axes=mod.cache_axes, decode_step=mod.decode_step,
                  module=mod)
 

@@ -20,9 +20,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config, cut to the fields the dense, MoE, MLA,
-    SSM and hybrid families read; the vlm and encdec families' fields come
-    with them."""
+    """The reference's config, cut to the fields the port's families
+    read (the reference's ``frames``, read by its training pipeline for
+    the encdec family, and ``expand_kv``, a sharding switch, are not
+    carried)."""
 
     name: str = "model"
     family: str = "dense"
@@ -59,6 +60,11 @@ class ModelConfig:
     n_pattern_blocks: int = 0
     n_tail_layers: int = 0
     lru_width: int = 0
+    # VLM (llama-3.2-vision)
+    cross_every: int = 0              # 1 cross-attn layer per N layers
+    vision_seq: int = 0
+    # enc-dec (seamless)
+    enc_layers: int = 0
     dtype: str = "bfloat16"           # activation dtype
     norm_eps: float = 1e-5
     remat_block: int = 1              # layers per remat unit (training)

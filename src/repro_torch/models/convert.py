@@ -20,7 +20,10 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     arrays (nested dicts).  Layouts are the reference's and the stacked
     ``"layers"`` leaves STAY stacked ``(n_layers, ...)``: the port's
     transformer keeps that layout and slices one layer per loop step.
-    Dtypes are kept; every leaf is copied onto ``device``."""
+    The same holds for every family's tree: the hybrid's blocks and the
+    vlm's ``groups/selfs`` on two leading axes, the encdec's
+    ``enc_layers`` and ``dec_layers``, and 0-d leaves (the vlm's gates)
+    stay 0-d.  Dtypes are kept; every leaf is copied onto ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -33,10 +33,17 @@ every contraction to the static plan, as the reference's jitted steps do
 (its planner probes only concrete operands), and never syncs the host to
 probe.
 
+The context families (vlm, encdec) take ``ctx``, ONE slot's context
+(the patch embeddings; the encoder output): the single-slot template's
+cross K/V are projected from it once, and the slot cache's from ``ctx``
+repeated across the slots, as the reference does.  The cross K/V are
+never written by a step; ``reset_slot`` copies the template's into an
+admitted slot with the other leaves.
+
 The block-paged KV pool (``page_block``) and the prefix cache come with
-the paged-KV slice of the port and raise until then; every ported family,
-the state families included, serves on the monolithic slot cache, as the
-reference does with ``page_block=None``.
+the paged-KV slice of the port and raise until then; every family serves
+on the monolithic slot cache, as the reference does with
+``page_block=None``.
 """
 from __future__ import annotations
 
@@ -79,10 +86,13 @@ class ServingRuntime:
         None prefills whole prompts in one call.
       presplit: freeze weight splits (default: on for ozimmu engines).
       now: clock (injectable for deterministic tests).
+      ctx: static per-slot context of the vlm/encdec families, shaped
+        for ONE slot (the runtime shares it across slots, as the
+        reference does); moved to ``device``.
       device: where the model runs; default the CUDA card (raises when
         there is none — pass ``device="cpu"`` for the plain versions).
-      page_block / page_blocks / prefix_cache / ctx: the paged pool, the
-        prefix cache and the context families come with later slices.
+      page_block / page_blocks / prefix_cache: the paged pool and the
+        prefix cache come with a later slice.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 128,
@@ -96,9 +106,6 @@ class ServingRuntime:
             raise NotImplementedError("the paged KV pool and the prefix "
                                       "cache come with the paged-KV slice "
                                       "of the port; use page_block=None")
-        if ctx is not None:
-            raise NotImplementedError("per-slot context (vlm/encdec) comes "
-                                      "with those families")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
@@ -125,10 +132,15 @@ class ServingRuntime:
         self.ops = SlotCacheOps(cfg, self.model)
         self.metrics = ServingMetrics(now=now)
         self._now = now
-        self._template = self.model.init_cache(cfg, 1, max_len,
-                                               device=self.device)
-        self.cache = self.model.init_cache(cfg, slots, max_len,
-                                           device=self.device)
+        ctx = None if ctx is None else ctx.to(self.device)
+        batch_ctx = None if ctx is None else torch.cat([ctx] * slots)
+        with torch.no_grad():
+            self._template = self.model.init_cache(
+                cfg, 1, max_len, params=self.params, ctx=ctx,
+                device=self.device)
+            self.cache = self.model.init_cache(
+                cfg, slots, max_len, params=self.params, ctx=batch_ctx,
+                device=self.device)
         # under chunking, decode freezes mid-prefill slots' recurrent
         # states (the reference's monolithic-cache rule)
         self._decode_select = (prefill_chunk is not None

@@ -1174,3 +1174,97 @@ def _to(tree, d):
     if isinstance(tree, dict):
         return {k: _to(v, d) for k, v in tree.items()}
     return tree.to(d)
+
+
+@pytest.mark.parametrize("which", ["scores", "p@v"])
+def test_split_whole_kernel_reads_a_cross_key_chunk(dev, which):
+    """The context families' cross-attention B operands at decode: a key
+    chunk of the padded cross K/V (llama-3.2-vision-11b: 4 slots x 1600
+    rows padded to 2 chunks of 1024, 8 KV heads of 128; the second chunk
+    448 rows of zero padding), permuted by ``canonical_rhs`` to (4, 8,
+    128, 1024) for the scores and (4, 8, 1024, 128) for p@v: split
+    through its strides bitwise to the split of the contiguous copy, with
+    no PyTorch operation but the outputs'."""
+    from repro_torch.core.ozimmu import canonical_rhs
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(25)
+    kv = torch.randn((4, 1600, 8, 128), generator=g, device=dev)
+    padded = torch.cat([kv, kv.new_zeros((4, 448, 8, 128))], dim=1)
+    chunk = padded.reshape(4, 2, 1024, 8, 128)[:, 1]
+    dnums = ((((4,), (3,)), ((0, 2), (0, 2))) if which == "scores"
+             else (((4,), (1,)), ((0, 1), (0, 2))))
+    view = canonical_rhs(chunk, dnums)[0]
+    assert not view.is_contiguous()
+    assert tuple(view.shape) == ((4, 8, 128, 1024) if which == "scores"
+                                 else (4, 8, 1024, 128))
+    sp = ops.split_fused(view, 4, 7, axis=1)
+    ref = ops.split_fused_ref(view.contiguous(), 4, 7, axis=1)
+    assert torch.equal(sp.digits, ref.digits)
+    assert _same(sp.scale, ref.scale) and _same(sp.base, ref.base)
+    seen = _dispatched(lambda: ops.split_fused(view, 4, 7, axis=1))
+    assert set(seen) <= _ALLOC_OR_VIEW, seen
+
+
+@pytest.mark.parametrize("m", [1600, 6400])
+def test_group_gemm_large_route_context_rows(dev, m):
+    """The context-time cross ``wk``/``wv`` projection of
+    llama-3.2-vision-11b: 1600 patch rows (the single-slot template) and
+    6400 (4 slots) x 4096 -> 1024, G = 4, on the large route, bitwise."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.group_gemm import (group_gemm, group_gemm_ref,
+                                                route)
+    assert route(m, True) == "large"
+    g = torch.Generator(device=dev).manual_seed(26)
+    da = _stack_a(g, dev, 4, (), m, 4096)
+    db = _stack_b(g, dev, 4, (), 4096, 1024)
+    ia, ib = [0, 1, 2, 3], [3, 2, 1, 0]
+    before = LAUNCHES["group_gemm_large"]
+    out = group_gemm(da, db, ia, ib)
+    assert LAUNCHES["group_gemm_large"] == before + 1
+    assert torch.equal(out, group_gemm_ref(da, db, ia, ib))
+
+
+@pytest.mark.parametrize("arch", ["llama32_vision_11b",
+                                  "seamless_m4t_medium"])
+def test_smoke_context_runtime_on_card_equals_cpu(dev, arch):
+    """The context families' ``smoke()`` (f32 activations,
+    ``ozimmu_h-4:df32:fused``, the vlm's gates drawn nonzero, a context
+    drawn from a seed: patch embeddings, or the encoder over frames):
+    the runtime's greedy tokens on the card equal its tokens on the CPU,
+    whole and chunked prefill, and under a second context they differ."""
+    from repro_torch import configs
+    from repro_torch.models import api, encdec
+    from repro_torch.serving import ServingRuntime
+    cfg = configs.get_config(arch, smoke=True, dtype="float32",
+                             engine_spec="ozimmu_h-4:df32:fused")
+    model = api.get_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(cfg, generator=gen, device="cpu")
+    if cfg.family == "vlm":
+        for name in ("gate_attn", "gate_mlp"):
+            params["groups"]["cross"][name] = torch.rand(
+                (cfg.n_layers // cfg.cross_every,), generator=gen) + 0.5
+
+    def context(seed):
+        g = torch.Generator().manual_seed(seed)
+        if cfg.family == "vlm":
+            return torch.randn((1, cfg.vision_seq, cfg.d_model), generator=g)
+        with torch.no_grad():
+            return encdec.encode(params, cfg, torch.randn(
+                (1, 6, cfg.d_model), generator=g))
+
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=torch.Generator(
+        ).manual_seed(n)).numpy().astype("int32") for n in (4, 7, 5)]
+    for chunk in (None, 3):
+        got = {}
+        for d in ("cpu", "cuda"):
+            rt = ServingRuntime(cfg, params, slots=2, max_len=24,
+                                prefill_chunk=chunk, ctx=context(1),
+                                device=d)
+            got[d] = [o.tolist() for o in rt.generate(
+                [q.copy() for q in prompts], 10)]
+        assert got["cuda"] == got["cpu"], chunk
+    rt = ServingRuntime(cfg, params, slots=2, max_len=24, ctx=context(2),
+                        device="cuda")
+    assert [o.tolist() for o in rt.generate(
+        [q.copy() for q in prompts], 10)] != got["cuda"]

@@ -191,8 +191,9 @@ def test_moe_ffn_matches_reference(ref_params, case):
 def test_a2a_without_a_mesh_is_the_scatter_path(ref_params):
     """``full()`` sets ``moe_dispatch="a2a"``: with no mesh it is
     ``moe_ffn`` (the reference's own branch); a mesh-native spec raises,
-    and so do a family no slice has ported yet and a family that is not
-    a MoE one."""
+    and so do an unknown family (``get_model`` looks it up as the
+    reference's ``_FAMILY_MODULES[cfg.family]`` does) and a family that is
+    not a MoE one."""
     _, nparams, _ = ref_params
     pcfg = P_configs.get_config(ARCH, smoke=True, dtype="float32",
                                 engine_spec=FUSED)
@@ -205,8 +206,8 @@ def test_a2a_without_a_mesh_is_the_scatter_path(ref_params):
     with pytest.raises(NotImplementedError, match="distributed slice"):
         P_moe.moe_ffn_dispatch(
             lp, pcfg.with_(engine_spec="ozimmu_h-4:df32@model"), x)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        P_api.get_model(pcfg.with_(family="vlm"))
+    with pytest.raises(KeyError, match="audio"):
+        P_api.get_model(pcfg.with_(family="audio"))
     with pytest.raises(ValueError, match="not a MoE family"):
         P_moe.init(pcfg.with_(family="dense"),
                    generator=torch.Generator(), device="cpu")
