@@ -69,7 +69,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    (24 layers, random weights from a seed) under ``ozimmu_h-4:df32:fused``
    with the weight split-cache on; the first request's tokens must equal a
    monolithic greedy loop, and the full-width prefill logits must agree
-   with the native f32 engine.
+   with the native f32 engine.  Then the same requests again from the
+   block-paged KV pool (``serve_paged``: blocks of 16 positions, a pool of
+   8 against the 12 the slots could hold, so that requests are evicted and
+   re-prefilled, prefill chunks of 8), after the monolithic runtime was
+   freed: every request's tokens must equal the monolithic run's, every
+   kernel's launches a model step the monolithic run's, and the short pool
+   must evict.
 4b. Ozaki-II serve: the same under ``oz2_h-4:df32:fast2:fused``, traced
    as phase 4 is.
 4c. Sign-magnitude serve: phase 4 under ``ozimmu_sm_h-4:df32:fused``.
@@ -122,7 +128,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    against the native f32 engine (1e-3, every token), that the tied
    head's ``embed.T`` reaches the split uncopied, and log tok/s, TTFT, ms
    a model step, the peak against its prediction and a trace by kernel
-   class with the tied head apart.
+   class with the tied head apart.  serve_ssm's requests are served again
+   paged (``serve_ssm_paged``, no pool: only the per-slot state
+   machinery), checked as ``serve_paged``.
 11. Context serves (``serve_encdec``, then ``serve_vlm``): the published
    seamless-m4t-medium (12 encoder + 12 decoder layers, d_model 1024, 16
    heads, GELU d_ff 4096, vocab 256206) and llama-3.2-vision-11b (8 groups
@@ -136,6 +144,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    GEMM at context time (the runtime's construction, and the encoder) on
    the large route, every one in a step on the skinny route, and a second
    context that must move the prefill logits past the 1e-3 tolerance.
+   serve_encdec's requests are served again paged as phase 4's
+   (``serve_encdec_paged``: the decoder's self K/V in the pool, the cross
+   K/V resident per slot); the vlm's peak leaves no room for it.
 
 The launch counts of phases 3-8 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
@@ -229,6 +240,11 @@ HYB = dict(d=4096, V=256000, H=16, hd=256)
 # length)
 VLM = dict(d=4096, kv=1024, Lv=1600, chunk=1024, V=128256, KV=8, hd=128)
 ENC = dict(d=1024, f=4096, H=16, hd=64, V=256256, F=32)
+# the paged passes (serve, serve_ssm, serve_encdec): the phase's requests
+# served again from the block-paged KV pool in blocks of PAGE_BLOCK
+# positions, prefill chunks of PAGE_CHUNK, the attention families' pool
+# cut to PAGE_POOL blocks of the 12 their 4 slots of max_len 48 could hold
+PAGE_BLOCK, PAGE_CHUNK, PAGE_POOL = 16, 8, 8
 # internlm2-1.8b training (train): the reference launcher's defaults of
 # global batch 8 and seq 256; step 0 and three more
 TRAIN = dict(batch=8, seq=256, steps=4)
@@ -1379,11 +1395,14 @@ def phase_dgemm_auto(dev, spec, ref):
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=()):
+def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=(),
+                paged=False, card=""):
     """Serve full-width internlm2-1.8b under ``spec``; every kernel in
     ``kernels`` must launch, and none in ``absent``.  ``trace``: then
     measure the device's idle share with a profiler trace
-    (:func:`serve_trace`)."""
+    (:func:`serve_trace`).  ``paged``: then serve the same requests from a
+    short block-paged pool (:func:`paged_pass`).  Returns (launch counts,
+    summary, the paged pass's launch counts or None)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -1479,9 +1498,115 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=()):
     if rel > 1e-3:
         raise AssertionError(f"{tag}: emulated prefill logits off by "
                              f"{rel:.3e}")
+    mono = dict(reqs=reqs, counts=counts, steps=steps, s=s,
+                cache_bytes=cache_bytes(rt.cache))
     if trace:
         serve_trace(rt, prompts, tag, s)
-    del rt, params, emu, nat
+    del rt, emu, nat
+    torch.cuda.empty_cache()
+    paged_counts = None
+    if paged:
+        paged_counts, _ = paged_pass(tag, cfg, params, prompts, GEN, mono,
+                                     card, dev, slots=SLOTS,
+                                     max_len=PROMPT + GEN, pool=PAGE_POOL)
+    del params
+    torch.cuda.empty_cache()
+    return counts, s, paged_counts
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def paged_pass(tag, cfg, params, prompts, gen, mono, card, dev, *,
+               slots, max_len, pool=None, ctx=None):
+    """Serve ``prompts`` again through a paged ``ServingRuntime`` (blocks
+    of ``PAGE_BLOCK`` positions, ``pool`` of them or the slots' capacity,
+    prefill chunks of ``PAGE_CHUNK``) after the phase freed its
+    monolithic runtime.  ``mono``: the monolithic run's requests, launch
+    counts, model steps, summary and cache bytes.  Checks: every request's
+    tokens equal the monolithic run's; every kernel's launches a model
+    step (a position a prefill call feeds, or a decode step) exactly the
+    monolithic run's, route by route; evictions where the pool is short;
+    every block free at the end.  Logs the pool's bytes beside the
+    monolithic cache's, tok/s, ms a model step and the peak.  Returns
+    (launch counts, summary)."""
+    import gc
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingRuntime
+    ptag = f"{tag}_paged"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt = ServingRuntime(cfg, params, slots=slots, max_len=max_len,
+                        page_block=PAGE_BLOCK, page_blocks=pool,
+                        prefill_chunk=PAGE_CHUNK, ctx=ctx, device=dev)
+    paged = rt.paged
+    fed = []                   # the bucket length of every prefill call
+    prefill = rt._prefill
+
+    def counted(toks, *args):
+        fed.append(toks.shape[1])
+        return prefill(toks, *args)
+    rt._prefill = counted
+    reset_launches()
+    reqs = [rt.submit(p, gen) for p in prompts]
+    s = rt.run()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    steps = sum(fed) + s["decode_steps"]
+    peak = torch.cuda.max_memory_allocated()
+    layout = (f"a pool of {paged.n_blocks} blocks of {paged.block} "
+              f"positions and a trash block" if paged.paged_names
+              else "no pool (no paged leaves)")
+    log(f"[{ptag}] {card}: {layout} (paged leaves {paged.paged_names}, "
+        f"state leaves {paged.state_names}), "
+        f"{(cache_bytes(paged.pool) + cache_bytes(paged.state)) / 1e6:.2f} "
+        f"MB with the resident state "
+        f"against the monolithic cache's {mono['cache_bytes'] / 1e6:.2f} "
+        f"MB; {s['tokens_generated']} tokens from "
+        f"{s['requests']['finished']} requests in {s['elapsed_s']:.2f} s: "
+        f"{s['tokens_per_s']:.2f} tok/s; TTFT mean {s['ttft_s']['mean']:.3f}"
+        f" s; {steps} model steps ({s['elapsed_s'] / steps * 1e3:.1f} ms a "
+        f"step; monolithic {mono['s']['elapsed_s'] / mono['steps'] * 1e3:.1f}"
+        f" ms, {mono['s']['tokens_per_s']:.2f} tok/s): prefill calls "
+        f"{s['prefill_calls']} ({sum(fed)} positions, {s['prefill_chunks']} "
+        f"non-final chunks), decode steps {s['decode_steps']}, evictions "
+        f"{s['evictions']}; peak {peak / 1e9:.2f} GB (max_memory_allocated "
+        f"from the paged runtime's construction)")
+    log(f"[{ptag}] kernel launches {counts}")
+    bad = {k: (counts[k], mono["counts"][k] * steps / mono["steps"])
+           for k in counts
+           if counts[k] * mono["steps"] != mono["counts"][k] * steps}
+    if bad:
+        raise AssertionError(f"{ptag}: launches a model step differ from "
+                             f"the monolithic run's ({steps} / "
+                             f"{mono['steps']} steps): {bad}")
+    for name in ("split_fused", "group_gemm", "scale_accum"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{ptag} path launched no {name} kernel")
+    if s["requests"]["finished"] != len(prompts) or \
+            s["tokens_generated"] != len(prompts) * gen:
+        raise AssertionError(f"{ptag} finished {s['requests']} with "
+                             f"{s['tokens_generated']} tokens")
+    differ = [i for i, (a, b) in enumerate(zip(reqs, mono["reqs"]))
+              if a.generated != b.generated]
+    if differ:
+        raise AssertionError(f"{ptag}: requests {differ} differ from the "
+                             f"monolithic run's tokens")
+    if pool is not None and s["evictions"] <= 0:
+        raise AssertionError(f"{ptag}: a pool of {pool} blocks evicted "
+                             f"nothing")
+    if paged.free_block_count != paged.n_blocks:
+        raise AssertionError(f"{ptag}: {paged.live_blocks} blocks still "
+                             f"live at the end")
+    log(f"[{ptag}] every request's tokens equal the monolithic run's; "
+        f"launches a model step equal the monolithic run's, kernel by "
+        f"kernel and route by route; every block free at the end")
+    rt._prefill = prefill
+    del rt, paged, prefill, counted
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, s
 
@@ -1737,7 +1862,7 @@ STATE_SLOTS, STATE_REQUESTS, STATE_GEN, STATE_MAX_LEN = 4, 8, 16, 48
 # tests/test_torch_{ssm,hybrid}.py do) and the monolithic check sees them
 STATE_EMBED_SCALE = 0.05
 STATE_SERVE = {"mamba2_780m": dict(tag="serve_ssm", prompts=(24, 32),
-                                   chunk=8),
+                                   chunk=8, paged=True),
                "recurrentgemma_9b": dict(tag="serve_hybrid", prompts=(32,),
                                          chunk=None)}
 
@@ -2014,12 +2139,20 @@ def phase_serve_state(dev, arch, card):
         f"predicted {predicted / 1e9:.1f} GB) of {total / 1e9:.1f} GB")
     del emu, nat
     rt._prefill = prefill
+    mono = dict(reqs=reqs, counts=counts, steps=steps, s=s,
+                cache_bytes=cache_bytes(rt.cache))
     serve_trace(rt, prompts, tag, s, trace_prompt=8, trace_gen=2,
                 untraced_steps=steps, head=True)
-    del rt, params
+    del rt, prefill, counted      # the bound method holds the runtime
+    paged_counts = None
+    if spec.get("paged"):
+        paged_counts, _ = paged_pass(tag, cfg, params, prompts, STATE_GEN,
+                                     mono, card, dev, slots=STATE_SLOTS,
+                                     max_len=STATE_MAX_LEN)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, s
+    return counts, s, paged_counts
 
 
 # the context families served (serve_encdec, serve_vlm): SLOTS slots,
@@ -2028,6 +2161,9 @@ def phase_serve_state(dev, arch, card):
 # model (the vlm last: its predicted peak is the script's largest)
 CTX_SERVE = {"seamless_m4t_medium": "serve_encdec",
              "llama32_vision_11b": "serve_vlm"}
+# the context archs served again paged (the vlm's peak leaves no room for
+# a second runtime's frozen digits beside its weights)
+CTX_PAGED = ("seamless_m4t_medium",)
 # the context's scale: N(0, CTX_SCALE^2) patch embeddings (vlm) or frames
 # (encdec); the vlm's gates drawn as +-U(0.5, 1.5) (tanh 0.46-0.91)
 CTX_SCALE = 1.0
@@ -2239,12 +2375,21 @@ def phase_serve_ctx(dev, arch, card):
         f"{peak / 1e9:.2f} GB (max_memory_allocated since the phase began; "
         f"predicted {predicted / 1e9:.1f} GB) of {total / 1e9:.1f} GB")
     del emu, emu2, nat
+    mono = dict(reqs=reqs, counts=counts, steps=steps, s=s,
+                cache_bytes=cache_bytes(rt.cache))
     serve_trace(rt, prompts, tag, s, trace_prompt=8, trace_gen=2,
                 untraced_steps=steps)
-    del rt, params, ctx
+    del rt
+    paged_counts = None
+    if arch in CTX_PAGED:
+        paged_counts, _ = paged_pass(tag, cfg, params, prompts, GEN, mono,
+                                     card, dev, slots=SLOTS,
+                                     max_len=PROMPT + GEN, pool=PAGE_POOL,
+                                     ctx=ctx)
+    del params, ctx
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, s
+    return counts, s, paged_counts
 
 
 def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
@@ -2796,14 +2941,14 @@ def main() -> int:
     paths["dgemm_sm"], _ = phase_dgemm(
         dev, SM_DGEMM_SPEC, ("split_fused", "group_gemm", "scale_accum_plain"),
         tag="dgemm_sm", small_too=(SM_PAIRWISE_SPEC,))
-    paths["serve"], _ = phase_serve(
+    paths["serve"], _, paths["serve_paged"] = phase_serve(
         dev, MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
-        trace=True)
-    paths["serve_oz2"], _ = phase_serve(
+        trace=True, paged=True, card=card)
+    paths["serve_oz2"], _, _ = phase_serve(
         dev, OZ2_MODEL_SPEC, ("split_fused", "group_gemm",
                               "scale_accum_const"),
         tag="serve_oz2", trace=True, absent=("unscale",))
-    paths["serve_sm"], _ = phase_serve(
+    paths["serve_sm"], _, _ = phase_serve(
         dev, SM_MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
         tag="serve_sm")
     paths["flash"] = phase_flash(dev)
@@ -2812,10 +2957,14 @@ def main() -> int:
     paths["serve_mla"], _ = phase_serve_moe(dev, "deepseek_v2_236b",
                                             "serve_mla")
     for arch in STATE_SERVE:
-        paths[STATE_SERVE[arch]["tag"]], _ = phase_serve_state(dev, arch,
-                                                                card)
+        tag = STATE_SERVE[arch]["tag"]
+        paths[tag], _, paged = phase_serve_state(dev, arch, card)
+        if paged is not None:
+            paths[f"{tag}_paged"] = paged
     for arch, tag in CTX_SERVE.items():
-        paths[tag], _ = phase_serve_ctx(dev, arch, card)
+        paths[tag], _, paged = phase_serve_ctx(dev, arch, card)
+        if paged is not None:
+            paths[f"{tag}_paged"] = paged
 
     records = []
     for name, (source, replaces) in KERNELS.items():

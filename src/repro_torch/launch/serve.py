@@ -9,10 +9,10 @@ Runs on the CUDA card unless ``--device cpu`` is given (the kernels' plain
 versions).  Like the reference it serves the arch's smoke config unless
 ``--full`` asks for the published one; weights are random, drawn from
 ``--seed``.  The vlm and encdec archs serve with the reference's static
-per-slot context (:func:`slot_context`).  ``--page-block``,
-``--prefix-cache``, ``--mesh``, ``--metrics-json`` and ``--profile-dir``
-keep the reference's flags and raise until the slices that bring them
-(paged KV, distributed, obs).
+per-slot context (:func:`slot_context`).  ``--page-block`` serves every
+family from the block-paged KV pool.  ``--prefix-cache``, ``--mesh``,
+``--metrics-json`` and ``--profile-dir`` keep the reference's flags and
+raise until the slices that bring them (prefix cache, distributed, obs).
 """
 from __future__ import annotations
 
@@ -70,7 +70,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--page-block", type=int, default=None,
-                    help="paged KV pool (not ported yet)")
+                    help="positions per KV block: enables the paged "
+                         "KV-cache pool (every family; state leaves stay "
+                         "resident per the family descriptor)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="max prompt tokens fed per slot per scheduler "
                          "round (chunked prefill; default whole-prompt)")
@@ -96,8 +98,7 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, later in (("page_block", "paged-KV"), ("prefix_cache",
-                                                     "paged-KV"),
+    for flag, later in (("prefix_cache", "prefix-cache"),
                         ("mesh", "distributed"), ("metrics_json", "obs"),
                         ("profile_dir", "obs")):
         if getattr(args, flag):
@@ -118,6 +119,7 @@ def main(argv=None):
     ctx = slot_context(cfg, params, args.prompt_len)
     runtime = make_runtime(cfg, params, slots=args.slots,
                            max_len=args.max_len,
+                           page_block=args.page_block,
                            prefill_chunk=args.prefill_chunk,
                            presplit=False if args.no_presplit else None,
                            ctx=ctx, device=device)
@@ -139,7 +141,8 @@ def main(argv=None):
     print(f"[serve] {args.arch} on {device}: {s['tokens_generated']} tokens "
           f"from {s['requests']['finished']} requests in {dt:.2f}s "
           f"({s['tokens_per_s']:.1f} tok/s, slots={args.slots}, "
-          f"prefill_calls={s['prefill_calls']})")
+          f"prefill_calls={s['prefill_calls']}, "
+          f"evictions={s['evictions']})")
     if s["ttft_s"]["mean"] is not None:
         print(f"[serve] TTFT mean {s['ttft_s']['mean']:.3f}s "
               f"p95 {s['ttft_s']['p95']:.3f}s; queue depth max "

@@ -40,10 +40,18 @@ repeated across the slots, as the reference does.  The cross K/V are
 never written by a step; ``reset_slot`` copies the template's into an
 admitted slot with the other leaves.
 
-The block-paged KV pool (``page_block``) and the prefix cache come with
-the paged-KV slice of the port and raise until then; every family serves
-on the monolithic slot cache, as the reference does with
-``page_block=None``.
+With ``page_block`` the cache is a block-paged pool
+(:class:`~repro_torch.serving.kvcache.PagedKV`) instead: every step
+gathers the slots' contiguous view from the pool on the device (rows not
+yet written zeroed, as the monolithic cache holds them), runs the same
+decode step, and writes back the appended rows (decode) or the chunk's
+span (prefill); state leaves merge per participating slot, so no decode
+step needs ``_decode_select``.  Blocks are allocated as sequences grow;
+when the pool runs dry the scheduler evicts the latest-admitted slot,
+whose request re-prefills its prompt and generated tokens later.  A paged
+run gives the monolithic runtime's tokens.  The prefix cache, which
+aliases the pool's blocks, comes with a later slice of the port and
+raises until then.
 """
 from __future__ import annotations
 
@@ -58,13 +66,19 @@ from repro_torch.core import plan
 from repro_torch.core.engine import presplit_trace_counts
 from repro_torch.models import api
 from repro_torch.serving import presplit as presplit_mod
-from repro_torch.serving.kvcache import SlotCacheOps
+from repro_torch.serving.kvcache import (STATE_DESCRIPTORS, PagedKV,
+                                         SlotCacheOps)
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.scheduler import Request, Scheduler
 
 __all__ = ["ServingRuntime"]
 
 _STATE_FAMILIES = ("ssm", "hybrid")
+
+
+def _has_state_leaves(cfg) -> bool:
+    desc = STATE_DESCRIPTORS.get(cfg.family)
+    return desc is not None and "state" in desc.values()
 
 
 def _to_device(tree, device):
@@ -91,8 +105,12 @@ class ServingRuntime:
         reference does); moved to ``device``.
       device: where the model runs; default the CUDA card (raises when
         there is none — pass ``device="cpu"`` for the plain versions).
-      page_block / page_blocks / prefix_cache: the paged pool and the
-        prefix cache come with a later slice.
+      page_block: positions per KV block — enables the paged pool
+        (every family; pure-state families page nothing but gain the
+        per-slot state machinery); None keeps the monolithic cache.
+      page_blocks: pool size in blocks (default: full capacity,
+        slots * max_len / page_block; fewer exercise eviction).
+      prefix_cache: comes with the prefix-cache slice of the port; raises.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 128,
@@ -101,11 +119,10 @@ class ServingRuntime:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache=False, presplit: Optional[bool] = None,
                  ctx=None, now=time.monotonic, device=None):
-        if page_block is not None or page_blocks is not None or \
-                prefix_cache:
-            raise NotImplementedError("the paged KV pool and the prefix "
-                                      "cache come with the paged-KV slice "
-                                      "of the port; use page_block=None")
+        if prefix_cache:
+            raise NotImplementedError("the prefix cache comes with the "
+                                      "prefix-cache slice of the port; use "
+                                      "prefix_cache=False")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
@@ -133,17 +150,36 @@ class ServingRuntime:
         self.metrics = ServingMetrics(now=now)
         self._now = now
         ctx = None if ctx is None else ctx.to(self.device)
-        batch_ctx = None if ctx is None else torch.cat([ctx] * slots)
+        # single-slot template: the admission reset source (monolithic
+        # always; paged only for families with resident state leaves)
+        self._template = None
+        self.paged: Optional[PagedKV] = None
+        self.cache = None
         with torch.no_grad():
-            self._template = self.model.init_cache(
-                cfg, 1, max_len, params=self.params, ctx=ctx,
-                device=self.device)
-            self.cache = self.model.init_cache(
-                cfg, slots, max_len, params=self.params, ctx=batch_ctx,
-                device=self.device)
-        # under chunking, decode freezes mid-prefill slots' recurrent
-        # states (the reference's monolithic-cache rule)
+            if page_block is None or _has_state_leaves(cfg):
+                self._template = self.model.init_cache(
+                    cfg, 1, max_len, params=self.params, ctx=ctx,
+                    device=self.device)
+            if page_block is not None:
+                if not PagedKV.supported(cfg, self.model, max_len):
+                    raise ValueError(
+                        f"paged KV unsupported for family {cfg.family!r} "
+                        f"(see repro_torch.serving.kvcache); use "
+                        f"page_block=None")
+                self.paged = PagedKV(cfg, self.model, slots, max_len,
+                                     block=page_block, n_blocks=page_blocks,
+                                     template=self._template,
+                                     device=self.device)
+            else:
+                self.cache = self.model.init_cache(
+                    cfg, slots, max_len, params=self.params,
+                    ctx=None if ctx is None else torch.cat([ctx] * slots),
+                    device=self.device)
+        # under chunking, monolithic decode freezes mid-prefill slots'
+        # recurrent states (the reference's rule; paged state leaves merge
+        # per active slot instead)
         self._decode_select = (prefill_chunk is not None
+                               and self.paged is None
                                and cfg.family in _STATE_FAMILIES)
         # host-side per-slot decode state
         self._cur = np.ones((slots,), np.int32)
@@ -169,11 +205,22 @@ class ServingRuntime:
         """One decode step.  Idle slots carry ``cur == 0`` (their attention
         rows are not written; their other leaves are reset at admission);
         with ``_decode_select`` only the ``active`` slots take the step's
-        cache."""
+        cache.  Paged: the step runs on the pool's gathered view, and
+        writes back the appended rows and the active slots' state."""
+        cur_d = self._tensor(cur)
+        if self.paged is not None:
+            tables = self.paged.device_tables()
+            active_d = self._tensor(active)
+            with plan.static_plan():
+                logits, cache = self.model.decode_step(
+                    self.params, self.cfg,
+                    self.paged.gather(tables, lengths=cur_d - 1),
+                    self._tensor(toks), cur_d)
+            self.paged.scatter_rows(tables, cache, cur_d, active_d)
+            return self._argmax(logits)
         with plan.static_plan():
             logits, cache = self.model.decode_step(
-                self.params, self.cfg, self.cache, self._tensor(toks),
-                self._tensor(cur))
+                self.params, self.cfg, self.cache, self._tensor(toks), cur_d)
         if self._decode_select:
             cache = self.ops.select_slots(cache, self.cache,
                                           self._tensor(active))
@@ -184,23 +231,48 @@ class ServingRuntime:
     def _prefill(self, toks: np.ndarray, start: np.ndarray,
                  base: np.ndarray, newmask: np.ndarray) -> np.ndarray:
         """The decode step over the bucket; each participating slot's chunk
-        is right-aligned and resumes ``base`` tokens in."""
+        is right-aligned and resumes ``base`` tokens in.  Paged: the
+        participating slots' view is gathered once (the rows past ``base``
+        zeroed), and each slot's span is written back after the loop."""
         Lb = toks.shape[1]
         # every position's (slots,) cur vector, copied to the device once
         curs = np.stack([np.where(newmask & (i >= start),
                                   base + i - start + 1, 0)
                          for i in range(Lb)]).astype(np.int32)
         toks_d, curs_d = self._tensor(toks), self._tensor(curs)
-        before = self.cache
+        mask_d = self._tensor(newmask)
+        if self.paged is not None:
+            before = self.paged.gather(
+                self.paged.device_tables(),
+                lengths=self._tensor(np.where(newmask, base, 0)))
+        else:
+            before = self.cache
         cache, logits = before, None
         with plan.static_plan():
             for i in range(Lb):
                 logits, cache = self.model.decode_step(
                     self.params, self.cfg, cache, toks_d[:, i:i + 1],
                     curs_d[i])
-        self.cache = self.ops.select_slots(cache, before,
-                                           self._tensor(newmask))
+        if self.paged is None:
+            self.cache = self.ops.select_slots(cache, before, mask_d)
+            return self._argmax(logits)
+        for slot in np.flatnonzero(newmask):
+            length, span_start = self._span_args(int(base[slot]),
+                                                 Lb - int(start[slot]))
+            self.paged.write_slot_prefix(int(slot), cache, length,
+                                         start=span_start)
+        self.paged.set_state_from(cache, mask_d)
         return self._argmax(logits)
+
+    def _span_args(self, done: int, clen: int) -> Tuple[int, int]:
+        """(length, start) for the pool write-back of a chunk that fed
+        positions [done, done+clen): the straight span, or the whole ring
+        when the chunk wrapped a windowed cache."""
+        seq = self.paged.seq_len
+        end = done + clen
+        if done >= seq or end > seq:
+            return seq, 0
+        return end, done
 
     # ------------------------------------------------------------------
     # host loop
@@ -219,6 +291,56 @@ class ServingRuntime:
         self.metrics.requests_submitted += 1   # after validation
         return req
 
+    def _pool_pressure(self, protect: int) -> bool:
+        """Free pool blocks: the scheduler preempts its latest-admitted
+        slot (``protect`` itself when no other is left).  False when
+        ``protect`` was evicted."""
+        t0 = self._now()
+        try:
+            victim = self.sched.pick_victim(protect=protect)
+            if victim is None:
+                victim = protect
+            self.sched.evict(victim)
+            self.paged.free_slot(victim)
+            return victim != protect
+        finally:
+            self.metrics.observe_timing("eviction", self._now() - t0)
+
+    def _alloc_or_evict(self, slot: int, length: int) -> bool:
+        """Block allocation for positions [0, length) with eviction
+        pressure; False when the requesting slot itself was evicted."""
+        while not self.paged.ensure(slot, length):
+            if not self._pool_pressure(slot):
+                return False
+        return True
+
+    def _cow_or_evict(self, slot: int, block_idxs) -> bool:
+        """Copy-on-write with eviction pressure (a copy needs one free
+        block); False when the requesting slot itself was evicted."""
+        block_idxs = list(block_idxs)
+        copies0 = self.paged.cow_copies
+        t0 = self._now()
+        try:
+            while not self.paged.cow_for_write(slot, block_idxs):
+                if not self._pool_pressure(slot):
+                    return False
+            return True
+        finally:
+            if self.paged.cow_copies > copies0:
+                self.metrics.observe_timing("cow_copy", self._now() - t0)
+
+    def _writable(self, slot: int, length: int, blocks) -> bool:
+        """Paged: allocate ``slot``'s blocks for positions [0, length) and
+        privatize the table entries ``blocks`` the next write touches;
+        False when the slot was evicted on the way."""
+        return self._alloc_or_evict(slot, length) and \
+            self._cow_or_evict(slot, blocks)
+
+    def _finish(self, slot: int, req: Request, now: float):
+        if self.paged is not None:
+            self.paged.free_slot(slot)
+        self.metrics.record_finish(req, now)
+
     def _plan_chunks(self) -> List[Tuple[int, Request, int]]:
         """One (slot, request, chunk_len) plan per pending-prefill slot."""
         plans = []
@@ -236,6 +358,10 @@ class ServingRuntime:
         token."""
         plans = self._plan_chunks()
         for Lb, group in self.sched.chunk_groups(plans):
+            if self.paged is not None:
+                group = self._paged_ready(group)
+                if not group:
+                    continue
             toks = np.zeros((self.n_slots, Lb), np.int32)
             start = np.full((self.n_slots,), Lb, np.int32)
             base = np.zeros((self.n_slots,), np.int32)
@@ -268,10 +394,45 @@ class ServingRuntime:
                     if not finished else 1
                 self._last_tok[slot] = int(nxt[slot])
                 if finished:
-                    self.metrics.record_finish(req, now)
+                    self._finish(slot, req, now)
+
+    def _paged_ready(self, group):
+        """The members of a chunk group whose blocks are allocated and
+        privatized for the chunk's write-back span.  An allocation may
+        evict members (this group's or a later one's): those are dropped."""
+        ready = []
+        for slot, req, clen in group:
+            if self.sched.slots[slot].request is not req:
+                continue    # evicted by an earlier allocation this round
+            done = self.sched.slots[slot].prefilled
+            blocks = ()
+            if self.paged.paged_names:
+                length, start = self._span_args(done, clen)
+                blocks = range(start // self.paged.block,
+                               -(-length // self.paged.block))
+            if self._writable(slot, done + clen, blocks):
+                ready.append((slot, req, clen))
+        return [(s, r, c) for s, r, c in ready
+                if self.sched.slots[s].request is r]
 
     def _do_decode(self):
         active_idx = self.sched.decode_slots()
+        if self.paged is not None:
+            # this step writes row cur - 1: the slot needs cur positions
+            # allocated and the written block privatized
+            survivors = []
+            for slot in active_idx:
+                if self.sched.slots[slot].request is None:
+                    continue    # evicted by pressure from a peer
+                cur = int(self._cur[slot])
+                blocks = ()
+                if self.paged.paged_names:
+                    blocks = [(cur - 1) % self.paged.seq_len
+                              // self.paged.block]
+                if self._writable(slot, cur, blocks):
+                    survivors.append(slot)
+            active_idx = [s for s in survivors
+                          if self.sched.slots[s].request is not None]
         if not active_idx:
             return
         active = np.zeros((self.n_slots,), bool)
@@ -290,7 +451,7 @@ class ServingRuntime:
             req = self.sched.slots[slot].request
             self.metrics.tokens_generated += 1
             if self.sched.on_token(slot, int(nxt[slot]), now):
-                self.metrics.record_finish(req, now)
+                self._finish(slot, req, now)
             else:
                 self._cur[slot] = self.sched.slots[slot].pos + 1
                 self._last_tok[slot] = int(nxt[slot])
@@ -304,8 +465,11 @@ class ServingRuntime:
         self.metrics.start()
         self.metrics.sample_queue(self.sched.queue_depth)
         for slot, _ in self.sched.admit():
-            self.cache = self.ops.reset_slot(self.cache, slot,
-                                             self._template)
+            if self.paged is not None:
+                self.paged.reset_state_slot(slot)
+            else:
+                self.cache = self.ops.reset_slot(self.cache, slot,
+                                                 self._template)
         self._do_prefill_round()
         self._do_decode()
         return True
