@@ -75,7 +75,15 @@ Phases (each raises on failure, so any failure exits non-zero):
    re-prefilled, prefill chunks of 8), after the monolithic runtime was
    freed: every request's tokens must equal the monolithic run's, every
    kernel's launches a model step the monolithic run's, and the short pool
-   must evict.
+   must evict.  Then (``serve_prefix``) 8 requests of 32 tokens whose
+   first 24 are one system prompt from the seed, served by a monolithic
+   runtime (the reference) and then through the prefix cache over the
+   full pool (blocks of 16, chunks of 8): the first wave publishes its
+   aligned 16 tokens, the second adopts them.  Every request's tokens and
+   the launches a model step must equal the reference run's; the hits,
+   hit tokens, positions fed and decode steps must equal a CPU dry run of
+   the same schedule (``prefix_dry_run``); the blocks held at the end must
+   be the entries', and every block free once they are cleared.
 4b. Ozaki-II serve: the same under ``oz2_h-4:df32:fast2:fused``, traced
    as phase 4 is.
 4c. Sign-magnitude serve: phase 4 under ``ozimmu_sm_h-4:df32:fused``.
@@ -130,7 +138,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    a model step, the peak against its prediction and a trace by kernel
    class with the tied head apart.  serve_ssm's requests are served again
    paged (``serve_ssm_paged``, no pool: only the per-slot state
-   machinery), checked as ``serve_paged``.
+   machinery), checked as ``serve_paged``, and prompts of its lengths
+   sharing their first 16 tokens through the prefix cache
+   (``serve_ssm_prefix``: a hit restores the state snapshot), checked as
+   ``serve_prefix``.
 11. Context serves (``serve_encdec``, then ``serve_vlm``): the published
    seamless-m4t-medium (12 encoder + 12 decoder layers, d_model 1024, 16
    heads, GELU d_ff 4096, vocab 256206) and llama-3.2-vision-11b (8 groups
@@ -245,6 +256,13 @@ ENC = dict(d=1024, f=4096, H=16, hd=64, V=256256, F=32)
 # positions, prefill chunks of PAGE_CHUNK, the attention families' pool
 # cut to PAGE_POOL blocks of the 12 their 4 slots of max_len 48 could hold
 PAGE_BLOCK, PAGE_CHUNK, PAGE_POOL = 16, 8, 8
+# the prefix passes (serve_prefix, serve_ssm_prefix): the phase's request
+# count and lengths again, their first PREFIX_SHARED[tag] tokens one
+# "system prompt" drawn from SEED, served monolithic (the reference) and
+# then paged in blocks of PAGE_BLOCK with chunks of PAGE_CHUNK, the slots'
+# full pool and the prefix cache: the first wave of SLOTS publishes the
+# aligned 16 tokens, the second adopts them
+PREFIX_SHARED = {"serve": 24, "serve_ssm": 16}
 # internlm2-1.8b training (train): the reference launcher's defaults of
 # global batch 8 and seq 256; step 0 and three more
 TRAIN = dict(batch=8, seq=256, steps=4)
@@ -1401,8 +1419,9 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=(),
     ``kernels`` must launch, and none in ``absent``.  ``trace``: then
     measure the device's idle share with a profiler trace
     (:func:`serve_trace`).  ``paged``: then serve the same requests from a
-    short block-paged pool (:func:`paged_pass`).  Returns (launch counts,
-    summary, the paged pass's launch counts or None)."""
+    short block-paged pool (:func:`paged_pass`), then requests that share
+    a system prompt through the prefix cache (:func:`prefix_pass`).
+    Returns (launch counts, summary, {extra path: launch counts})."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -1504,14 +1523,17 @@ def phase_serve(dev, spec, kernels, tag="serve", trace=False, absent=(),
         serve_trace(rt, prompts, tag, s)
     del rt, emu, nat
     torch.cuda.empty_cache()
-    paged_counts = None
+    extra = {}
     if paged:
-        paged_counts, _ = paged_pass(tag, cfg, params, prompts, GEN, mono,
-                                     card, dev, slots=SLOTS,
-                                     max_len=PROMPT + GEN, pool=PAGE_POOL)
+        extra[f"{tag}_paged"], _ = paged_pass(
+            tag, cfg, params, prompts, GEN, mono, card, dev, slots=SLOTS,
+            max_len=PROMPT + GEN, pool=PAGE_POOL)
+        extra[f"{tag}_prefix"] = prefix_pass(
+            tag, "internlm2_1_8b", cfg, params, [PROMPT] * REQUESTS, GEN,
+            card, dev, slots=SLOTS, max_len=PROMPT + GEN)
     del params
     torch.cuda.empty_cache()
-    return counts, s, paged_counts
+    return counts, s, extra
 
 
 def cache_bytes(cache) -> int:
@@ -1519,7 +1541,7 @@ def cache_bytes(cache) -> int:
 
 
 def paged_pass(tag, cfg, params, prompts, gen, mono, card, dev, *,
-               slots, max_len, pool=None, ctx=None):
+               slots, max_len, pool=None, ctx=None, prefix=None):
     """Serve ``prompts`` again through a paged ``ServingRuntime`` (blocks
     of ``PAGE_BLOCK`` positions, ``pool`` of them or the slots' capacity,
     prefill chunks of ``PAGE_CHUNK``) after the phase freed its
@@ -1529,19 +1551,25 @@ def paged_pass(tag, cfg, params, prompts, gen, mono, card, dev, *,
     step (a position a prefill call feeds, or a decode step) exactly the
     monolithic run's, route by route; evictions where the pool is short;
     every block free at the end.  Logs the pool's bytes beside the
-    monolithic cache's, tok/s, ms a model step and the peak.  Returns
-    (launch counts, summary)."""
+    monolithic cache's, tok/s, ms a model step and the peak.  ``prefix``:
+    serve with the prefix cache (pass ``{tag}_prefix``) and hold its
+    schedule to this prediction of :func:`prefix_dry_run` (hits, hit
+    tokens, misses, insertions, positions fed, prefill tokens, decode
+    steps, evictions); hits > 0, each adopting the whole published
+    length, the blocks held at the end exactly the entries', every block
+    free once they are cleared.  Returns (launch counts, summary)."""
     import gc
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingRuntime
-    ptag = f"{tag}_paged"
+    ptag = f"{tag}_paged" if prefix is None else f"{tag}_prefix"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rt = ServingRuntime(cfg, params, slots=slots, max_len=max_len,
                         page_block=PAGE_BLOCK, page_blocks=pool,
-                        prefill_chunk=PAGE_CHUNK, ctx=ctx, device=dev)
+                        prefill_chunk=PAGE_CHUNK, ctx=ctx,
+                        prefix_cache=prefix is not None, device=dev)
     paged = rt.paged
     fed = []                   # the bucket length of every prefill call
     prefill = rt._prefill
@@ -1598,6 +1626,8 @@ def paged_pass(tag, cfg, params, prompts, gen, mono, card, dev, *,
     if pool is not None and s["evictions"] <= 0:
         raise AssertionError(f"{ptag}: a pool of {pool} blocks evicted "
                              f"nothing")
+    if prefix is not None:
+        check_prefix(ptag, rt, s, fed, prefix, mono)
     if paged.free_block_count != paged.n_blocks:
         raise AssertionError(f"{ptag}: {paged.live_blocks} blocks still "
                              f"live at the end")
@@ -1609,6 +1639,129 @@ def paged_pass(tag, cfg, params, prompts, gen, mono, card, dev, *,
     gc.collect()
     torch.cuda.empty_cache()
     return counts, s
+
+
+def shared_prefix_prompts(vocab: int, lens, shared: int):
+    """Prompts of ``lens`` tokens whose first ``shared`` are one system
+    prompt, all drawn from ``SEED``."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(0, vocab, size=shared, dtype=np.int32)
+    return [np.concatenate([system, rng.integers(
+        0, vocab, size=n - shared, dtype=np.int32)]) for n in lens]
+
+
+def prefix_dry_run(arch, prompts, gen, *, slots, max_len):
+    """The prefix pass's schedule predicted on the CPU: the same runtime
+    (blocks of ``PAGE_BLOCK``, chunks of ``PAGE_CHUNK``, the full pool,
+    the prefix cache) over ``arch``'s smoke config, its device steps
+    replaced by stubs that return token 0.  Without an eos the schedule
+    depends on the prompts' lengths and shared prefixes alone, and the
+    pool's geometry (positions a block, blocks a slot) on ``max_len``, not
+    on the width."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serving import ServingRuntime
+    cfg = configs.get_config(arch, smoke=True, engine_spec="f32")
+    params = api.get_model(cfg).init(
+        cfg, generator=torch.Generator().manual_seed(SEED), device="cpu")
+    rt = ServingRuntime(cfg, params, slots=slots, max_len=max_len,
+                        page_block=PAGE_BLOCK, prefill_chunk=PAGE_CHUNK,
+                        prefix_cache=True, device="cpu")
+    fed = []
+
+    def prefill(toks, start, base, newmask):
+        fed.append(toks.shape[1])
+        return np.zeros((slots,), np.int32)
+    rt._prefill = prefill
+    rt._decode = lambda toks, cur, active: np.zeros((slots,), np.int32)
+    for p in prompts:
+        rt.submit(p, gen)
+    s = rt.run()
+    return prefix_schedule(rt, s, fed)
+
+
+def prefix_schedule(rt, s, fed):
+    st = rt.prefix.stats
+    return dict(hits=st.hits, hit_tokens=st.hit_tokens, misses=st.misses,
+                inserted=st.inserted, positions=sum(fed),
+                prefill_tokens=s["prefill_tokens"],
+                decode_steps=s["decode_steps"], evictions=s["evictions"])
+
+
+def check_prefix(ptag, rt, s, fed, predicted, mono):
+    """The prefix pass's schedule against the CPU dry run's; hits that
+    adopt the whole published length; the blocks held after the run
+    exactly the entries'; every block free once they are cleared."""
+    got = prefix_schedule(rt, s, fed)
+    m = rt.prefix.max_publish_len(min(len(r.prompt) for r in mono["reqs"]))
+    log(f"[{ptag}] prefix cache: {got} (the CPU dry run predicted "
+        f"{predicted}); {got['hit_tokens']} prompt tokens adopted, "
+        f"{mono['positions'] - got['positions']} fewer positions fed than "
+        f"the monolithic run's {mono['positions']}; {len(rt.prefix)} "
+        f"entries of {m} tokens")
+    if got != predicted:
+        raise AssertionError(f"{ptag}: schedule {got}, the dry run "
+                             f"predicted {predicted}")
+    if got["hits"] <= 0 or got["hit_tokens"] != got["hits"] * m:
+        raise AssertionError(f"{ptag}: {got['hits']} hits of "
+                             f"{got['hit_tokens']} tokens, not of {m} each")
+    paged = rt.paged
+    held = {b for e in rt.prefix.entries.values() for b in e.blocks}
+    if paged.live_blocks != len(held):
+        raise AssertionError(f"{ptag}: {paged.live_blocks} blocks live "
+                             f"after the run, the entries hold {len(held)}")
+    rt.prefix.clear()
+
+
+def prefix_pass(tag, arch, cfg, params, lens, gen, card, dev, *, slots,
+                max_len, chunk=None):
+    """Requests of ``lens`` tokens sharing their first
+    ``PREFIX_SHARED[tag]`` (:func:`shared_prefix_prompts`) served by a
+    monolithic runtime (prefill chunks of ``chunk``; the reference), then
+    through the prefix cache (:func:`paged_pass` with the prediction of
+    :func:`prefix_dry_run`).  Returns the prefix pass's launch counts."""
+    import gc
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingRuntime
+    prompts = shared_prefix_prompts(cfg.vocab, lens, PREFIX_SHARED[tag])
+    predicted = prefix_dry_run(arch, prompts, gen, slots=slots,
+                               max_len=max_len)
+    rt = ServingRuntime(cfg, params, slots=slots, max_len=max_len,
+                        prefill_chunk=chunk, device=dev)
+    fed = []
+    prefill = rt._prefill
+
+    def counted(toks, *args):
+        fed.append(toks.shape[1])
+        return prefill(toks, *args)
+    rt._prefill = counted
+    reset_launches()
+    reqs = [rt.submit(p, gen) for p in prompts]
+    s = rt.run()
+    torch.cuda.synchronize()
+    steps = sum(fed) + s["decode_steps"]
+    mono = dict(reqs=reqs, counts=dict(LAUNCHES), steps=steps, s=s,
+                positions=sum(fed), cache_bytes=cache_bytes(rt.cache))
+    log(f"[{tag}_prefix] {card}: the monolithic reference: "
+        f"{len(prompts)} prompts of {sorted(set(lens))} tokens sharing "
+        f"their first {PREFIX_SHARED[tag]}, {s['tokens_generated']} tokens "
+        f"in {s['elapsed_s']:.2f} s ({s['tokens_per_s']:.2f} tok/s, TTFT "
+        f"mean {s['ttft_s']['mean']:.3f} s), {steps} model steps "
+        f"({s['elapsed_s'] / steps * 1e3:.1f} ms a step; {sum(fed)} "
+        f"positions fed)")
+    if len({t for r in reqs for t in r.generated}) <= len(reqs):
+        raise AssertionError(f"{tag}_prefix: the continuations barely vary")
+    rt._prefill = prefill
+    del rt, prefill, counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, _ = paged_pass(tag, cfg, params, prompts, gen, mono, card, dev,
+                           slots=slots, max_len=max_len, prefix=predicted)
+    return counts
 
 
 # what moe_depth keeps free beyond its reckoning: the activations, the
@@ -2144,15 +2297,19 @@ def phase_serve_state(dev, arch, card):
     serve_trace(rt, prompts, tag, s, trace_prompt=8, trace_gen=2,
                 untraced_steps=steps, head=True)
     del rt, prefill, counted      # the bound method holds the runtime
-    paged_counts = None
+    extra = {}
     if spec.get("paged"):
-        paged_counts, _ = paged_pass(tag, cfg, params, prompts, STATE_GEN,
-                                     mono, card, dev, slots=STATE_SLOTS,
-                                     max_len=STATE_MAX_LEN)
+        extra[f"{tag}_paged"], _ = paged_pass(
+            tag, cfg, params, prompts, STATE_GEN, mono, card, dev,
+            slots=STATE_SLOTS, max_len=STATE_MAX_LEN)
+        extra[f"{tag}_prefix"] = prefix_pass(
+            tag, arch, cfg, params, [len(p) for p in prompts], STATE_GEN,
+            card, dev, slots=STATE_SLOTS, max_len=STATE_MAX_LEN,
+            chunk=spec["chunk"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, s, paged_counts
+    return counts, s, extra
 
 
 # the context families served (serve_encdec, serve_vlm): SLOTS slots,
@@ -2380,16 +2537,15 @@ def phase_serve_ctx(dev, arch, card):
     serve_trace(rt, prompts, tag, s, trace_prompt=8, trace_gen=2,
                 untraced_steps=steps)
     del rt
-    paged_counts = None
+    extra = {}
     if arch in CTX_PAGED:
-        paged_counts, _ = paged_pass(tag, cfg, params, prompts, GEN, mono,
-                                     card, dev, slots=SLOTS,
-                                     max_len=PROMPT + GEN, pool=PAGE_POOL,
-                                     ctx=ctx)
+        extra[f"{tag}_paged"], _ = paged_pass(
+            tag, cfg, params, prompts, GEN, mono, card, dev, slots=SLOTS,
+            max_len=PROMPT + GEN, pool=PAGE_POOL, ctx=ctx)
     del params, ctx
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, s, paged_counts
+    return counts, s, extra
 
 
 def serve_trace(rt, prompts, tag, untraced, *, prompt_len=PROMPT,
@@ -2941,9 +3097,10 @@ def main() -> int:
     paths["dgemm_sm"], _ = phase_dgemm(
         dev, SM_DGEMM_SPEC, ("split_fused", "group_gemm", "scale_accum_plain"),
         tag="dgemm_sm", small_too=(SM_PAIRWISE_SPEC,))
-    paths["serve"], _, paths["serve_paged"] = phase_serve(
+    paths["serve"], _, extra = phase_serve(
         dev, MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
         trace=True, paged=True, card=card)
+    paths.update(extra)
     paths["serve_oz2"], _, _ = phase_serve(
         dev, OZ2_MODEL_SPEC, ("split_fused", "group_gemm",
                               "scale_accum_const"),
@@ -2958,13 +3115,11 @@ def main() -> int:
                                             "serve_mla")
     for arch in STATE_SERVE:
         tag = STATE_SERVE[arch]["tag"]
-        paths[tag], _, paged = phase_serve_state(dev, arch, card)
-        if paged is not None:
-            paths[f"{tag}_paged"] = paged
+        paths[tag], _, extra = phase_serve_state(dev, arch, card)
+        paths.update(extra)
     for arch, tag in CTX_SERVE.items():
-        paths[tag], _, paged = phase_serve_ctx(dev, arch, card)
-        if paged is not None:
-            paths[f"{tag}_paged"] = paged
+        paths[tag], _, extra = phase_serve_ctx(dev, arch, card)
+        paths.update(extra)
 
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -10,9 +10,11 @@ versions).  Like the reference it serves the arch's smoke config unless
 ``--full`` asks for the published one; weights are random, drawn from
 ``--seed``.  The vlm and encdec archs serve with the reference's static
 per-slot context (:func:`slot_context`).  ``--page-block`` serves every
-family from the block-paged KV pool.  ``--prefix-cache``, ``--mesh``,
-``--metrics-json`` and ``--profile-dir`` keep the reference's flags and
-raise until the slices that bring them (prefix cache, distributed, obs).
+family from the block-paged KV pool, and ``--prefix-cache`` adds the
+prefix KV cache over it (the random prompts here share no prefix, so the
+hit rate it prints is 0.00).  ``--mesh``, ``--metrics-json`` and
+``--profile-dir`` keep the reference's flags and raise until the slices
+that bring them (distributed, obs).
 """
 from __future__ import annotations
 
@@ -77,7 +79,8 @@ def main(argv=None):
                     help="max prompt tokens fed per slot per scheduler "
                          "round (chunked prefill; default whole-prompt)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="prefix cache (not ported yet)")
+                    help="cache shared prompt prefixes as frozen paged "
+                         "blocks (requires --page-block)")
     ap.add_argument("--no-presplit", action="store_true",
                     help="disable the weight split-cache (A/B baseline; "
                          "ozimmu engines only)")
@@ -98,8 +101,7 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, later in (("prefix_cache", "prefix-cache"),
-                        ("mesh", "distributed"), ("metrics_json", "obs"),
+    for flag, later in (("mesh", "distributed"), ("metrics_json", "obs"),
                         ("profile_dir", "obs")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} comes "
@@ -121,6 +123,7 @@ def main(argv=None):
                            max_len=args.max_len,
                            page_block=args.page_block,
                            prefill_chunk=args.prefill_chunk,
+                           prefix_cache=args.prefix_cache,
                            presplit=False if args.no_presplit else None,
                            ctx=ctx, device=device)
     if runtime.split_cache is not None:
@@ -153,6 +156,11 @@ def main(argv=None):
               f"{sc['weight_split_hit_rate']:.2f}, "
               f"{sc['avoided_split_bytes'] / 1e6:.2f} MB of decode-time "
               f"re-splitting avoided")
+    if s.get("prefix_cache") is not None:
+        pc = s["prefix_cache"]
+        print(f"[serve] prefix-cache: hit rate {pc['hit_rate']:.2f} "
+              f"({pc['hit_tokens']} prefill tokens aliased, "
+              f"{pc['entries']} entries)")
     print("[serve] sample continuation:",
           outs[0][-args.gen:][:16].tolist())
     return s

@@ -49,9 +49,14 @@ span (prefill); state leaves merge per participating slot, so no decode
 step needs ``_decode_select``.  Blocks are allocated as sequences grow;
 when the pool runs dry the scheduler evicts the latest-admitted slot,
 whose request re-prefills its prompt and generated tokens later.  A paged
-run gives the monolithic runtime's tokens.  The prefix cache, which
-aliases the pool's blocks, comes with a later slice of the port and
-raises until then.
+run gives the monolithic runtime's tokens.
+
+With ``prefix_cache`` as well, a fresh prompt's cold prefill stops a
+chunk at its aligned publication length and publishes the slot's blocks
+and state there (:class:`~repro_torch.serving.prefix_cache.PrefixCache`);
+a later request whose prompt starts with a published prefix adopts it at
+admission and prefills only its suffix.  Under pool pressure LRU entries
+are released before any slot is preempted.
 """
 from __future__ import annotations
 
@@ -69,6 +74,7 @@ from repro_torch.serving import presplit as presplit_mod
 from repro_torch.serving.kvcache import (STATE_DESCRIPTORS, PagedKV,
                                          SlotCacheOps)
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler
 
 __all__ = ["ServingRuntime"]
@@ -110,7 +116,9 @@ class ServingRuntime:
         per-slot state machinery); None keeps the monolithic cache.
       page_blocks: pool size in blocks (default: full capacity,
         slots * max_len / page_block; fewer exercise eviction).
-      prefix_cache: comes with the prefix-cache slice of the port; raises.
+      prefix_cache: True (or a :class:`PrefixCache` bound to this
+        runtime's pool) serves shared prompt prefixes by block aliasing;
+        requires ``page_block``.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 128,
@@ -119,10 +127,6 @@ class ServingRuntime:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache=False, presplit: Optional[bool] = None,
                  ctx=None, now=time.monotonic, device=None):
-        if prefix_cache:
-            raise NotImplementedError("the prefix cache comes with the "
-                                      "prefix-cache slice of the port; use "
-                                      "prefix_cache=False")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
@@ -175,6 +179,16 @@ class ServingRuntime:
                     cfg, slots, max_len, params=self.params,
                     ctx=None if ctx is None else torch.cat([ctx] * slots),
                     device=self.device)
+        self.prefix: Optional[PrefixCache] = None
+        # NOT a truthiness test: an empty PrefixCache has len() == 0
+        if isinstance(prefix_cache, PrefixCache) or prefix_cache:
+            if self.paged is None:
+                raise ValueError("the prefix cache aliases paged blocks; "
+                                 "it requires page_block")
+            self.prefix = prefix_cache if isinstance(
+                prefix_cache, PrefixCache) else PrefixCache(self.paged, cfg)
+            if self.prefix.paged is not self.paged:
+                raise ValueError("prefix cache bound to another pool")
         # under chunking, monolithic decode freezes mid-prefill slots'
         # recurrent states (the reference's rule; paged state leaves merge
         # per active slot instead)
@@ -292,11 +306,14 @@ class ServingRuntime:
         return req
 
     def _pool_pressure(self, protect: int) -> bool:
-        """Free pool blocks: the scheduler preempts its latest-admitted
-        slot (``protect`` itself when no other is left).  False when
-        ``protect`` was evicted."""
+        """Free pool blocks: LRU prefix entries go first (cheaper to lose
+        than live progress), then the scheduler preempts its
+        latest-admitted slot (``protect`` itself when no other is left).
+        False when ``protect`` was evicted."""
         t0 = self._now()
         try:
+            if self.prefix is not None and self.prefix.release_one():
+                return True
             victim = self.sched.pick_victim(protect=protect)
             if victim is None:
                 victim = protect
@@ -341,16 +358,52 @@ class ServingRuntime:
             self.paged.free_slot(slot)
         self.metrics.record_finish(req, now)
 
+    def _on_admit(self, slot: int, req: Request):
+        """Per-slot cache preparation at admission: the template reset, or
+        a prefix-cache adoption that starts the slot mid-prefill."""
+        if self.paged is None:
+            self.cache = self.ops.reset_slot(self.cache, slot,
+                                             self._template)
+            return
+        entry = None if self.prefix is None else \
+            self.prefix.lookup(req.prefill_tokens())
+        if entry is not None:
+            # prefill for the aliased positions is this table write
+            self.sched.slots[slot].prefilled = self.prefix.adopt(slot,
+                                                                 entry)
+        else:
+            self.paged.reset_state_slot(slot)
+
     def _plan_chunks(self) -> List[Tuple[int, Request, int]]:
-        """One (slot, request, chunk_len) plan per pending-prefill slot."""
+        """One (slot, request, chunk_len) plan per pending-prefill slot:
+        the remaining prefill, capped by ``prefill_chunk``; a fresh prompt
+        under the prefix cache also stops at its aligned publication
+        length, so that the state snapshot exists there."""
         plans = []
         for slot, req in self.sched.pending_prefill():
             total = len(req.prefill_tokens())
-            clen = total - self.sched.slots[slot].prefilled
+            done = self.sched.slots[slot].prefilled
+            clen = total - done
             if self.prefill_chunk is not None:
                 clen = min(clen, self.prefill_chunk)
+            if self.prefix is not None and not req.generated:
+                m_pub = self.prefix.max_publish_len(total)
+                if done < m_pub:
+                    clen = min(clen, m_pub - done)
             plans.append((slot, req, clen))
         return plans
+
+    def _maybe_publish(self, slot: int, req: Request):
+        """Publish the frozen prefix when a chunk boundary lands on the
+        prompt's aligned publication length (fresh prompts only: an
+        evicted request resumes with generated tokens and re-hits
+        instead).  The chunk's span is already written back."""
+        if self.prefix is None or req.generated:
+            return
+        m_pub = self.prefix.max_publish_len(len(req.prompt))
+        if m_pub >= self.prefix.block and \
+                self.sched.slots[slot].prefilled == m_pub:
+            self.prefix.publish(req.prompt, m_pub, slot)
 
     def _do_prefill_round(self):
         """Feed ONE chunk into every pending-prefill slot (grouped by
@@ -387,6 +440,7 @@ class ServingRuntime:
                 if done + clen < total:
                     self.sched.on_chunk(slot, clen)
                     self.metrics.prefill_chunks += 1
+                    self._maybe_publish(slot, req)
                     continue
                 self.metrics.tokens_generated += 1  # the first new token
                 finished = self.sched.on_prefilled(slot, int(nxt[slot]), now)
@@ -464,12 +518,8 @@ class ServingRuntime:
             return False
         self.metrics.start()
         self.metrics.sample_queue(self.sched.queue_depth)
-        for slot, _ in self.sched.admit():
-            if self.paged is not None:
-                self.paged.reset_state_slot(slot)
-            else:
-                self.cache = self.ops.reset_slot(self.cache, slot,
-                                                 self._template)
+        for slot, req in self.sched.admit():
+            self._on_admit(slot, req)
         self._do_prefill_round()
         self._do_decode()
         return True
@@ -485,6 +535,8 @@ class ServingRuntime:
         self.metrics.stop()
         self.metrics.evictions = self.sched.evictions - \
             self._evictions_at_reset
+        if self.prefix is not None:
+            self.metrics.prefix_cache = self.prefix.summary()
         if self.split_cache is not None:
             d = self.split_cache.stats.as_dict()
             # MEASURED hit rate from the engine's consumption counters:
@@ -507,11 +559,14 @@ class ServingRuntime:
         return self.metrics.summary()
 
     def reset_metrics(self):
-        """Fresh metrics window; scheduler and caches are untouched."""
+        """Fresh metrics window; scheduler, caches and prefix-cache
+        entries are untouched (the prefix hit counters restart)."""
         self.metrics = ServingMetrics(now=self._now)
         self._avoided_split_bytes = 0
         self._evictions_at_reset = self.sched.evictions
         self._presplit_counts0 = presplit_trace_counts()
+        if self.prefix is not None:
+            self.prefix.reset_stats()
 
     def generate(self, prompts: List[np.ndarray], max_new: int,
                  eos_id: Optional[int] = None) -> List[np.ndarray]:

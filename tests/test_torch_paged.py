@@ -26,9 +26,10 @@ What is held, and how tightly:
   reference's paged runtime, token for token and eviction for eviction;
   the pool's view equal to the monolithic cache after every round of a
   run stepped beside it; the launcher serves ``--page-block 8
-  --prefill-chunk 4`` for the three archs the CI's serving smokes run, and
-  the runtime's and the launcher's prefix-cache switch raises, naming the
-  slice that brings it.
+  --prefill-chunk 4``, with and without ``--prefix-cache`` (the CI's
+  serving smokes' flags), for the three archs those smokes run; the prefix
+  cache without ``page_block`` raises, and so do the launcher's flags of
+  the slices not yet ported, each naming its slice.
 """
 import numpy as np
 import pytest
@@ -364,15 +365,25 @@ def test_dense_paged_runtime_matches_reference_paged_runtime():
 
 
 def test_prefix_cache_raises_naming_its_slice():
+    """The prefix cache is ported (``--prefix-cache`` serves, see
+    ``test_launcher_serves_paged``) and raises only without a pool; the
+    launcher's flags of the slices not yet ported raise, each naming its
+    slice, before any model is built."""
     from repro_torch.launch import serve
     from repro_torch.serving import ServingRuntime
     cfg = P_configs.get_config("internlm2_1_8b", smoke=True)
-    with pytest.raises(NotImplementedError, match="prefix-cache slice"):
-        ServingRuntime(cfg, {}, slots=2, max_len=16, page_block=8,
-                       prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix-cache slice"):
-        serve.main(["--page-block", "8", "--prefix-cache", "--device",
-                    "cpu"])
+    params = P_api.get_model(cfg).init(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="requires page_block"):
+        ServingRuntime(cfg, params, slots=2, max_len=16, prefix_cache=True,
+                       device="cpu")
+    for flag, value, later in (("--mesh", "data=2", "distributed"),
+                               ("--metrics-json", "m.json", "obs"),
+                               ("--profile-dir", "prof", "obs")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{flag} comes with the {later} slice"):
+            serve.main(["--page-block", "8", "--prefix-cache", flag, value,
+                        "--device", "cpu"])
 
 
 def test_paged_view_is_the_monolithic_cache():
@@ -418,18 +429,34 @@ def test_paged_view_is_the_monolithic_cache():
         [r.generated for r in mono.sched.finished]
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_780m",
-                                  "seamless_m4t_medium"])
-def test_launcher_serves_paged(arch, capsys):
+LAUNCH_ARCHS = ("internlm2_1_8b", "mamba2_780m", "seamless_m4t_medium")
+
+
+@pytest.mark.parametrize(
+    "arch,prefix",
+    [pytest.param(a, False, id=a) for a in LAUNCH_ARCHS]
+    + [pytest.param(a, True, id=f"{a}-prefix-cache") for a in LAUNCH_ARCHS])
+def test_launcher_serves_paged(arch, prefix, capsys):
     """``python -m repro_torch.launch.serve --page-block 8
-    --prefill-chunk 4`` (the CI's serving smokes without
-    ``--prefix-cache``) serves each arch on the CPU."""
+    --prefill-chunk 4`` serves each arch on the CPU, and with
+    ``--prefix-cache`` too (the CI's serving smokes' exact flags; prompts
+    of 10 publish 8 tokens, but the launcher's random prompts share no
+    prefix, so nothing hits)."""
     from repro_torch.launch import serve
-    s = serve.main(["--arch", arch, "--slots", "2", "--requests", "3",
-                    "--prompt-len", "6", "--gen", "3", "--max-len", "16",
-                    "--engine", FUSED, "--page-block", "8",
-                    "--prefill-chunk", "4", "--device", "cpu"])
+    argv = ["--arch", arch, "--slots", "2", "--requests", "3",
+            "--prompt-len", "10" if prefix else "6", "--gen", "3",
+            "--max-len", "16", "--engine", FUSED, "--page-block", "8",
+            "--prefill-chunk", "4", "--device", "cpu"]
+    s = serve.main(argv + ["--prefix-cache"] if prefix else argv)
     assert s["requests"]["finished"] == 3 and s["tokens_generated"] == 9
     assert s["prefill_chunks"] > 0 and s["evictions"] == 0
     assert s["split_cache"]["weight_split_hit_rate"] == 1.0
-    assert f"[serve] {arch} on cpu" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert f"[serve] {arch} on cpu" in out
+    if prefix:
+        pc = s["prefix_cache"]
+        assert (pc["hits"], pc["misses"], pc["inserted"]) == (0, 3, 3)
+        assert "[serve] prefix-cache: hit rate 0.00 (0 prefill tokens " \
+            "aliased, 3 entries)" in out
+    else:
+        assert s["prefix_cache"] is None

@@ -2,7 +2,8 @@
 with chunked prefill gives the tokens of the port's monolithic,
 unchunked runtime — the port's counterpart of the reference's
 ``tests/test_prefix_cache.py::test_family_prefix_chunked_paged_matches_monolithic``
-without the prefix cache (a later slice).
+without the prefix cache (``tests/test_torch_prefix_families.py`` adds
+it).
 
 Each arch's ``smoke()`` config under ``ozimmu_h-4:df32:fused`` (the
 kernels' plain versions), weights from the port's seeded init, 2 slots, 3
@@ -23,15 +24,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import configs
-from repro_torch.launch import serve
-from repro_torch.models import api, encdec
 from repro_torch.serving import ServingRuntime
+from tests.torch_parity import family_context as _context
+from tests.torch_parity import family_model as _model
 
 torch.set_num_threads(1)
-
-FUSED = "ozimmu_h-4:df32:fused"
-EMBED_SCALE = 0.05
 
 # arch -> (max_len, prompt lengths, new tokens, prefill chunk, pool
 # blocks of 8 positions or None for the slots' full capacity)
@@ -44,36 +41,6 @@ CASES = {
     "mamba2_780m": (16, (5, 7, 6), 4, 3, None),
     "recurrentgemma_9b": (48, (27, 27, 27), 6, 8, 6),
 }
-
-
-def _model(arch):
-    cfg = configs.get_config(arch, smoke=True, engine_spec=FUSED)
-    model = api.get_model(cfg)
-    gen = torch.Generator().manual_seed(0)
-    params = model.init(cfg, generator=gen, device="cpu")
-    if cfg.family in ("ssm", "hybrid"):
-        params["embed"].mul_(EMBED_SCALE)
-    if cfg.family == "vlm":
-        for name in ("gate_attn", "gate_mlp"):
-            g = params["groups"]["cross"][name]
-            sign = torch.where(torch.rand(g.shape, generator=gen) < 0.5,
-                               -1.0, 1.0)
-            g.copy_((torch.rand(g.shape, generator=gen) + 0.5) * sign)
-    return cfg, params
-
-
-def _context(cfg, params, rows, seed):
-    """``slot_context``'s context with its zero patch embeddings / frames
-    drawn N(0, 1) from ``seed``."""
-    gen = torch.Generator().manual_seed(seed)
-    if cfg.family == "vlm":
-        return torch.randn((1, cfg.vision_seq, cfg.d_model), generator=gen)
-    if cfg.family == "encdec":
-        with torch.no_grad():
-            return encdec.encode(params, cfg, torch.randn(
-                (1, rows, cfg.d_model), generator=gen))
-    assert serve.slot_context(cfg, params, rows) is None
-    return None
 
 
 @pytest.mark.parametrize("arch", list(CASES))

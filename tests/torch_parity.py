@@ -1,12 +1,17 @@
-"""Shared helper of the port's model parity tests (not collected): every
-emulated contraction of a block, held bitwise to the reference's.
+"""Shared helpers of the port's model parity tests (not collected).
 
-The reference runs its contractions inside jitted code (and its scans
-trace their bodies once), so its operands are not at hand; instead the
-port's operands and outputs are recorded call by call, the reference's
-contraction shapes are recorded from a trace with its scans unrolled, and
-the reference engine re-evaluates each of the port's contractions on the
-port's own operands.
+* :func:`contractions_bitwise`: every emulated contraction of a block,
+  held bitwise to the reference's.  The reference runs its contractions
+  inside jitted code (and its scans trace their bodies once), so its
+  operands are not at hand; instead the port's operands and outputs are
+  recorded call by call, the reference's contraction shapes are recorded
+  from a trace with its scans unrolled, and the reference engine
+  re-evaluates each of the port's contractions on the port's own operands.
+* :func:`family_model` / :func:`family_context`: a family's ``smoke()``
+  model under ``:fused`` from the port's seeded init, and a seeded
+  context, as the serving family tests use them (against vacuous checks:
+  the tied heads' ``embed`` scaled by :data:`EMBED_SCALE`, the vlm's gates
+  and the context families' contexts drawn from a seed).
 """
 import jax
 import jax.numpy as jnp
@@ -14,7 +19,16 @@ import numpy as np
 import torch
 
 from repro.core import engine as R_engine
+from repro_torch import configs as P_configs
 from repro_torch.core import engine as P_engine
+from repro_torch.launch import serve as P_serve
+from repro_torch.models import api as P_api
+from repro_torch.models import encdec as P_encdec
+
+FUSED = "ozimmu_h-4:df32:fused"
+# the tied heads (mamba2, recurrentgemma) echo the last token at the
+# init's embedding scale
+EMBED_SCALE = 0.05
 
 _REF_DOTS = {}
 
@@ -81,3 +95,37 @@ def contractions_bitwise(monkeypatch, ref_spec, run_ref, run_port):
             _ref_dot(ref_spec, lhs, rhs, dnums).view(np.int32))
     return jax.tree.map(np.asarray, jax.jit(run_ref)()), out, \
         len(port_calls)
+
+
+def family_model(arch):
+    """``arch``'s ``smoke()`` config under :data:`FUSED` and its seeded
+    parameters on the CPU; the tied heads' ``embed`` scaled by
+    :data:`EMBED_SCALE`, the vlm's gates drawn as +-U(0.5, 1.5) (the
+    init's zero gates make every cross layer the identity)."""
+    cfg = P_configs.get_config(arch, smoke=True, engine_spec=FUSED)
+    model = P_api.get_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(cfg, generator=gen, device="cpu")
+    if cfg.family in ("ssm", "hybrid"):
+        params["embed"].mul_(EMBED_SCALE)
+    if cfg.family == "vlm":
+        for name in ("gate_attn", "gate_mlp"):
+            g = params["groups"]["cross"][name]
+            sign = torch.where(torch.rand(g.shape, generator=gen) < 0.5,
+                               -1.0, 1.0)
+            g.copy_((torch.rand(g.shape, generator=gen) + 0.5) * sign)
+    return cfg, params
+
+
+def family_context(cfg, params, rows, seed):
+    """``slot_context``'s context with its zero patch embeddings / frames
+    drawn N(0, 1) from ``seed``; None for the families without one."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm":
+        return torch.randn((1, cfg.vision_seq, cfg.d_model), generator=gen)
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            return P_encdec.encode(params, cfg, torch.randn(
+                (1, rows, cfg.d_model), generator=gen))
+    assert P_serve.slot_context(cfg, params, rows) is None
+    return None
