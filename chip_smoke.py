@@ -54,7 +54,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    through the split and epilogue kernels, bitwise.  Neither the split's
    nor the epilogues' wrappers may run a PyTorch operation on the card
    besides their output allocations and views (checked under a dispatch
-   mode).
+   mode, with the obs layer enabled and no profiler recording).  The
+   functional epilogues of ``ops`` (``scale_accum``, ``scale_accum_plain``,
+   ``oz2_scale_accum``, ``oz2_scale_accum_plain``, ``oz2_unscale``) equal
+   their ``*_update`` hooks bitwise and leave their accumulators as they
+   were.  A ``[host]`` line gives the group GEMM wrapper's host us a call
+   and the obs layer's: ``ozimmu._record_emulation`` (at most 5 us) and an
+   untraced phase scope.
 3. DGEMM: ``ozimmu_matmul`` under ``ozimmu_h-8:f64:fused`` at n = 4096,
    error against ``torch.matmul`` in f64, plus a small input that must
    equal the CPU plain-version pipeline bit for bit.
@@ -87,6 +93,20 @@ Phases (each raises on failure, so any failure exits non-zero):
 4b. Ozaki-II serve: the same under ``oz2_h-4:df32:fast2:fused``, traced
    as phase 4 is.
 4c. Sign-magnitude serve: phase 4 under ``ozimmu_sm_h-4:df32:fused``.
+4d. Observability serve (``serve_obs``): ``launch.serve.main`` with the
+   CI's observability flags (2 slots, 3 requests of 8 tokens, 4 new,
+   blocks of 8, chunks of 4, the prefix cache, ``--metrics-json`` every 2
+   rounds, ``--profile-dir``) at the published width (``--full``) under
+   ``ozimmu_h-4:df32:fused``: the CI snippet's assertions on the
+   document, the periodic dumps, ``decode_observed`` (217 contractions;
+   int8 GEMMs the Plan's over the first decode step's contractions, those
+   on frozen weights every weight contraction's), the final snapshot's
+   Prometheus text lint-clean, every split, group GEMM and epilogue kernel
+   launched under its ``ozimmu/split``, ``ozimmu/group_gemm``,
+   ``ozimmu/scale_accum`` range of the trace, the exact launches a model
+   step; then the same requests with obs off and on in turns (off, on,
+   on, off): the same tokens and launches a model step, and ms a model
+   step on against off.
 5. Flash: the reference's flash entry point ``ops.flash_attention`` at
    internlm2-1.8b's attention width (B 1, L 4096, H 16, KV 8, D 128,
    causal) against the port's ``layers.attention_flash`` (3e-5), and the
@@ -1181,8 +1201,78 @@ def phase_kernels(dev):
             f"({b_by})  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}{extra}")
     no_torch_ops(dev)
+    functional_epilogues(dev)
     reset_launches()     # comparison launches do not count
     return results
+
+
+def functional_epilogues(dev):
+    """The reference's functional epilogues in ``ops`` (``scale_accum``,
+    ``scale_accum_plain``, ``oz2_scale_accum``, ``oz2_scale_accum_plain``,
+    ``oz2_unscale``: new outputs, the accumulators left as they are) at
+    main-path shapes, bitwise to the ``*_update`` hooks on copies (the
+    same kernels, in place), their inputs untouched."""
+    import torch
+    from repro_torch.core.accumulate import DF32
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    f32, f64 = torch.float32, torch.float64
+
+    def ints(shape, hi, dtype=torch.int32):
+        return torch.randint(-hi, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def pow2(shape, lo, hi, dtype):
+        return torch.pow(2.0, torch.randint(lo, hi, shape, generator=gen,
+                                            device=dev)).to(dtype)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    m, vocab = SLOTS, 92672
+    p32, word = ints((m, vocab), 2 ** 30), ints((1, m, vocab), 2 ** 30)
+    srow, scol = pow2((m,), -40, -20, f32), pow2((vocab,), -4, 4, f32)
+    hi, s = randn((m, vocab), f32), pow2((1,), -60, -30, f32)
+    lo = hi * 2.0 ** -30
+    big = 4096
+    p64, w64 = ints((big, big), 2 ** 30), ints((1, big, big), 2 ** 52,
+                                                 torch.int64)
+    r64, c64 = pow2((big,), -40, -20, f64), pow2((big,), -4, 4, f64)
+    c, s64 = randn((big, big), f64), pow2((1,), -60, -30, f64)
+    x = randn((1, big, big), f64)
+    ra, rb = pow2((1, big), -20, 20, f64), pow2((1, big), -20, 20, f64)
+    cases = [
+        ("scale_accum decode (4x92672) df32",
+         lambda: ops.scale_accum(p32, srow, scol, hi, lo),
+         lambda: tuple(ops.scale_accum_update(
+             p32, srow, scol, DF32(hi.clone(), lo.clone()))), (hi, lo)),
+        ("scale_accum_plain DGEMM (4096x4096) f64",
+         lambda: ops.scale_accum_plain(p64, r64, c64, c),
+         lambda: ops.scale_accum_update(p64, r64, c64, c.clone()), (c,)),
+        ("oz2_scale_accum decode (4x92672) df32",
+         lambda: ops.oz2_scale_accum(word, s, hi[None], lo[None]),
+         lambda: tuple(ops.oz2_scale_accum_update(
+             word, s, DF32(hi[None].clone(), lo[None].clone()))), (hi, lo)),
+        ("oz2_scale_accum_plain DGEMM (4096x4096) int64 word f64",
+         lambda: ops.oz2_scale_accum_plain(w64, s64, c[None]),
+         lambda: ops.oz2_scale_accum_update(w64, s64, c[None].clone()),
+         (c,)),
+        ("oz2_unscale DGEMM (4096x4096) f64",
+         lambda: ops.oz2_unscale(x, ra, rb),
+         lambda: ops.oz2_unscale_update(x, ra, rb), (x,)),
+    ]
+    for label, functional, update, accs in cases:
+        keep = tuple(t.clone() for t in accs)
+        got, want = functional(), update()
+        torch.cuda.synchronize()
+        if not same(tuple(got) if isinstance(got, tuple) else got, want):
+            raise AssertionError(f"functional {label}: differs from the "
+                                 f"*_update hook")
+        if not same(keep, accs):
+            raise AssertionError(f"functional {label}: changed its "
+                                 f"accumulator")
+    log(f"[kernels] functional epilogues bitwise to the *_update hooks, "
+        f"their accumulators untouched: " + "; ".join(c[0] for c in cases))
 
 
 # what a one-launch wrapper may dispatch: its output allocations and views
@@ -1196,11 +1286,16 @@ def no_torch_ops(dev):
     views serving passes), ``ops.scale_accum_contraction`` and
     ``ops.oz2_scale_accum_contraction`` (fast2; one- and two-group
     windows) dispatch no PyTorch operation but their output allocations
-    and views."""
+    and views.  The obs layer is enabled (its default) and no profiler
+    records: the wrappers' phase scopes are then null contexts."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.core.ozimmu import canonical_rhs
     from repro_torch.kernels import ops
+    from repro_torch.obs import registry
+    if not registry.enabled() or torch.autograd._profiler_enabled():
+        raise AssertionError("the dispatch check runs with obs enabled and "
+                             "no profiler recording")
 
     class Record(TorchDispatchMode):
         def __init__(self):
@@ -1265,7 +1360,7 @@ def no_torch_ops(dev):
         f"around the split (rn_const, sm, oz2_rn_fast2; both axes; the "
         f"attention's B operands as KV-cache views; the MoE dispatch "
         f"buffer and expert stack) or the df32 epilogues (group-EF, "
-        f"also E-batched; Ozaki-II with fast2) on the card")
+        f"also E-batched; Ozaki-II with fast2) on the card, obs enabled")
 
 
 def wrapper_host_us(dev, reps=2000, turns=3):
@@ -1274,12 +1369,18 @@ def wrapper_host_us(dev, reps=2000, turns=3):
     wrapper as it runs) and with the cache emptied before every call (the
     checks, route and C arguments rebuilt each time), in turns.  No sync
     inside a loop: the call's device time (~0.008 ms) is below its host
-    time, so the launch queue never fills.  Medians over ``turns``."""
+    time, so the launch queue never fills.  Beside them the obs layer's
+    cost a contraction: ``ozimmu._record_emulation`` on the same decode
+    operand (a scratch registry) and a ``phase_scope`` with obs enabled
+    and no profiler recording (the shared null context); the counter call
+    must stay within 5 us.  Medians over ``turns``."""
     import statistics
     import torch
+    from repro_torch.core import ozimmu
     from repro_torch.core.splitting import compute_beta
     from repro_torch.kernels import ops, reset_launches
     from repro_torch.kernels import group_gemm as gg
+    from repro_torch.obs import registry, tracing
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     a = torch.randn((SLOTS, 2048), generator=gen, device=dev)
     w = torch.randn((2048, 1024), generator=gen, device=dev)
@@ -1299,17 +1400,48 @@ def wrapper_host_us(dev, reps=2000, turns=3):
         torch.cuda.synchronize()
         return dt / n * 1e6
 
+    cfg = ozimmu.parse_spec(MODEL_SPEC)
+
+    def obs_call(what, n):
+        t0 = time.perf_counter()
+        if what == "record_emulation":
+            for _ in range(n):
+                ozimmu._record_emulation(cfg, a, 1024, True)
+        else:
+            for _ in range(n):
+                with tracing.phase_scope("group_gemm"):
+                    pass
+        return (time.perf_counter() - t0) / n * 1e6
+
     per_call(False, 50)
-    got = {"cached_plan": [], "plan_per_call": []}
-    for _ in range(turns):
-        got["cached_plan"].append(per_call(False, reps))
-        got["plan_per_call"].append(per_call(True, reps))
+    got = {"cached_plan": [], "plan_per_call": [], "record_emulation": [],
+           "phase_scope_untraced": []}
+    old = registry.set_registry(registry.MetricsRegistry())
+    try:
+        if not registry.enabled() or \
+                tracing.phase_scope("split") is not tracing._NULL:
+            raise AssertionError("obs disabled, or a profiler recording")
+        obs_call("record_emulation", 50)
+        for _ in range(turns):
+            got["cached_plan"].append(per_call(False, reps))
+            got["plan_per_call"].append(per_call(True, reps))
+            for what in ("record_emulation", "phase_scope_untraced"):
+                got[what].append(obs_call(what, 10 * reps))
+    finally:
+        registry.set_registry(old)
     reset_launches()
     res = {k: statistics.median(v) for k, v in got.items()}
     log(f"[host] group GEMM wrapper, decode wk/wv G=4, {reps} calls x "
         f"{turns} turns: {res['cached_plan']:.2f} us a call with the launch "
         f"plans cached, {res['plan_per_call']:.2f} us rebuilding the plan "
-        f"every call (each turn: {got})")
+        f"every call; obs a contraction: _record_emulation "
+        f"{res['record_emulation']:.2f} us a call (x 217 contractions: "
+        f"{217 * res['record_emulation'] / 1e3:.3f} ms a dense step), an "
+        f"untraced phase_scope {res['phase_scope_untraced']:.2f} us "
+        f"(each turn: {got})")
+    if res["record_emulation"] > 5.0:
+        raise AssertionError(f"_record_emulation costs "
+                             f"{res['record_emulation']:.2f} us a call")
     return res
 
 
@@ -1762,6 +1894,301 @@ def prefix_pass(tag, arch, cfg, params, lens, gen, card, dev, *, slots,
     counts, _ = paged_pass(tag, cfg, params, prompts, gen, mono, card, dev,
                            slots=slots, max_len=max_len, prefix=predicted)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the observability layer on the serving path
+# ---------------------------------------------------------------------------
+
+# the CI's observability smoke (.github/workflows/ci.yml) at the published
+# width, on the card, under the fused spec
+OBS_GEN = 4
+OBS_FLAGS = ["--arch", "internlm2_1_8b", "--slots", "2", "--requests", "3",
+             "--prompt-len", "8", "--gen", str(OBS_GEN), "--max-len", "32",
+             "--engine", MODEL_SPEC, "--page-block", "8",
+             "--prefill-chunk", "4", "--prefix-cache", "--full",
+             "--seed", str(SEED)]
+OBS_EVERY = 2
+# the phase range each kernel class's launches sit in (trace_class names)
+OBS_RANGES = {"split": "ozimmu/split", "group GEMM": "ozimmu/group_gemm",
+              "epilogue": "ozimmu/scale_accum"}
+
+
+def obs_instrument(rt, rec):
+    """Record, without dispatching anything on the card, the requests
+    ``rt`` is given (``rec['reqs']``), its scheduler rounds
+    (``rec['rounds']``), the positions each prefill call feeds
+    (``rec['fed']``) and the canonical shapes of the first decode step's
+    contractions (``rec['calls']``: lhs shape, p, presplit, config)."""
+    from repro_torch.core import ozimmu
+    rec.update(reqs=[], rounds=0, fed=[], calls=[])
+    submit, step = rt.submit, rt.step
+    prefill, decode, bmm = rt._prefill, rt._decode, ozimmu._bmm_impl
+
+    def submitted(*args, **kw):
+        rec["reqs"].append(submit(*args, **kw))
+        return rec["reqs"][-1]
+
+    def stepped():
+        busy = step()
+        rec["rounds"] += busy
+        return busy
+
+    def counted(toks, *args):
+        rec["fed"].append(toks.shape[1])
+        return prefill(toks, *args)
+
+    def recorded(a, b, cfg, rhs_presplit=None):
+        rec["calls"].append((tuple(a.shape), b.shape[-1],
+                             rhs_presplit is not None, cfg))
+        return bmm(a, b, cfg, rhs_presplit=rhs_presplit)
+
+    def first_decode(*args):
+        ozimmu._bmm_impl = recorded
+        try:
+            return decode(*args)
+        finally:
+            ozimmu._bmm_impl = bmm
+            rt._decode = decode
+    rt.submit, rt.step = submitted, stepped
+    rt._prefill, rt._decode = counted, first_decode
+
+
+def obs_trace(tag, path, counts, steps):
+    """The profiled serving loop's trace: the ``ozimmu/*`` host ranges
+    (count and host ms a model step, by name), and each split, group GEMM
+    and epilogue kernel attributed to its phase range (``OBS_RANGES``)
+    through its launch: the runtime call carrying the kernel's correlation
+    id must lie inside the range, on the same thread.  Every kernel of the
+    three classes must be under its range, and their number must be the
+    launches counted in the run."""
+    import bisect
+    events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    ranges, launch = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        name, args = str(e.get("name", "")), e.get("args", {})
+        if e.get("cat") == "user_annotation" and name.startswith("ozimmu/"):
+            a = float(e["ts"])
+            ranges.setdefault((name, e["pid"], e["tid"]), []).append(
+                (a, a + float(e.get("dur", 0))))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in args:
+            launch[args["correlation"]] = (e["pid"], e["tid"],
+                                           float(e["ts"]))
+    per = {}
+    for (name, _, _), spans in ranges.items():
+        spans.sort()
+        n, ms = per.get(name, (0, 0.0))
+        per[name] = (n + len(spans),
+                     ms + sum(b - a for a, b in spans) / 1e3)
+    log(f"[{tag}] trace ranges, host ({steps} model steps): " + "; ".join(
+        f"{name} {n} ({n / steps:.0f} a step, {ms / steps:.2f} ms a step)"
+        for name, (n, ms) in sorted(per.items())))
+
+    def under(name, corr):
+        if corr not in launch:
+            return False
+        pid, tid, ts = launch[corr]
+        spans = ranges.get((name, pid, tid), ())
+        i = bisect.bisect_right(spans, (ts, math.inf)) - 1
+        return i >= 0 and spans[i][0] <= ts <= spans[i][1]
+
+    found = {cls: [0, 0] for cls in OBS_RANGES}     # kernels, under range
+    for e in events:
+        cls = trace_class(e) if e.get("ph") == "X" else None
+        if cls in OBS_RANGES:
+            found[cls][0] += 1
+            found[cls][1] += under(OBS_RANGES[cls],
+                                   e.get("args", {}).get("correlation"))
+    log(f"[{tag}] trace kernels launched under their phase range: "
+        + "; ".join(f"{cls} {f[1]} of {f[0]} under {OBS_RANGES[cls]}"
+                    for cls, f in found.items()))
+    launched = {"split": counts["split_fused"],
+                "group GEMM": counts["group_gemm"],
+                "epilogue": counts["scale_accum"]}
+    for cls, (n, inside) in found.items():
+        if n != launched[cls] or n <= 0:
+            raise AssertionError(f"{tag}: the trace holds {n} {cls} kernels, "
+                                 f"{launched[cls]} launched")
+        if inside != n:
+            raise AssertionError(f"{tag}: {n - inside} of {n} {cls} kernels "
+                                 f"were not launched under "
+                                 f"{OBS_RANGES[cls]}")
+
+
+def phase_serve_obs(dev, card):
+    """The CI's observability smoke on the card: ``launch.serve.main``
+    with its flags (2 slots, 3 requests of 8 tokens, 4 new, max_len 32,
+    blocks of 8, chunks of 4, the prefix cache, ``--metrics-json`` every 2
+    rounds, ``--profile-dir``) at the published internlm2-1.8b width
+    (``--full``) under ``ozimmu_h-4:df32:fused``.  Checks: the CI
+    snippet's assertions on the document, a dump every 2 rounds and a
+    final one; ``decode_observed``: 217 contractions (24 x 9 + the head),
+    ``int8_gemms`` the Plan's count summed over the first decode step's
+    contractions, ``int8_gemms_presplit`` every weight contraction's (the
+    B sides frozen); the Prometheus text of the final snapshot lint-clean;
+    the trace's ``ozimmu/split``, ``ozimmu/group_gemm`` and
+    ``ozimmu/scale_accum`` ranges over their kernels (:func:`obs_trace`);
+    the exact launches a model step.  Then the same requests in turns of
+    (obs off, on, on, off), each on a fresh runtime over the same
+    parameters: tokens and launches a model step equal to the profiled
+    run's, and ms a model step with obs on against off.  Returns the
+    profiled run's launch counts."""
+    import contextlib
+    import gc
+    import os
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.core import plan
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.obs import export, registry
+    tag = "serve_obs"
+    if not registry.enabled():
+        raise AssertionError(f"{tag}: the obs layer is disabled")
+    rec, dumps = {}, []
+    make_runtime, dump_metrics = serve.make_runtime, serve.dump_metrics
+
+    def captured(cfg, params, **kw):
+        rt = make_runtime(cfg, params, **kw)
+        rec.update(cfg=cfg, params=params, kw=kw, rt=rt)
+        obs_instrument(rt, rec)
+        reset_launches()        # the freeze's splits are not the run's
+        return rt
+
+    def dumped(path, runtime, final=False):
+        dumps.append(final)
+        dump_metrics(path, runtime, final=final)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        doc_path = os.path.join(tmp, "obs_metrics.json")
+        prof = os.path.join(tmp, "obs_profile")
+        serve.make_runtime, serve.dump_metrics = captured, dumped
+        try:
+            s = serve.main(OBS_FLAGS + [
+                "--metrics-json", doc_path, "--metrics-every",
+                str(OBS_EVERY), "--profile-dir", prof, "--device", "cuda"])
+        finally:
+            serve.make_runtime, serve.dump_metrics = make_runtime, \
+                dump_metrics
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        cfg, rt = rec["cfg"], rec["rt"]
+        steps = sum(rec["fed"]) + s["decode_steps"]
+        doc = json.loads(Path(doc_path).read_text())
+        # the CI snippet's assertions
+        totals = doc["totals"]
+        assert totals["emulation.int8_gemms"] > 0, totals
+        assert totals["emulation.calls"] > 0, totals
+        assert doc["plan_ledger"] is not None
+        assert "serving_summary" in doc, sorted(doc)
+        log(f"[{tag}] {card}: {cfg.name} {cfg.n_layers} layers (depth not "
+            f"cut), {MODEL_SPEC}; the CI's flags: {s['tokens_generated']} "
+            f"tokens from {s['requests']['finished']} requests in "
+            f"{rec['rounds']} rounds, {steps} model steps "
+            f"({sum(rec['fed'])} positions fed, {s['decode_steps']} decode "
+            f"steps); observability smoke ok: "
+            + str({k: totals[k] for k in sorted(totals)
+                   if k.startswith("emulation.")}))
+        want_dumps = [False] * (rec["rounds"] // OBS_EVERY) + [True]
+        if dumps != want_dumps:
+            raise AssertionError(f"{tag}: dumps {dumps}, expected "
+                                 f"{want_dumps}")
+        obs = doc["decode_observed"]
+        if obs != rt.decode_observed:
+            raise AssertionError(f"{tag}: the document's decode_observed "
+                                 f"{obs} is not the runtime's")
+        calls = rec["calls"]
+
+        def gemms(shape, p, cfg_c):
+            return math.prod(shape[:-2]) * plan.plan_contraction(
+                cfg_c, shape[-2], shape[-1], p, _record=False).int8_gemms
+        want = {"contractions": cfg.n_layers * 9 + 1,
+                "int8_gemms": sum(gemms(sh, p, c) for sh, p, _, c in calls),
+                "int8_gemms_presplit": sum(gemms(sh, p, c)
+                                           for sh, p, pre, c in calls
+                                           if pre)}
+        presplit = sum(pre for _, _, pre, _ in calls)
+        log(f"[{tag}] decode_observed {obs}; the first decode step's "
+            f"{len(calls)} contractions ({presplit} on frozen weights) "
+            f"priced by the Plan: {want}")
+        if "--full" in OBS_FLAGS and want["contractions"] != 217:
+            raise AssertionError(f"{tag}: {cfg.n_layers} layers, not the "
+                                 f"published 24")
+        if {k: obs[k] for k in want} != want or \
+                len(calls) != want["contractions"] or \
+                presplit != cfg.n_layers * 7 + 1:
+            raise AssertionError(f"{tag}: decode_observed {obs}, expected "
+                                 f"{want} over {len(calls)} contractions, "
+                                 f"{presplit} presplit")
+        snap = export.unified_snapshot(rt.metrics.registry)
+        text = export.to_prometheus(snap)
+        export.lint_prometheus(text)
+        parsed = export.parse_prometheus(text)
+        log(f"[{tag}] Prometheus text of the final snapshot: "
+            f"{len(text.splitlines())} lines, {len(parsed)} samples, "
+            f"lint-clean")
+        want_counts = {"split_fused": steps * (cfg.n_layers * 11 + 1),
+                       "group_gemm": steps * want["contractions"] * 4,
+                       "scale_accum": steps * want["contractions"]}
+        got = {k: counts[k] for k in want_counts}
+        if got != want_counts:
+            raise AssertionError(f"{tag}: launches {got}, expected "
+                                 f"{want_counts}")
+        check_route(tag, counts, "skinny")
+        obs_trace(tag, os.path.join(prof, "trace.json"), counts, steps)
+    main_run = dict(tokens=[r.generated for r in rec["reqs"]],
+                    counts=counts, steps=steps, s=s)
+    params, kw = rec["params"], rec["kw"]
+    prompts = [r.prompt for r in rec["reqs"]]
+    del rec, rt, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ms = {"on": [], "off": []}
+    for on in (False, True, True, False):
+        run = {}
+        rt = make_runtime(cfg, params, **kw)
+        obs_instrument(rt, run)
+        torch.cuda.synchronize()
+        reset_launches()
+        with contextlib.nullcontext() if on else registry.disabled():
+            for p in prompts:
+                rt.submit(p, OBS_GEN)
+            s = rt.run()
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        steps = sum(run["fed"]) + s["decode_steps"]
+        mode = "on" if on else "off"
+        ms[mode].append(s["elapsed_s"] / steps * 1e3)
+        if [r.generated for r in run["reqs"]] != main_run["tokens"]:
+            raise AssertionError(f"{tag}: obs {mode}: tokens differ from "
+                                 f"the profiled run's")
+        bad = {k: (counts[k], main_run["counts"][k]) for k in counts
+               if counts[k] * main_run["steps"]
+               != main_run["counts"][k] * steps}
+        if bad:
+            raise AssertionError(f"{tag}: obs {mode}: launches a model step "
+                                 f"differ from the profiled run's: {bad}")
+        if (rt.decode_observed is None) == on:
+            raise AssertionError(f"{tag}: obs {mode}: decode_observed "
+                                 f"{rt.decode_observed}")
+        del rt, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    on_ms, off_ms = statistics.median(ms["on"]), statistics.median(ms["off"])
+    log(f"[{tag}] {card}: ms a model step with obs on {ms['on']} against "
+        f"off {ms['off']} (turns off, on, on, off; fresh runtimes, the "
+        f"same requests): median {on_ms:.2f} against {off_ms:.2f} "
+        f"({100 * (on_ms / off_ms - 1):+.1f}%); tokens and launches a "
+        f"model step equal to the profiled run's")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return main_run["counts"]
 
 
 # what moe_depth keeps free beyond its reckoning: the activations, the
@@ -3108,6 +3535,7 @@ def main() -> int:
     paths["serve_sm"], _, _ = phase_serve(
         dev, SM_MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
         tag="serve_sm")
+    paths["serve_obs"] = phase_serve_obs(dev, card)
     paths["flash"] = phase_flash(dev)
     paths["train"] = phase_train(dev)
     paths["serve_moe"], _ = phase_serve_moe(dev)

@@ -59,6 +59,7 @@ import torch
 from repro_torch.core.splitting import (Split, _geo_exps, compute_r, ftz,
                                         sm_decode_slice)
 from repro_torch.kernels import group_gemm as _gg
+from repro_torch.obs import tracing as _tracing
 
 __all__ = [
     "matmul_naive",
@@ -238,22 +239,25 @@ def matmul_naive(sa: Split, sb: Split, *, accum: str = "f64",
     pairs = _term_pairs(k)
     gemm = pair_gemm_fn or (
         lambda s, t: slice_group_gemm(sa, sb, [(s, t)]))
-    prods = [gemm(s, t) for s, t in pairs]
+    with _tracing.phase_scope("group_gemm"):
+        prods = [gemm(s, t) for s, t in pairs]
 
     if accum == "df32":
         fn = scale_accum_fn or _scale_accum_df32
         acc = df32_zero(out_shape, device)
-        for (s, t), prod in zip(pairs, prods):
-            acc = fn(prod, sa.scale[s - 1].to(torch.float32),
-                     sb.scale[t - 1].to(torch.float32), acc)
+        with _tracing.phase_scope("scale_accum"):
+            for (s, t), prod in zip(pairs, prods):
+                acc = fn(prod, sa.scale[s - 1].to(torch.float32),
+                         sb.scale[t - 1].to(torch.float32), acc)
         return acc if partial else acc.to_float(out_dtype)
 
     acc_dtype = _ACC_DTYPES[accum]
     fn = scale_accum_fn or _scale_accum_plain
     c = torch.zeros(out_shape, dtype=acc_dtype, device=device)
-    for (s, t), prod in zip(pairs, prods):
-        c = fn(prod, sa.scale[s - 1].to(acc_dtype),
-               sb.scale[t - 1].to(acc_dtype), c)
+    with _tracing.phase_scope("scale_accum"):
+        for (s, t), prod in zip(pairs, prods):
+            c = fn(prod, sa.scale[s - 1].to(acc_dtype),
+                   sb.scale[t - 1].to(acc_dtype), c)
     return c if partial else _narrow(c, out_dtype)
 
 
@@ -318,22 +322,25 @@ def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
         r = compute_r(n, beta)
     gg = group_gemm_fn or (lambda pairs: slice_group_gemm(sa, sb, pairs))
     chunks = list(_group_chunks(k, r))
-    prods = [gg(pairs) for _, pairs in chunks]
+    with _tracing.phase_scope("group_gemm"):
+        prods = [gg(pairs) for _, pairs in chunks]
 
     # The 2^(-beta*g) group exponent folds into the row scale (exact).
     if accum == "df32":
-        return (epilogue_fn or df32_epilogue)(
-            prods, [g for g, _ in chunks], sa.base.to(torch.float32),
-            sb.base.to(torch.float32), beta, partial=partial,
-            out_dtype=out_dtype)
+        with _tracing.phase_scope("scale_accum"):
+            return (epilogue_fn or df32_epilogue)(
+                prods, [g for g, _ in chunks], sa.base.to(torch.float32),
+                sb.base.to(torch.float32), beta, partial=partial,
+                out_dtype=out_dtype)
 
     acc_dtype = _ACC_DTYPES[accum]
     fn = scale_accum_fn or _scale_accum_plain
     c = torch.zeros(out_shape, dtype=acc_dtype, device=device)
-    srows = _group_rows(sa.base.to(acc_dtype), beta, k + 1)
-    base_b = sb.base.to(acc_dtype)
-    for (g, _), prod in zip(chunks, prods):
-        c = fn(prod, srows[g - 1], base_b, c)
+    with _tracing.phase_scope("scale_accum"):
+        srows = _group_rows(sa.base.to(acc_dtype), beta, k + 1)
+        base_b = sb.base.to(acc_dtype)
+        for (g, _), prod in zip(chunks, prods):
+            c = fn(prod, srows[g - 1], base_b, c)
     return c if partial else _narrow(c, out_dtype)
 
 
@@ -560,14 +567,17 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
 
     gg = group_gemm_fn or (lambda pairs: slice_group_gemm(sa, sb, pairs))
     chunks = list(_oz2_chunks(k, r, fast))
-    prods = [gg(pairs) for _, pairs in chunks]
+    with _tracing.phase_scope("group_gemm"):
+        prods = [gg(pairs) for _, pairs in chunks]
     groups = [g for g, _ in chunks]
 
     if accum == "df32":
-        return (epilogue_fn or oz2_df32_epilogue)(
-            prods, groups, c, beta, sa.gbase, sb.gbase,
-            sa.base if fast2 else None, sb.base if fast2 else None,
-            partial=partial, out_dtype=out_dtype)
+        # the ladder fold runs inside the one-call epilogue
+        with _tracing.phase_scope("scale_accum"):
+            return (epilogue_fn or oz2_df32_epilogue)(
+                prods, groups, c, beta, sa.gbase, sb.gbase,
+                sa.base if fast2 else None, sb.base if fast2 else None,
+                partial=partial, out_dtype=out_dtype)
 
     windows = _ladder_windows(groups, c)
     acc_dtype = _ACC_DTYPES[accum]
@@ -576,8 +586,12 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
     scales = _oz2_scales(sa.gbase, sb.gbase, beta,
                          [window[-1][1] for window in windows], acc_dtype)
     for i, window in enumerate(windows):
-        acc = fn(_oz2_fold(prods, window, beta, word_dtype), scales[i], acc)
+        with _tracing.phase_scope("ladder"):
+            word = _oz2_fold(prods, window, beta, word_dtype)
+        with _tracing.phase_scope("scale_accum"):
+            acc = fn(word, scales[i], acc)
     if fast2:
-        acc = (unscale_fn or _oz2_unscale)(
-            acc, *_oz2_ratios(sa.base, sb.base, sa.gbase, sb.gbase))
+        with _tracing.phase_scope("scale_accum"):
+            acc = (unscale_fn or _oz2_unscale)(
+                acc, *_oz2_ratios(sa.base, sb.base, sa.gbase, sb.gbase))
     return acc if partial else _narrow(acc, out_dtype)

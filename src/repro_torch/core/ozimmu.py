@@ -48,6 +48,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core import accumulate, splitting
+from repro_torch.obs import registry as _obs
+from repro_torch.obs import tracing as _tracing
 
 __all__ = ["OzimmuConfig", "VARIANTS", "ozimmu_matmul", "ozimmu_dot_general",
            "parse_spec", "canonical_rhs", "canonical_fast2", "variant_name",
@@ -125,6 +127,65 @@ def variant_name(cfg: OzimmuConfig) -> str:
         else cfg.split
     return _VARIANT_NAMES.get((split, cfg.accumulate),
                               f"{cfg.split}/{cfg.accumulate}")
+
+
+def _emulation_rows(cfg: OzimmuConfig, shape: Tuple[int, ...], p: int,
+                    presplit: bool, itemsize: int):
+    """The registry rows one contraction of canonical lhs ``shape`` @ rhs
+    width ``p`` adds: (row key, value) of ``emulation.calls``,
+    ``int8_gemms``, ``highprec_adds`` and ``split_bytes``, priced by the
+    planner's ``Plan``."""
+    from repro_torch.core import plan as _plan
+    m, n = shape[-2], shape[-1]
+    batch = math.prod(shape[:-2])
+    pl = _plan.plan_contraction(cfg, m, n, p)
+    labels = dict(
+        variant=variant_name(cfg), k=cfg.k,
+        path=("fused" if cfg.use_pallas == "fused"
+              else "pallas" if cfg.use_pallas else "xla"),
+        mesh=cfg.mesh_axis or "none", presplit=int(presplit))
+    split_elems = batch * m * n            # A is always split in-call;
+    if not presplit:                       # B only when no frozen Split
+        split_elems += batch * n * p
+    return tuple((_obs.row_key(name, **labels), value) for name, value in (
+        ("emulation.calls", 1),
+        ("emulation.int8_gemms", batch * pl.int8_gemms),
+        ("emulation.highprec_adds", batch * pl.highprec_adds),
+        ("emulation.split_bytes", split_elems * itemsize)))
+
+
+# id(cfg) -> (cfg, {(lhs shape, p, presplit, dtype): rows}): the memo of
+# _record_emulation, keyed by identity (hashing a config costs more than
+# the registry's adds).  An entry holds its config, so no other object
+# takes that id while the entry lives.
+_EMULATION_MEMO: dict = {}
+
+
+def _record_emulation(cfg: OzimmuConfig, a: torch.Tensor, p: int,
+                      presplit: bool) -> None:
+    """Mirror one resolved contraction into the metrics registry, with the
+    reference's counters and labels.
+
+    Called from ``_bmm_impl`` after the config is canonical (fast2 tied,
+    auto k resolved to a concrete k), so the counts are what executes,
+    priced by the same ``Plan`` accounting the planner uses.  Shapes and
+    dtypes only: outputs are bitwise the same with obs on or off.  One
+    difference from the reference: it records at jit trace time, so a
+    compiled step whose layers run in a ``lax.scan`` counts the scan body
+    once; the port runs eagerly and records every executed call, which is
+    the per-execution count the reference's docstring describes.  A call
+    costs two memo lookups and the registry's dict adds."""
+    memo = _EMULATION_MEMO.get(id(cfg))
+    if memo is None or memo[0] is not cfg:
+        if len(_EMULATION_MEMO) >= 256:     # auto-k makes a config a call
+            _EMULATION_MEMO.clear()
+        memo = _EMULATION_MEMO[id(cfg)] = (cfg, {})
+    key = (a.shape, p, presplit, a.dtype)
+    rows = memo[1].get(key)
+    if rows is None:
+        rows = memo[1][key] = _emulation_rows(cfg, a.shape, p, presplit,
+                                              a.element_size())
+    _obs.get_registry().inc_keyed(rows)
 
 
 _MESH_REDUCES = ("int32", "df32")
@@ -249,7 +310,8 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
                cfg: OzimmuConfig, *, partial: bool = False,
                rhs_presplit: Optional[splitting.Split] = None):
     """Single-device emulated batched matmul on canonical operands."""
-    sa, sb = split_operands(a, b, cfg, rhs_presplit=rhs_presplit)
+    with _tracing.phase_scope("split"):
+        sa, sb = split_operands(a, b, cfg, rhs_presplit=rhs_presplit)
     group_gemm_fn = scale_accum_fn = pair_gemm_fn = unscale_fn = None
     epilogue_fn = None
     if cfg.use_pallas:
@@ -354,6 +416,8 @@ def _bmm_impl(a: torch.Tensor, b: torch.Tensor, cfg: OzimmuConfig,
             cfg = cfg.with_(k=plan.auto_k(a, b, cfg), auto_k=False)
     if rhs_presplit is not None:
         _check_presplit(a, b.shape, cfg, rhs_presplit)
+    if _obs.enabled():
+        _record_emulation(cfg, a, b.shape[-1], rhs_presplit is not None)
     return _bmm_local(a, b, cfg, rhs_presplit=rhs_presplit)
 
 

@@ -21,6 +21,11 @@ reference's jitted serving step resolves to.  A call that gets the frozen
 split adopts its k (``ozimmu._bmm_impl``), so the serving path of both
 packages agrees on k.  Constant-scaling (oz2, fast2) splits carry their
 ``gbase`` through the cache and :func:`stack_leading`.
+
+Every stats transition (hit, miss, invalidation) is mirrored into the
+process-global metrics registry (``split_cache.*`` counters and the
+``split_cache.cached_bytes`` gauge), and a miss's freeze runs in the
+``ozimmu/split_cache/freeze`` host scope, as in the reference.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import torch
 
 from repro_torch.core import splitting
 from repro_torch.core.splitting import Split
+from repro_torch.obs import registry as _obs
+from repro_torch.obs import tracing as _tracing
 
 __all__ = ["SplitCache", "CacheStats", "resolved_k", "presplit_rhs",
            "stack_leading", "split_nbytes"]
@@ -162,10 +169,12 @@ class SplitCache:
             if entry is not None:
                 self.stats.hits += 1
                 self.stats.hit_bytes += in_bytes
+                self._obs_event("hits", hit_bytes=in_bytes)
                 return entry[0]
-        sp = presplit_rhs(b.to(dtype), dnums, cfg)
-        if layout == "stack_leading":
-            sp = stack_leading(sp, len(bb))
+        with _tracing.host_scope("split_cache/freeze"):
+            sp = presplit_rhs(b.to(dtype), dnums, cfg)
+            if layout == "stack_leading":
+                sp = stack_leading(sp, len(bb))
         nbytes = split_nbytes(sp)
         anchor = self._anchor(b, key)
         with self._lock:
@@ -173,11 +182,25 @@ class SplitCache:
             if entry is not None:
                 self.stats.hits += 1
                 self.stats.hit_bytes += in_bytes
+                self._obs_event("hits", hit_bytes=in_bytes)
                 return entry[0]
             self._entries[key] = (sp, nbytes, anchor)
             self.stats.misses += 1
             self.stats.cached_bytes += nbytes
+            self._obs_event("misses")
         return sp
+
+    def _obs_event(self, kind: str, hit_bytes: int = 0):
+        """Mirror one stats transition into the process-global registry
+        (cached_bytes rides along as a gauge).  The registry lock is a
+        leaf — safe under ``self._lock``."""
+        if not _obs.enabled():
+            return
+        reg = _obs.get_registry()
+        reg.inc(f"split_cache.{kind}", 1)
+        if hit_bytes:
+            reg.inc("split_cache.hit_bytes", hit_bytes)
+        reg.gauge("split_cache.cached_bytes", self.stats.cached_bytes)
 
     def _anchor(self, b, key):
         def _on_dead(_ref, cache=weakref.ref(self), key=key):
@@ -193,3 +216,4 @@ class SplitCache:
                 self.stats.cached_bytes -= entry[1]
                 if invalidated:
                     self.stats.invalidations += 1
+                    self._obs_event("invalidations")

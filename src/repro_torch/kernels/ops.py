@@ -13,6 +13,14 @@ to the TPU's 128-lane tiles and takes its tile sizes from the planner;
 the CUDA kernels mask their own ragged edges and own their tile sizes, so
 nothing here pads — except :func:`flash_attention`, whose padding decides
 what a fully masked row averages, and which pads as the reference does.
+
+Besides the ``*_update`` / ``*_contraction`` hooks the accumulate routines
+take, the reference's functional epilogues are here (:func:`scale_accum`,
+:func:`scale_accum_plain`, :func:`oz2_scale_accum`,
+:func:`oz2_scale_accum_plain`, :func:`oz2_unscale`): new outputs, the
+accumulators passed in left as they are.  Every kernel call sits in its
+``ozimmu/kernel/*`` phase scope (``repro_torch.obs.tracing``), a profiler
+range only while one records.
 """
 from __future__ import annotations
 
@@ -22,12 +30,14 @@ from repro_torch.core.accumulate import DF32, slice_group_gemm
 from repro_torch.core.splitting import Split, _geo_scales, _global_base
 from repro_torch.kernels import scale_accum as _sa
 from repro_torch.kernels import split_fused as _sf
+from repro_torch.obs import tracing as _tracing
 
 __all__ = ["split_fused", "split_fused_ref", "group_gemm",
-           "scale_accum_update", "scale_accum_contraction",
-           "oz2_scale_accum_update", "oz2_scale_accum_contraction",
-           "oz2_unscale_update",
-           "flash_attention"]
+           "scale_accum", "scale_accum_plain", "scale_accum_update",
+           "scale_accum_contraction", "oz2_scale_accum",
+           "oz2_scale_accum_plain", "oz2_scale_accum_update",
+           "oz2_scale_accum_contraction", "oz2_unscale",
+           "oz2_unscale_update", "flash_attention"]
 
 # fused-split mode -> the kernel's extraction mode
 _KERNEL_MODE = {"bitmask": "bitmask", "oz2_bitmask": "bitmask",
@@ -55,13 +65,16 @@ def _split(a, k, beta, mode, axis, plain: bool) -> Split:
     if mode in _GLOBAL:
         base, invgrid = _sf.grid(_global_base(a, axis, None), beta, kmode)
         extract = _sf.split_fused_ref if plain else _sf.split_fused
-        digits = extract(a, invgrid, k=k, beta=beta, mode=kmode, axis=axis)
+        with _tracing.phase_scope("kernel/split_fused"):
+            digits = extract(a, invgrid, k=k, beta=beta, mode=kmode,
+                             axis=axis)
         return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
                      gbase=base[..., 0])
     whole = _sf.split_whole_ref if plain else _sf.split_whole
-    digits, scale, base, gbase = whole(a, k=k, beta=beta, mode=kmode,
-                                       axis=axis,
-                                       gbase=mode.endswith("_fast2"))
+    with _tracing.phase_scope("kernel/split_fused"):
+        digits, scale, base, gbase = whole(a, k=k, beta=beta, mode=kmode,
+                                           axis=axis,
+                                           gbase=mode.endswith("_fast2"))
     return Split(digits, scale, base, beta, axis, gbase=gbase,
                  signmag=(mode == "sm"))
 
@@ -93,9 +106,36 @@ def split_fused_ref(a: torch.Tensor, k: int, beta: int, *,
     return _split(a, k, beta, mode, axis, plain=True)
 
 
-# the ``group_gemm_fn`` / ``pair_gemm_fn`` hook of ``accumulate`` (after
-# partial application of sa, sb): the accumulator's own Split-level group GEMM
-group_gemm = slice_group_gemm
+def group_gemm(sa: Split, sb: Split, pairs) -> torch.Tensor:
+    """The ``group_gemm_fn`` / ``pair_gemm_fn`` hook of ``accumulate``
+    (after partial application of sa, sb): the accumulator's own
+    Split-level group GEMM (``accumulate.slice_group_gemm``), one launch of
+    the group-GEMM kernel on the card."""
+    with _tracing.phase_scope("kernel/group_gemm"):
+        return slice_group_gemm(sa, sb, pairs)
+
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy for a kernel to accumulate into in place."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def scale_accum(p32: torch.Tensor, srow: torch.Tensor, scol: torch.Tensor,
+                c_hi: torch.Tensor, c_lo: torch.Tensor):
+    """Fused df32 epilogue ``(hi, lo) = (c_hi, c_lo) + srow * float(p32) *
+    scol`` (compensated), as new tensors; p32/c_hi/c_lo ``(*batch, m,
+    p)``, srow ``(*batch, m)``, scol ``(*batch, p)``, f32 scales."""
+    with _tracing.phase_scope("kernel/scale_accum"):
+        return _sa.scale_accum(p32, srow, scol, _fresh(c_hi), _fresh(c_lo))
+
+
+def scale_accum_plain(p32: torch.Tensor, srow: torch.Tensor,
+                      scol: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Fused plain-accumulator epilogue ``c + float(p32) * srow * scol`` in
+    c's dtype (f64/f32), batched like :func:`scale_accum`, as a new
+    tensor."""
+    with _tracing.phase_scope("kernel/scale_accum"):
+        return _sa.scale_accum_plain(p32, srow, scol, _fresh(c))
 
 
 def scale_accum_update(prod: torch.Tensor, srow: torch.Tensor,
@@ -103,9 +143,10 @@ def scale_accum_update(prod: torch.Tensor, srow: torch.Tensor,
     """``scale_accum_fn`` hook: one fused convert+scale+add epilogue step
     (df32 pair or plain accumulator, by ``acc``'s type), bit-identical to
     the plain epilogue.  On CUDA the accumulator is updated in place."""
-    if isinstance(acc, DF32):
-        return DF32(*_sa.scale_accum(prod, srow, scol, acc.hi, acc.lo))
-    return _sa.scale_accum_plain(prod, srow, scol, acc)
+    with _tracing.phase_scope("kernel/scale_accum"):
+        if isinstance(acc, DF32):
+            return DF32(*_sa.scale_accum(prod, srow, scol, acc.hi, acc.lo))
+        return _sa.scale_accum_plain(prod, srow, scol, acc)
 
 
 def scale_accum_contraction(prods, groups, base_a: torch.Tensor,
@@ -120,20 +161,43 @@ def scale_accum_contraction(prods, groups, base_a: torch.Tensor,
     returns the :class:`DF32` accumulator; an output dtype other than f32
     converts it here."""
     if partial or out_dtype != torch.float32:
-        acc = DF32(*_sa.scale_accum_chunks(prods, groups, base_a, base_b,
-                                           beta, partial=True))
+        with _tracing.phase_scope("kernel/scale_accum"):
+            acc = DF32(*_sa.scale_accum_chunks(prods, groups, base_a,
+                                               base_b, beta, partial=True))
         return acc if partial else acc.to_float(out_dtype)
-    return _sa.scale_accum_chunks(prods, groups, base_a, base_b, beta)
+    with _tracing.phase_scope("kernel/scale_accum"):
+        return _sa.scale_accum_chunks(prods, groups, base_a, base_b, beta)
 
 
-def oz2_scale_accum_update(word: torch.Tensor, s: torch.Tensor,
-                           acc: torch.Tensor) -> torch.Tensor:
-    """``scale_accum_fn`` hook of ``accumulate.matmul_oz2`` (f32/f64
-    accumulators; the df32 one takes :func:`oz2_scale_accum_contraction`):
-    one ladder window's convert+scale+add through the const-scale kernel,
+def oz2_scale_accum(word: torch.Tensor, s: torch.Tensor, c_hi: torch.Tensor,
+                    c_lo: torch.Tensor):
+    """Fused oz2 df32 epilogue ``(hi, lo) = (c_hi, c_lo) + s * float(word)``
+    (compensated), as new tensors; word ``(*batch, m, p)`` int32, s
+    ``(*batch,)`` f32."""
+    with _tracing.phase_scope("kernel/scale_accum"):
+        return _sa.scale_accum_const(word, s, _fresh(c_hi), _fresh(c_lo))
+
+
+def oz2_scale_accum_plain(word: torch.Tensor, s: torch.Tensor,
+                          c: torch.Tensor) -> torch.Tensor:
+    """Fused oz2 plain epilogue ``c + float(word) * s`` (f64/f32
+    accumulator; the word int32, or the int64 ladder word under f64), as a
+    new tensor."""
+    with _tracing.phase_scope("kernel/scale_accum"):
+        return _sa.scale_accum_const_plain(word, s, _fresh(c))
+
+
+def oz2_scale_accum_update(word: torch.Tensor, s: torch.Tensor, acc):
+    """``scale_accum_fn`` hook of ``accumulate.matmul_oz2``: one ladder
+    window's convert+scale+add through the const-scale kernels (df32 pair
+    or plain accumulator, by ``acc``'s type; the df32 accumulator of a
+    whole contraction takes :func:`oz2_scale_accum_contraction`),
     bit-identical to the plain epilogue.  On CUDA the accumulator is
     updated in place."""
-    return _sa.scale_accum_const_plain(word, s, acc)
+    with _tracing.phase_scope("kernel/scale_accum"):
+        if isinstance(acc, DF32):
+            return DF32(*_sa.scale_accum_const(word, s, acc.hi, acc.lo))
+        return _sa.scale_accum_const_plain(word, s, acc)
 
 
 def oz2_scale_accum_contraction(prods, groups, c: int, beta: int,
@@ -150,20 +214,35 @@ def oz2_scale_accum_contraction(prods, groups, c: int, beta: int,
     returns the :class:`DF32` accumulator; an output dtype other than f32
     converts it here."""
     if partial or out_dtype != torch.float32:
-        acc = DF32(*_sa.scale_accum_const_windows(
-            prods, groups, c, beta, gbase_a, gbase_b, base_a, base_b,
-            partial=True))
+        with _tracing.phase_scope("kernel/scale_accum"):
+            acc = DF32(*_sa.scale_accum_const_windows(
+                prods, groups, c, beta, gbase_a, gbase_b, base_a, base_b,
+                partial=True))
         return acc if partial else acc.to_float(out_dtype)
-    return _sa.scale_accum_const_windows(prods, groups, c, beta, gbase_a,
-                                         gbase_b, base_a, base_b)
+    with _tracing.phase_scope("kernel/scale_accum"):
+        return _sa.scale_accum_const_windows(prods, groups, c, beta,
+                                             gbase_a, gbase_b, base_a,
+                                             base_b)
 
 
-def oz2_unscale_update(acc: torch.Tensor, ra: torch.Tensor,
-                       rb: torch.Tensor) -> torch.Tensor:
-    """``unscale_fn`` hook of ``accumulate.matmul_oz2`` (fast2; f32/f64
-    accumulators): the exact two-sided power-of-two unscale through the
-    kernel."""
-    return _sa.unscale(acc, ra.to(acc.dtype), rb.to(acc.dtype))
+def oz2_unscale(x: torch.Tensor, ra: torch.Tensor,
+                rb: torch.Tensor) -> torch.Tensor:
+    """Fused fast2 post-ladder unscale ``diag(ra) @ x @ diag(rb)`` per
+    batch element, as a new tensor: x ``(*batch, m, p)`` float, ra
+    ``(*batch, m)`` / rb ``(*batch, p)`` power-of-two equilibration
+    factors (cast to x's dtype) — exact."""
+    with _tracing.phase_scope("kernel/unscale"):
+        return _sa.unscale(x, ra.to(x.dtype), rb.to(x.dtype))
+
+
+def oz2_unscale_update(acc, ra: torch.Tensor, rb: torch.Tensor):
+    """``unscale_fn`` hook of ``accumulate.matmul_oz2`` (fast2): the exact
+    two-sided power-of-two unscale through the kernel, the hi and lo limbs
+    apart for a df32 accumulator (a common exact scale keeps the pair
+    invariant)."""
+    if isinstance(acc, DF32):
+        return DF32(oz2_unscale(acc.hi, ra, rb), oz2_unscale(acc.lo, ra, rb))
+    return oz2_unscale(acc, ra, rb)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -12,13 +12,20 @@ versions).  Like the reference it serves the arch's smoke config unless
 per-slot context (:func:`slot_context`).  ``--page-block`` serves every
 family from the block-paged KV pool, and ``--prefix-cache`` adds the
 prefix KV cache over it (the random prompts here share no prefix, so the
-hit rate it prints is 0.00).  ``--mesh``, ``--metrics-json`` and
-``--profile-dir`` keep the reference's flags and raise until the slices
-that bring them (distributed, obs).
+hit rate it prints is 0.00).  ``--metrics-json PATH`` writes the unified
+metrics document (the process registry's emulation, split-cache,
+prefix-cache and planner counters merged with the runtime's serving
+registry, the plan ledger's summary, and at the end the serving summary
+and ``decode_observed``), every ``--metrics-every`` scheduler rounds and
+once at the end; ``--profile-dir DIR`` traces the serving loop into
+``DIR/trace.json`` with the emulation's ``ozimmu/*`` phase ranges.
+``--mesh`` keeps the reference's flag and raises until the distributed
+slice brings it.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
@@ -28,6 +35,8 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.core import plan
 from repro_torch.models import api, encdec
+from repro_torch.obs import export as obs_export
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.serving import ServingRuntime
 
 
@@ -61,6 +70,25 @@ def slot_context(cfg, params, prompt_len: int):
     return None
 
 
+def dump_metrics(path: str, runtime: ServingRuntime,
+                 final: bool = False) -> None:
+    """Write the unified metrics document (the global registry merged with
+    the runtime's private serving registry, plus the plan ledger) to
+    ``path``, atomically through ``path.tmp``.  Final dumps embed the
+    serving summary and the decode-observed counters."""
+    snap = obs_export.unified_snapshot(runtime.metrics.registry)
+    extra = None
+    if final:
+        extra = {"serving_summary": runtime.metrics.summary()}
+        if runtime.decode_observed is not None:
+            extra["decode_observed"] = runtime.decode_observed
+    text = obs_export.to_json(snap, extra=extra)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(text + "\n")
+    os.replace(tmp, path)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2_1_8b")
@@ -90,10 +118,16 @@ def main(argv=None):
                          "ozimmu_h-4:df32:fused")
     ap.add_argument("--mesh", default=None, help="(not ported yet)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
-                    help="(not ported yet)")
-    ap.add_argument("--metrics-every", type=int, default=0, metavar="N")
+                    help="write the unified metrics document (registry "
+                         "snapshot + plan ledger + serving summary) to "
+                         "PATH; with --metrics-every also periodically "
+                         "during the run")
+    ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
+                    help="dump --metrics-json every N scheduler rounds "
+                         "(0 = final dump only)")
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
-                    help="(not ported yet)")
+                    help="trace the serving loop with torch.profiler into "
+                         "DIR/trace.json (Perfetto reads it)")
     ap.add_argument("--full", action="store_true",
                     help="serve the published config instead of the "
                          "smoke config")
@@ -101,11 +135,9 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, later in (("mesh", "distributed"), ("metrics_json", "obs"),
-                        ("profile_dir", "obs")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} comes "
-                                      f"with the {later} slice of the port")
+    if args.mesh:
+        raise NotImplementedError("--mesh comes with the distributed slice "
+                                  "of the port")
     n_requests = args.requests if args.requests is not None else args.slots
     device = resolve_device(args.device)
 
@@ -137,10 +169,20 @@ def main(argv=None):
                             dtype=np.int32) for _ in range(n_requests)]
     t0 = time.time()
     reqs = [runtime.submit(p, args.gen) for p in prompts]
-    s = runtime.run()
+    with obs_tracing.profile(args.profile_dir):
+        rounds = 0
+        while runtime.step():
+            rounds += 1
+            if (args.metrics_json and args.metrics_every
+                    and rounds % args.metrics_every == 0):
+                dump_metrics(args.metrics_json, runtime)
+    s = runtime.run()  # no rounds left; closes the metrics window
     dt = time.time() - t0
     outs = [np.concatenate([r.prompt, np.asarray(r.generated, np.int32)])
             for r in reqs]
+    if args.metrics_json:
+        dump_metrics(args.metrics_json, runtime, final=True)
+        print(f"[serve] metrics written to {args.metrics_json}")
     print(f"[serve] {args.arch} on {device}: {s['tokens_generated']} tokens "
           f"from {s['requests']['finished']} requests in {dt:.2f}s "
           f"({s['tokens_per_s']:.1f} tok/s, slots={args.slots}, "
@@ -161,6 +203,13 @@ def main(argv=None):
         print(f"[serve] prefix-cache: hit rate {pc['hit_rate']:.2f} "
               f"({pc['hit_tokens']} prefill tokens aliased, "
               f"{pc['entries']} entries)")
+    if runtime.decode_observed is not None:
+        obs = runtime.decode_observed
+        print(f"[serve] observed per decode step: "
+              f"{obs['contractions']:.0f} contractions, "
+              f"{obs['int8_gemms']:.0f} int8 GEMMs "
+              f"({obs['int8_gemms_presplit']:.0f} on presplit weights), "
+              f"{obs['highprec_adds']:.0f} high-precision adds")
     print("[serve] sample continuation:",
           outs[0][-args.gen:][:16].tolist())
     return s

@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 __all__ = [
     "MetricsRegistry", "Snapshot", "get_registry", "set_registry",
     "enabled", "set_enabled", "disabled", "percentile", "hist_stats",
+    "row_key",
 ]
 
 # (metric name, canonicalised labels) — the registry's row key.  Labels
@@ -36,6 +37,12 @@ def _key(name: str, labels: Dict[str, Any]) -> Key:
     if not labels:
         return (name, ())
     return (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
+
+
+def row_key(name: str, **labels: Any) -> Key:
+    """The registry's row key of counter ``name`` with ``labels`` (for
+    :meth:`MetricsRegistry.inc_keyed`)."""
+    return _key(name, labels)
 
 
 # -- percentiles ---------------------------------------------------------
@@ -210,6 +217,17 @@ class MetricsRegistry:
         k = _key(name, labels)
         with self._lock:
             self._counters[k] = self._counters.get(k, 0.0) + value
+
+    def inc_keyed(self, rows: Iterable[Tuple[Key, float]]):
+        """Add ``value`` to each counter row ``key`` (built once by
+        :func:`row_key`) under one lock: :meth:`inc` for a hot call site
+        whose label sets repeat."""
+        if not self._enabled:
+            return
+        with self._lock:
+            counters = self._counters
+            for k, v in rows:
+                counters[k] = counters.get(k, 0.0) + v
 
     def gauge(self, name: str, value: float, **labels: Any):
         if not self._enabled:

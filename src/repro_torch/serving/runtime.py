@@ -57,6 +57,14 @@ and state there (:class:`~repro_torch.serving.prefix_cache.PrefixCache`);
 a later request whose prompt starts with a published prefix adopts it at
 admission and prefills only its suffix.  Under pool pressure LRU entries
 are released before any slot is preempted.
+
+``decode_observed`` (None until set): the emulation counters of the first
+decode step run while the obs layer is enabled — contractions, int8 GEMMs
+(and those on presplit weights), high-precision adds.  The port records
+every executed contraction, so a dense step counts every layer's (24 x 9
++ 1 = 217 for internlm2-1.8b); the reference records at trace time and
+its layer scan traces one layer, so its count equals this one only for a
+one-layer model or with its scans unrolled.
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ from repro_torch import resolve_device
 from repro_torch.core import plan
 from repro_torch.core.engine import presplit_trace_counts
 from repro_torch.models import api
+from repro_torch.obs import registry as _obs
 from repro_torch.serving import presplit as presplit_mod
 from repro_torch.serving.kvcache import (STATE_DESCRIPTORS, PagedKV,
                                          SlotCacheOps)
@@ -201,6 +210,7 @@ class ServingRuntime:
         self._evictions_at_reset = 0
         self._presplit_counts0 = presplit_trace_counts()
         self._presplit_rate = None
+        self.decode_observed: Optional[Dict[str, float]] = None
 
     # ------------------------------------------------------------------
     # device steps
@@ -495,9 +505,21 @@ class ServingRuntime:
         # slots = "write nothing" (cache_update_row no-op)
         cur = np.where(active, self._cur, 0).astype(np.int32)
         toks = self._last_tok[:, None].astype(np.int32)
+        cap = None
+        if self.decode_observed is None and _obs.enabled():
+            cap = _obs.get_registry().snapshot()
         t0 = self._now()
         nxt = self._decode(toks, cur, active)
         now = self._now()
+        if cap is not None:
+            d = _obs.get_registry().snapshot().diff(cap)
+            self.decode_observed = {
+                "contractions": d.total("emulation.calls"),
+                "int8_gemms": d.total("emulation.int8_gemms"),
+                "int8_gemms_presplit": d.total("emulation.int8_gemms",
+                                               presplit=1),
+                "highprec_adds": d.total("emulation.highprec_adds"),
+            }
         self.metrics.decode_steps += 1
         self.metrics.observe_timing("decode_step", now - t0)
         self._avoided_split_bytes += self._wrapped_bytes

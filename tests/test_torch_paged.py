@@ -28,8 +28,8 @@ What is held, and how tightly:
   run stepped beside it; the launcher serves ``--page-block 8
   --prefill-chunk 4``, with and without ``--prefix-cache`` (the CI's
   serving smokes' flags), for the three archs those smokes run; the prefix
-  cache without ``page_block`` raises, and so do the launcher's flags of
-  the slices not yet ported, each naming its slice.
+  cache without ``page_block`` raises, and so does the launcher's
+  ``--mesh``, naming its slice.
 """
 import numpy as np
 import pytest
@@ -367,8 +367,9 @@ def test_dense_paged_runtime_matches_reference_paged_runtime():
 def test_prefix_cache_raises_naming_its_slice():
     """The prefix cache is ported (``--prefix-cache`` serves, see
     ``test_launcher_serves_paged``) and raises only without a pool; the
-    launcher's flags of the slices not yet ported raise, each naming its
-    slice, before any model is built."""
+    launcher's ``--mesh`` (the one flag of a slice not yet ported) raises,
+    naming its slice, before any model is built.  ``--metrics-json`` and
+    ``--profile-dir`` serve (``tests/test_torch_obs_serving.py``)."""
     from repro_torch.launch import serve
     from repro_torch.serving import ServingRuntime
     cfg = P_configs.get_config("internlm2_1_8b", smoke=True)
@@ -377,13 +378,10 @@ def test_prefix_cache_raises_naming_its_slice():
     with pytest.raises(ValueError, match="requires page_block"):
         ServingRuntime(cfg, params, slots=2, max_len=16, prefix_cache=True,
                        device="cpu")
-    for flag, value, later in (("--mesh", "data=2", "distributed"),
-                               ("--metrics-json", "m.json", "obs"),
-                               ("--profile-dir", "prof", "obs")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{flag} comes with the {later} slice"):
-            serve.main(["--page-block", "8", "--prefix-cache", flag, value,
-                        "--device", "cpu"])
+    with pytest.raises(NotImplementedError,
+                       match="--mesh comes with the distributed slice"):
+        serve.main(["--page-block", "8", "--prefix-cache", "--mesh",
+                    "data=2", "--device", "cpu"])
 
 
 def test_paged_view_is_the_monolithic_cache():
