@@ -46,6 +46,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    padded cross K/V, read through its strides) and its skinny group GEMMs,
    the encoder's contractions at 32 frames (the large route), and the
    df32 epilogue at both LM heads' widths (4 x 128256, 4 x 256256).  The
+   six other families' train steps (phase 6b) add theirs
+   (:func:`train_family_cases`, built after the other cases are freed):
+   the E-batched expert weight cotangents (64 x 2048 x 240 x 1408; 16 x
+   5120 x 960 x 1536), the tied heads' input cotangents over the padded
+   vocab (2048 x 50432 x 1536, 2048 x 256000 x 4096: two-pair chunks,
+   ``torch._int_mm`` beside) and the vlm's cross ``wk``/``wv`` cotangents
+   over 8 x 1600 patch rows, each with its splits and df32 epilogue.  The
    group GEMM's, the split's
    and the epilogues' times are device times (CUDA-graph replay; the
    group GEMM's
@@ -127,6 +134,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    step, ms a step, tokens/s and the peak device memory; one more step
    traced by kernel class; on its parameters the emulation within the
    same limits of the f64 witness.
+6b. Train the six other families (``train_families``: ``train_moe``,
+   ``train_mla_moe``, ``train_ssm``, ``train_hybrid``, ``train_vlm``,
+   ``train_encdec``): mamba2-780m, seamless-m4t-medium, deepseek-moe-16b,
+   recurrentgemma-9b, llama-3.2-vision-11b and deepseek-v2-236b at their
+   published widths, cut in depth only as far as ``train_depth``'s
+   predicted peak (``TRAIN_BYTES_A_PARAM`` a parameter, more for a tied
+   embedding) and the allocator's reserve force, the cut printed (deepseek-v2's routed experts cut to 16 of 160 as well: one of
+   its layers holds 5.1 B parameters); random weights from the seed (the
+   tied heads' ``embed`` scaled by 0.05, the vlm's gates drawn); the
+   pipeline's batch 8 x seq 256 with the vlm's 1600 patch rows and the
+   encdec's 256 frames.  Step 0 in f32 activations under
+   ``ozimmu_h-4:df32:fused`` against the native f32 engine (TF32 off):
+   the loss within 1e-5, every gradient leaf within 1e-3 of its max|g|,
+   the bf16 engine in the emulation's place failing them; for the MoE
+   families both runs' expert selections first (flipped (token, choice)
+   pairs at most 0.1%, the experts whose routed set differs named and
+   left out of the expert leaves); an f64 witness logged for the families
+   under 1.5 B parameters.  Then 3 steps through
+   ``launch.steps.make_train_step`` in bf16 activations: exact launches
+   a step by kernel and route, finite losses and grad norms, ms a step,
+   tokens/s and peak memory beside the card's name and power limit, and
+   one more step traced by kernel class; the hybrid's RG-LRU sequential
+   scan timed alone with its host operations.
 7. MoE serve (``serve_moe``): ``ServingRuntime`` on the published
    deepseek-moe-16b config (28 layers, 64 experts top-6 plus 2 shared,
    random weights from a seed) under ``ozimmu_h-4:df32:fused``, after
@@ -202,7 +232,12 @@ and 145 epilogues, the vlm one 457, 1444 and 361 a model step
 the train run 1782 splits, 3570 group GEMMs, all large (4 a contraction,
 10 for the LM head's input cotangent, whose contraction over the padded
 vocab leaves one pair a chunk) and 891 epilogues a step
-(:func:`train_step_launches`); a serve trace splits the device operations of a step by kernel into split,
+(:func:`train_step_launches`, which also reckons each train_families
+step: mamba2 774 / 1550 / 387, seamless 2190 / 4382 / 1095,
+deepseek-moe at 3 layers 300 / 606 / 150, recurrentgemma at 1 pattern
+block 152 / 306 / 76, llama-vision at one group 466 / 938 / 233,
+deepseek-v2 at 1 layer of 16 experts 120 / 246 / 60, all large); a
+serve trace splits the device operations of a step by kernel into split,
 group GEMM, epilogue and other.  Phase 2 holds
 the flash kernels to their plain versions within the reference's
 tolerances in f32 (forward 2e-5, backward 2e-4; lse always f32 and held to
@@ -223,6 +258,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -392,11 +428,13 @@ def close(x, y, tol: float):
 # phase 2: kernels vs plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def kernel_cases(dev):
+def kernel_cases(dev, part="main"):
     """One dict per (kernel, shape) on seeded inputs at the path's shapes:
     ``run``/``plain`` (fresh outputs, for the bitwise check), ``bench``
     (the timed kernel call), ``library`` (a one-call PyTorch yardstick or
-    None), and the bytes/operations the function must move/do."""
+    None), and the bytes/operations the function must move/do.  ``part``
+    ``"train_families"``: the train_families phase's new shapes alone (a
+    second list, built once the first is freed)."""
     import torch
     from repro_torch.core.ozimmu import canonical_lhs, canonical_rhs
     from repro_torch.core.splitting import compute_beta, compute_beta_sm
@@ -487,7 +525,7 @@ def kernel_cases(dev):
             graph=True)
 
     def gemm_case(label, m, n, p, k, reps, batch=(), sm=False, route=None,
-                  live=None, plain_chunks=1, plain_cols=1):
+                  live=None, plain_chunks=1, plain_cols=1, pairs=None):
         """The group g = k + 1 (all k pairs) of split digits, signed or the
         sign-magnitude split's stored digits (slice 0 signed, the others
         unsigned bytes), B K-major as the axis=1 split stores it.  Timed
@@ -501,7 +539,9 @@ def kernel_cases(dev):
         ``plain_chunks``: the plain version runs on that many slices of
         the batch, concatenated (its f64 copy of a 160-expert stack's
         digits alone would take 40 GB); ``plain_cols`` on that many
-        column blocks of B (a 256000-column LM head's: 33 GB)."""
+        column blocks of B (a 256000-column LM head's: 33 GB).
+        ``pairs``: the (A slice, B slice) pairs of one chunk instead, as a
+        contraction whose group-EF limit r is below k runs them."""
         dtype = f64 if k == 8 else f32
         a = torch.randn(batch + (m, n), generator=gen, device=dev,
                         dtype=dtype)
@@ -514,8 +554,10 @@ def kernel_cases(dev):
         da = ops.split_fused(a, k, beta, mode=mode, axis=0).digits
         db = ops.split_fused(w, k, beta, mode=mode, axis=1).digits
         ia, ib = list(range(k)), list(range(k - 1, -1, -1))  # group g=k+1
+        if pairs is not None:
+            ia, ib = [i for i, _ in pairs], [j for _, j in pairs]
         ua, ub = [sm and i > 0 for i in ia], [sm and j > 0 for j in ib]
-        B, G = math.prod(batch), k
+        B, G = math.prod(batch), len(ia)
         copies = [db] + [db.clone() for _ in range(
             math.ceil(128e6 / db.numel()) - 1)]
         turn = iter(range(1 << 62))
@@ -826,6 +868,9 @@ def kernel_cases(dev):
         del w, sb_                    # the B digits: 0.74 GB (MLA: 5 GB)
         chunks_case(label, prods, sa_.base, base_b, reps, beta=beta)
 
+    if part == "train_families":
+        train_family_cases(split_case, gemm_case, decode_chunks_case)
+        return cases
     ctx = PROMPT + GEN                        # the decode cache length
     split_case("decode A (4x2048) f32 k=4", (SLOTS, d), f32, 4, 0, 50)
     split_case("decode A (4x8192) f32 k=4", (SLOTS, f), f32, 4, 0, 50)
@@ -1131,11 +1176,72 @@ KERNELS = {
 }
 
 
+def _drain(cases):
+    """Yield and drop the cases one by one, so that each case's tensors
+    are freed once it has run."""
+    import torch
+    while cases:
+        yield cases.pop(0)
+    torch.cuda.empty_cache()
+
+
+def train_family_cases(split_case, gemm_case, chunks_case):
+    """The train_families phase's kernel shapes that no serve or dense
+    train case covers (global batch 8 x seq 256, T = 2048 tokens): the
+    E-batched expert weight cotangents (deepseek-moe-16b's 64 experts x
+    2048 x 240 capacity rows x 1408, and deepseek-v2-236b's cut to 16
+    experts: 16 x 5120 x 960 x 1536): their A side (the output cotangent
+    contracted over the capacity rows, a transposed view the wrapper
+    copies to rows), B side (the expert hidden rows), group GEMM and df32
+    epilogue; the tied heads' input cotangents (the logits' cotangent
+    contracted over the padded vocab: r = 2, two-pair chunks; mamba2 2048
+    x 50432 x 1536, recurrentgemma 2048 x 256000 x 4096): the cotangent's
+    A split, ``embed``'s B split, a two-pair group GEMM and the six-chunk
+    epilogue; and the vlm's cross ``wk``/``wv`` cotangents over the
+    batch's 8 x 1600 patch rows (input: 12800 x 1024 x 4096; weight: 1024
+    x 12800 x 4096, its A side the transposed view of the output
+    cotangent)."""
+    import torch
+    f32 = torch.float32
+    Bt, Lt = TRAIN["batch"], TRAIN["seq"]
+    T = Bt * Lt
+    for E, dm, cap, fe, what in ((MOE["E"], MOE["d"], 240, MOE["fe"], "MoE"),
+                                 (16, MLA["d"], 960, MLA["fe"], "MLA MoE")):
+        split_case(f"train {what} dW A: w_down cotangent ({E}x{cap}x{dm} -> "
+                   f"{E}x{dm}x{cap} view) f32 k=4", (E, cap, dm), f32, 4, 0,
+                   5, lhs_dnums=(((1,), (1,)), ((0,), (0,))))
+        split_case(f"train {what} dW B: expert hidden ({E}x{cap}x{fe}) f32 "
+                   f"k=4 axis=1", (E, cap, fe), f32, 4, 1, 5)
+        gemm_case(f"train {what} dW w_down ({E} x {dm}x{cap}x{fe}) G=4", dm,
+                  cap, fe, 4, 5, batch=(E,))
+        chunks_case(dm, fe, 5, batch=(E,), what=f"train {what} dW w_down")
+    for dm, V, what, cols in ((SSM["d"], SSM["V"], "mamba2", 1),
+                              (HYB["d"], HYB["V"], "recurrentgemma", 16)):
+        split_case(f"train {what} tied head dx A: logits cotangent "
+                   f"({T}x{V}) f32 k=4", (T, V), f32, 4, 0, 5)
+        split_case(f"train {what} tied head dx B: embed ({V}x{dm}) f32 k=4 "
+                   f"axis=1", (V, dm), f32, 4, 1, 5)
+        gemm_case(f"train {what} tied head dx ({T}x{V}x{dm}) 2 pairs", T, V,
+                  dm, 4, 5, pairs=[(0, 1), (1, 0)], plain_cols=cols)
+        chunks_case(T, dm, 5, what=f"train {what} tied head dx r=2",
+                    groups=[2, 3, 4, 4, 5, 5])
+    dv, kvw, rows = VLM["d"], VLM["kv"], Bt * VLM["Lv"]
+    split_case(f"train vlm cross dW A: wk cotangent ({Bt}x{VLM['Lv']}x{kvw} "
+               f"-> {kvw}x{rows} view) f32 k=4", (Bt, VLM["Lv"], kvw), f32,
+               4, 0, 5, lhs_dnums=(((0, 1), (0, 1)), ((), ())))
+    gemm_case(f"train vlm cross dW wk/wv ({kvw}x{rows}x{dv}) G=4", kvw, rows,
+              dv, 4, 5)
+    gemm_case(f"train vlm cross dx wk/wv ({rows}x{kvw}x{dv}) G=4", rows, kvw,
+              dv, 4, 5)
+    chunks_case(rows, dv, 5, what="train vlm cross dx")
+
+
 def phase_kernels(dev):
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     results = {}
-    for c in kernel_cases(dev):
+    for c in (c for part in ("main", "train_families")
+              for c in _drain(kernel_cases(dev, part))):
         before = dict(LAUNCHES)
         out_k, out_p = c["run"](), c["plain"]()
         torch.cuda.synchronize()
@@ -3195,35 +3301,141 @@ def phase_flash(dev):
 # phase 6: train
 # ---------------------------------------------------------------------------
 
+def _proj(n: int, m: int, p: int):
+    """A contraction of ``m`` rows of length ``n`` into ``p`` columns (a
+    projection, or an E-batched expert product, one launch set for the
+    batch): ``(forward, backward)`` as ``(n, m)`` pairs.  The backward's
+    input cotangent contracts the ``p`` columns over the same rows, its
+    weight cotangent the ``m`` rows into ``p`` rows (``_OzDotGeneral``)."""
+    return [(n, m)], [(p, m), (m, p)]
+
+
+def _flash(D: int, Dv: int, G: int, Lq: int, Lk: int, q_chunk: int,
+           kv_chunk: int):
+    """``layers.attention_flash`` through the engine: a (q chunk, key
+    chunk) block's scores (contract D over G qc rows) and p@v (contract
+    kc); its recompute backward's s, dv, dp, dq and dk.  Every block runs,
+    masked or not."""
+    qc, kc = min(q_chunk, Lq), min(kv_chunk, Lk)
+    blocks = -(-Lq // qc) * -(-Lk // kc)
+    gq = G * qc
+    return [(D, gq), (kc, gq)] * blocks, \
+        [(D, gq), (gq, kc), (Dv, gq), (kc, gq), (gq, kc)] * blocks
+
+
+def _unit(*parts):
+    """The forward and backward contractions of several parts in one."""
+    return ([c for f, _ in parts for c in f],
+            [c for _, b in parts for c in b])
+
+
+def _attn(cfg, B: int, Lq: int, Lk: Optional[int] = None,
+          kv_rows: Optional[int] = None):
+    """GQA attention (``transformer.attn_block``, a cross layer's when
+    ``Lk`` / ``kv_rows`` name the memory): q, k, v, the flash blocks and
+    the output projection."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    T, Lk = B * Lq, Lk or Lq
+    kv_rows = kv_rows or T
+    return _unit(_proj(d, T, H * hd), _proj(d, kv_rows, KV * hd),
+                 _proj(d, kv_rows, KV * hd),
+                 _flash(hd, hd, H // KV, Lq, Lk, cfg.q_chunk, cfg.kv_chunk),
+                 _proj(H * hd, T, d))
+
+
+def _mlp(cfg, T: int, f: Optional[int] = None):
+    d, f = cfg.d_model, f or cfg.d_ff
+    if cfg.mlp_type == "gelu":
+        return _unit(_proj(d, T, f), _proj(f, T, d))
+    return _unit(_proj(d, T, f), _proj(d, T, f), _proj(f, T, d))
+
+
+def _moe_layer(cfg, B: int, L: int):
+    """A MoE layer: GQA or MLA attention; the three E-batched expert
+    products over the capacity's rows; the shared experts (the f32 router
+    is no emulated contraction)."""
+    from repro_torch.models import moe
+    d, T, fe = cfg.d_model, B * L, cfg.d_ff_expert
+    if cfg.family == "mla_moe":
+        H, hd, dr, dl = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.kv_lora
+        vd = cfg.v_head_dim or hd
+        attn = _unit(_proj(d, T, dl), _proj(d, T, dr),
+                     _proj(d, T, H * (hd + dr)), _proj(dl, T, H * hd),
+                     _proj(dl, T, H * vd),
+                     _flash(hd + dr, vd, 1, L, L, cfg.q_chunk,
+                            cfg.kv_chunk), _proj(H * vd, T, d))
+    else:
+        attn = _attn(cfg, B, L)
+    cap = moe._capacity(cfg, T)
+    parts = [attn, _proj(d, cap, fe), _proj(d, cap, fe), _proj(fe, cap, d)]
+    if cfg.n_shared_experts:
+        parts.append(_mlp(cfg, T, fe * cfg.n_shared_experts))
+    return _unit(*parts)
+
+
 def train_step_contractions(cfg, B: int, L: int):
-    """``(n, m)`` of every emulated contraction of one dense train step at
-    one attention chunk (L <= q_chunk, kv_chunk): its contraction length
-    and rows.  The forward runs 9 a layer (7 projections, the scores and
-    p@v) and the LM head's; the remat recompute every layer's 9 again; the
-    backward both cotangents of each of the 7 projections a layer (the
-    input cotangent contracts the output width over T = B L rows, the
-    weight cotangent the T tokens over the input width's rows), the flash
-    backward's 5 (s, dv, dp, dq, dk) a layer and both of the LM head."""
-    d, f, V, hd = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.hd
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    G, T = H // KV, B * L
-    outs = [H * hd, KV * hd, KV * hd, d, f, f, d]
-    ins = [d, d, d, H * hd, d, d, f]
-    fwd = [(n, T) for n in ins] + [(hd, G * L), (L, G * L)]
-    bwd = [(o, T) for o in outs] + [(T, i) for i in ins] + \
-        [(hd, G * L), (G * L, L), (hd, G * L), (L, G * L), (G * L, L)]
-    n = cfg.n_layers
-    return fwd * n + [(d, T)] + fwd * n + bwd * n + [(V, T), (T, V)]
+    """``(n, m)`` of every emulated contraction of one train step of
+    ``cfg`` at batch ``B`` x seq ``L`` (an encdec batch's ``L`` frames):
+    its contraction length and rows.  A unit of the layer stack runs its
+    forward once, once more in the remat recompute (every contraction of
+    a remat block saves its operands, so the recompute reaches them all)
+    and its backward once; the vlm's self layers, remat blocks nested in
+    their group's, run a third forward in their own recompute; the
+    hybrid's tail layers sit outside the remat blocks (one forward).  The
+    LM head (or the tied ``embed.T``) runs forward and backward once.
+    dense: 9 a layer (7 projections, the scores and p@v); moe: 12 (+ the
+    3 expert products and 3 shared ones, attention's 7 with 2 flash);
+    mla_moe: 14; ssm: 2 (``w_in``, ``w_out``); hybrid: 18 a pattern block
+    and 5 a tail layer; vlm: 9 a self layer and 9 (+ 2 a further key
+    chunk) a cross layer, whose ``wk``/``wv`` read the patch rows; encdec:
+    8 an encoder layer over the frames, 15 a decoder layer."""
+    d, T, fam = cfg.d_model, B * L, cfg.family
+    head = _proj(d, T, cfg.padded_vocab)
+    units = []                                   # (unit, forward runs)
+    if fam == "dense":
+        units = [(_unit(_attn(cfg, B, L), _mlp(cfg, T)), 2)] * cfg.n_layers
+    elif fam in ("moe", "mla_moe"):
+        units = [(_moe_layer(cfg, B, L), 2)] * cfg.n_layers
+    elif fam == "ssm":
+        d_inner = cfg.expand * d
+        p_in = 2 * d_inner + 2 * cfg.d_state + d_inner // cfg.ssm_headdim
+        units = [(_unit(_proj(d, T, p_in), _proj(d_inner, T, d)), 2)] * \
+            cfg.n_layers
+    elif fam == "hybrid":
+        w = cfg.lru_width or d
+        rec = _unit(_proj(d, T, w), _proj(d, T, w), _proj(w, T, d),
+                    _mlp(cfg, T))
+        n_r = sum(1 for c in cfg.pattern if c == "R")
+        block = _unit(*[rec] * n_r, _attn(cfg, B, L), _mlp(cfg, T))
+        units = [(block, 2)] * cfg.n_pattern_blocks + \
+            [(rec, 1)] * cfg.n_tail_layers
+    elif fam == "vlm":
+        KV, hd, Lv = cfg.n_kv_heads, cfg.hd, cfg.vision_seq
+        cross = _unit(_attn(cfg, B, L, Lk=Lv, kv_rows=B * Lv), _mlp(cfg, T))
+        self_layer = _unit(_attn(cfg, B, L), _mlp(cfg, T))
+        per_group = [(self_layer, 3)] * (cfg.cross_every - 1) + [(cross, 2)]
+        units = per_group * (cfg.n_layers // cfg.cross_every)
+    elif fam == "encdec":
+        enc = _unit(_attn(cfg, B, L), _mlp(cfg, T))
+        dec = _unit(_attn(cfg, B, L), _attn(cfg, B, L, Lk=L, kv_rows=T),
+                    _mlp(cfg, T))
+        units = [(enc, 2)] * cfg.enc_layers + [(dec, 2)] * cfg.n_layers
+    else:
+        raise ValueError(f"no train-step construction for {fam!r}")
+    out = [c for (fwd, _), runs in units for c in fwd * runs]
+    out += head[0] + [c for (_, bwd), _ in units for c in bwd] + head[1]
+    return out
 
 
 def train_step_launches(cfg, B: int, L: int):
     """Kernel launches of one train step under ``MODEL_SPEC`` by
-    construction: two splits and one df32 epilogue a contraction, and a
-    group GEMM for each chunk of the anti-diagonal groups 2..5 at the
-    group-EF limit r of its contraction length (r >= 4 gives one chunk a
-    group; the LM head's input cotangent, n = 92672, has r = 1 and ten
-    one-pair chunks); a group GEMM takes the large route above
-    ``SKINNY_MAX_M`` rows (every stack here is TMA-aligned)."""
+    construction (:func:`train_step_contractions`): two splits and one
+    df32 epilogue a contraction, and a group GEMM for each chunk of the
+    anti-diagonal groups 2..5 at the group-EF limit r of its contraction
+    length (r >= 4 gives one chunk a group; an LM head's input cotangent,
+    n = 92672 and wider, has r = 1 and ten one-pair chunks); a group GEMM
+    takes the large route above ``SKINNY_MAX_M`` rows (every stack here is
+    TMA-aligned)."""
     from repro_torch.core.accumulate import _group_chunks
     from repro_torch.core.splitting import compute_beta, compute_r
     from repro_torch.kernels.group_gemm import SKINNY_MAX_M
@@ -3462,6 +3674,429 @@ def phase_train(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: train_families
+# ---------------------------------------------------------------------------
+
+# the six families besides the dense one, the smallest first
+TRAIN_FAMILIES = ("mamba2_780m", "seamless_m4t_medium", "deepseek_moe_16b",
+                  "recurrentgemma_9b", "llama32_vision_11b",
+                  "deepseek_v2_236b")
+TRAIN_FAMILY_STEPS = 3
+# one deepseek-v2-236b layer holds 5.1 B parameters at its 160 routed
+# experts (~158 GB of training state at TRAIN_BYTES_A_PARAM): the routed
+# experts are cut to 16 (top-6 and the 2 shared kept), every width as
+# published
+TRAIN_WIDTH_CUT = {"deepseek_v2_236b": dict(n_experts=16)}
+# a train phase's peak over its f32 parameters at batch 8 x seq 256
+# (parameters, gradients, AdamW's moments with the functional update's
+# new copies, the activations), measured on an H100 80GB: 31.1 for the
+# dense internlm2-1.8b, 32.0-33.2 for the cut deepseek-moe-16b,
+# deepseek-v2-236b and llama-3.2-vision-11b, 34.2 / 36.9 for the uncut
+# seamless-m4t-medium and mamba2-780m; the largest of the cut ones
+TRAIN_BYTES_A_PARAM = 33.2
+# and besides, an element of a tied head's ``embed``: its B side split at
+# every head contraction (int8 digits and scales beside the f32 view) and
+# its gradient gathered from the head and from the lookup.  mamba2 (77 M
+# elements) peaked 2.9 GB above 33.2 B a parameter; recurrentgemma-9b at
+# 2 pattern blocks (2.16 B parameters, 1.05 B of them its embedding) ran
+# out of the 85.0 GB card in the AdamW update
+TRAIN_TIED_BYTES = 12.0
+# what the allocator holds reserved but cannot place beside a train
+# phase's peak: recurrentgemma-9b at 2 pattern blocks and deepseek-v2 at
+# 2 layers (76.62 GB peak) ran out with 7.7 / 7.6 GiB of it
+TRAIN_ALLOCATOR_RESERVE = 8.3e9
+# the families small enough for an f64 witness beside step 0's runs
+TRAIN_WITNESS_MAX = 1.5e9
+
+
+def train_memory(cfg) -> tuple:
+    """``(predicted peak bytes, f32 parameters)`` of a train phase on
+    ``cfg`` at ``TRAIN`` batch and seq: :data:`TRAIN_BYTES_A_PARAM` a
+    parameter of the tree built on the meta device,
+    :data:`TRAIN_TIED_BYTES` an element of a tied head's ``embed``, and
+    ``DEPTH_HEADROOM``."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models.common import param_count
+    tree = api.get_model(cfg).init(cfg, generator=torch.Generator(),
+                                   device="meta")
+    n = param_count(tree)
+    tied = 0 if "lm_head" in tree else tree["embed"].numel()
+    return int(TRAIN_BYTES_A_PARAM * n + TRAIN_TIED_BYTES * tied +
+               DEPTH_HEADROOM), n
+
+
+def train_depth(cfg, free_bytes: int):
+    """``(cfg, predicted peak, why)``: the published depth if its
+    predicted peak (:func:`train_memory`) and
+    :data:`TRAIN_ALLOCATOR_RESERVE` fit ``free_bytes``, else the most
+    whole units that fit, each cut with remat blocks that divide it:
+    layers (moe, mla_moe, ssm), both stacks together (encdec), the vlm's
+    groups of ``cross_every`` layers, the hybrid's pattern blocks with the
+    tail cut first."""
+    import math
+    fam = cfg.family
+
+    def rb(k):
+        return math.gcd(cfg.remat_block, k)
+    if fam == "hybrid":
+        nb, what = cfg.n_pattern_blocks, "(R, R, A) pattern blocks, no tail"
+        cands = [cfg.with_(n_pattern_blocks=k, n_tail_layers=0,
+                           n_layers=k * len(cfg.pattern), remat_block=rb(k))
+                 for k in range(nb, 0, -1)]
+    elif fam == "vlm":
+        nb, what = cfg.n_layers // cfg.cross_every, \
+            f"groups of {cfg.cross_every - 1} self + 1 cross layer"
+        cands = [cfg.with_(n_layers=k * cfg.cross_every, remat_block=rb(k))
+                 for k in range(nb, 0, -1)]
+    elif fam == "encdec":
+        nb, what = cfg.n_layers, "encoder + decoder layers"
+        cands = [cfg.with_(n_layers=k, enc_layers=k, remat_block=rb(k))
+                 for k in range(nb, 0, -1)]
+    else:
+        nb, what = cfg.n_layers, "layers"
+        cands = [cfg.with_(n_layers=k, remat_block=rb(k))
+                 for k in range(nb, 0, -1)]
+    room = free_bytes - TRAIN_ALLOCATOR_RESERVE
+    peak = train_memory(cfg)[0]
+    if peak <= room:
+        return cfg, peak, "depth not cut"
+    for k, c in zip(range(nb, 0, -1), cands):
+        pk, n = train_memory(c)
+        if pk <= room:
+            return c, pk, (f"depth cut {nb} -> {k} {what}: the published "
+                           f"depth's predicted peak {peak / 1e9:.1f} GB "
+                           f"exceeds the {free_bytes / 1e9:.1f} GB free "
+                           f"less the allocator's "
+                           f"{TRAIN_ALLOCATOR_RESERVE / 1e9:.1f} GB; "
+                           f"{n / 1e9:.3f} B parameters at "
+                           f"{TRAIN_BYTES_A_PARAM:g} B a parameter (+ "
+                           f"{TRAIN_TIED_BYTES:g} an element of a tied "
+                           f"embedding)")
+    raise AssertionError(f"{cfg.name}: not one unit of {what} fits "
+                         f"{room / 1e9:.1f} GB")
+
+
+def expert_flips(sel_a, sel_b, E: int):
+    """Per layer, ``(flipped pairs, experts whose routed set differs)``
+    between two runs' (T, K) selections: a (token, choice) pair of run a
+    whose expert run b did not pick for that token, and both experts of
+    every such pair."""
+    import torch.nn.functional as F
+    out = []
+    for a, b in zip(sel_a, sel_b):
+        oa = F.one_hot(a.long(), E).sum(dim=1) > 0
+        ob = F.one_hot(b.long(), E).sum(dim=1) > 0
+        out.append((int((oa & ~ob).sum()),
+                    sorted(int(e) for e in
+                           (oa != ob).any(dim=0).nonzero().flatten())))
+    return out
+
+
+def family_reading(ga, gb, paths, excluded=None):
+    """``{leaf: max|a - b| / max|b|}`` of two gradient trees (0 where both
+    are zero); ``excluded`` maps an expert leaf's path to the (layer,
+    expert) slices left out of both maxima."""
+    import torch
+    from repro_torch import tree
+    per = {}
+    for name, a, b in zip(paths, tree.leaves(ga), tree.leaves(gb)):
+        d, r = (a - b).abs(), b.abs()
+        for layer, e in (excluded or {}).get(name, ()):
+            d[layer, e] = 0
+            r[layer, e] = 0
+        dm, rm = float(d.max()), float(r.max())
+        per[name] = dm / rm if rm > 0 else (0.0 if dm == 0 else math.inf)
+        del d, r
+    torch.cuda.empty_cache()
+    return per
+
+
+def lru_host_cost(dev, cfg, params, B: int, L: int, card: str):
+    """The RG-LRU's sequential scan over one recurrent layer's input at the
+    train shape (B x L x lru_width, bf16): its forward and backward,
+    synchronized, with the PyTorch operations it dispatches counted."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import hybrid
+    lp = {k: v[0, 0].detach().requires_grad_()
+          for k, v in params["blocks"]["r_layers"].items()}
+    w = cfg.lru_width or cfg.d_model
+    x = torch.randn((B, L, w), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev).to(cfg.compute_dtype)
+    x.requires_grad_()
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def run():
+        y, h = hybrid.rg_lru(lp, x)
+        (y.float().sum() + h.sum()).backward()
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with Count():
+        run()
+    torch.cuda.synchronize()
+    log(f"[train_hybrid] RG-LRU sequential scan, one recurrent layer at B "
+        f"{B} x L {L} x {w}: forward + backward {ms:.2f} ms wall, "
+        f"{Count.n} PyTorch operations ({ms * 1e3 / Count.n:.1f} us an "
+        f"operation; ms wall, synchronized); {card}")
+    del lp, x
+
+
+def train_family(dev, arch: str, card: str):
+    """Train ``arch``'s ``full()`` config at its published width, cut in
+    depth only as far as :func:`train_depth` predicts the card forces
+    (deepseek-v2's experts cut by :data:`TRAIN_WIDTH_CUT`), random weights
+    from the seed (the tied heads' ``embed`` scaled by
+    ``STATE_EMBED_SCALE``, the vlm's zero gates drawn as +-U(0.5, 1.5):
+    a zero gate shuts every cross layer's gradient), under ``MODEL_SPEC``
+    at ``TRAIN`` batch x seq from the synthetic pipeline (the vlm's patch
+    rows, the encdec's frames).
+
+    1. Step 0 in f32 activations against the native f32 engine (TF32 off)
+       on the same parameters and batch: the loss within 1e-5, every
+       gradient leaf within 1e-3 of its max|g|; the native bf16 engine in
+       the emulation's place must fail these limits.  For the MoE
+       families both runs' expert selections are read first: flipped
+       (token, choice) pairs at most 0.1% of all, the experts whose routed
+       set differs named and left out of the expert leaves' comparison.
+    2. ``TRAIN_FAMILY_STEPS`` steps through ``launch.steps.
+       make_train_step`` (the published bf16 activations, the launcher's
+       AdamW rule): exact launches a step by kernel and route
+       (:func:`train_step_launches`), finite losses and grad norms, ms a
+       step (step 0 apart), tokens/s and the peak device memory against
+       its prediction; then one more step traced by kernel class.
+
+    Returns the kernel launches of 2."""
+    import gc
+    import torch
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import Pipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import data_config, device_batch
+    from repro_torch.models import api, moe
+    from repro_torch.models.common import param_count
+    B, L, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN_FAMILY_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    full = configs.get_config(arch, engine_spec=MODEL_SPEC)
+    cut = TRAIN_WIDTH_CUT.get(arch, {})
+    cfg, predicted, why = train_depth(full.with_(**cut), free)
+    fam = cfg.family
+    tag = f"train_{fam}"
+    per_step, n_contr = train_step_launches(cfg, B, L)
+    log(f"[{tag}] {cfg.name}: {why}"
+        + (f"; width cut: {cut} (published {full.n_experts} routed "
+           f"experts)" if cut else "")
+        + f"; {cfg.n_layers} layers"
+        + (f" + {cfg.enc_layers} encoder layers" if fam == "encdec" else "")
+        + f", d_model {cfg.d_model}, vocab {cfg.vocab}, remat blocks of "
+        f"{cfg.remat_block}; global batch {B} x seq {L}; predicted peak "
+        f"{predicted / 1e9:.1f} GB of {free / 1e9:.1f} GB free; "
+        f"{n_contr} emulated contractions a step")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = api.get_model(cfg).init(cfg, generator=gen, device=dev)
+    if fam in ("ssm", "hybrid"):
+        params["embed"].mul_(STATE_EMBED_SCALE)
+    if fam == "vlm":
+        for name in ("gate_attn", "gate_mlp"):
+            g = params["groups"]["cross"][name]
+            sign = torch.where(torch.rand(g.shape, generator=gen,
+                                          device=dev) < 0.5, -1.0, 1.0)
+            g.copy_((torch.rand(g.shape, generator=gen, device=dev) + 0.5)
+                    * sign)
+        log(f"[{tag}] gates drawn from the seed: "
+            f"{params['groups']['cross']['gate_attn'].tolist()} / "
+            f"{params['groups']['cross']['gate_mlp'].tolist()}")
+    pipe = Pipeline(data_config(cfg, seq_len=L, global_batch=B, seed=SEED))
+    paths = _leaf_paths(params)
+    is_moe = fam in ("moe", "mla_moe")
+
+    # 1. step 0 in f32 activations
+    def grads_under(spec, batch, dtype="float32"):
+        """(loss, gradients, each MoE layer's forward selections, ms)."""
+        sels, route = [], moe._route
+
+        def recording(gates, topk, cap):
+            out = route(gates, topk, cap)
+            if len(sels) < cfg.n_layers:           # the forward, not the
+                sels.append(out[1])                # remat recompute
+            return out
+        moe._route = recording
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = S.loss_and_grads(
+                cfg.with_(dtype=dtype, engine_spec=spec), params, batch)
+            loss = float(loss)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            moe._route = route
+        return loss, g, sels, ms
+
+    def compare(a, b, what):
+        """``(|loss diff|, worst leaf reading, its name, flip fraction)``
+        of run a against run b, logged leaf by leaf."""
+        (la, ga, sa, _), (lb, gb, sb, _) = a, b
+        excluded, frac = {}, 0.0
+        if is_moe:
+            flips = expert_flips(sa, sb, cfg.n_experts)
+            n_flip = sum(f for f, _ in flips)
+            frac = n_flip / (B * L * cfg.topk * cfg.n_layers)
+            for leaf in ("w_gate", "w_up", "w_down"):
+                excluded[f"layers/moe/{leaf}"] = [
+                    (i, e) for i, (_, es) in enumerate(flips) for e in es]
+            log(f"[{tag}] {what}: expert selections, flipped (token, "
+                f"choice) pairs {n_flip} of {B * L * cfg.topk * cfg.n_layers}"
+                f" ({frac:.3e}); experts whose routed set differs, by layer "
+                f"(left out of the expert leaves' comparison): "
+                f"{[es for _, es in flips]}")
+        per = family_reading(ga, gb, paths, excluded)
+        worst = max(per, key=lambda k: (not math.isfinite(per[k]), per[k]))
+        dloss = abs(la - lb)
+        log(f"[{tag}] {what}: loss {la:.6f} vs {lb:.6f}, |diff| "
+            f"{dloss:.3e}; max|diff| / max|g| by leaf: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in per.items())
+            + f"; worst {worst}")
+        return dloss, per[worst], worst, frac
+
+    batch0 = device_batch(pipe.batch_at(0), dev)
+    runs = {spec: grads_under(spec, batch0) for spec in ("f32", MODEL_SPEC)}
+    dloss, worst, worst_name, frac = compare(
+        runs[MODEL_SPEC], runs["f32"], f"step 0, {MODEL_SPEC} vs f32")
+    if not dloss <= 1e-5:
+        raise AssertionError(f"{tag}: loss off the native f32 engine by "
+                             f"{dloss:.3e} (> 1e-5)")
+    if not worst <= 1e-3:
+        raise AssertionError(f"{tag}: gradient {worst_name} off the native "
+                             f"f32 engine by {worst:.3e} of its max|g| "
+                             f"(> 1e-3)")
+    if not frac <= 1e-3:
+        raise AssertionError(f"{tag}: {frac:.3e} of the expert choices "
+                             f"flipped (> 0.1%)")
+    emu_ms, f32_ms = runs[MODEL_SPEC][3], runs["f32"][3]
+    if param_count(params) <= TRAIN_WITNESS_MAX:
+        # logged, not held: which of the two parts from the f64 witness
+        runs["f64"] = grads_under("f64", batch0, "float64")
+        for spec in (MODEL_SPEC, "f32"):
+            compare(runs[spec], runs["f64"], f"step 0, {spec} vs the f64 "
+                    f"witness (f64 activations)")
+        del runs["f64"]
+    del runs[MODEL_SPEC]
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["bf16"] = grads_under("bf16", batch0)
+    b_loss, b_worst, b_name, b_frac = compare(runs["bf16"], runs["f32"],
+                                              "step 0, bf16 control vs f32")
+    if b_loss <= 1e-5 and b_worst <= 1e-3:
+        raise AssertionError(f"{tag}: the bf16 engine passes the step-0 "
+                             f"limits too (loss {b_loss:.3e}, {b_name} "
+                             f"{b_worst:.3e}): they do not tell the "
+                             f"emulation from bf16")
+    log(f"[{tag}] step 0 within its limits against the native f32 engine "
+        f"(|loss diff| {dloss:.3e} <= 1e-5, worst leaf {worst_name} "
+        f"{worst:.3e} <= 1e-3 of max|g|); the bf16 control does not pass "
+        f"them (loss {b_loss:.3e}, worst leaf {b_name} {b_worst:.3e}); "
+        f"forward + backward in f32 activations {emu_ms:.1f} ms emulated, "
+        f"{f32_ms:.1f} ms native f32 (first calls, untimed warm-up)")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fam == "hybrid":
+        lru_host_cost(dev, cfg, params, B, L, card)
+
+    # 2. the train steps, published bf16 activations
+    opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=min(20,
+                                                        n_steps // 5 + 1),
+                              total_steps=n_steps)
+    state = S.TrainState(params, optim.init(params, opt_cfg),
+                         torch.zeros((), dtype=torch.int32, device=dev))
+    del params
+    train_step = S.make_train_step(cfg, opt_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    seen = []
+    reset_launches()
+    for step in range(n_steps):
+        batch = device_batch(pipe.batch_at(step), dev)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        seen.append((metrics, time.perf_counter() - t0))
+    counts = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * n_steps for k, v in per_step.items()}
+    got = {k: counts[k] for k in want}
+    log(f"[{tag}] {n_steps} steps: launches {got}, expected {want} (a step:"
+        f" {per_step['split_fused']} splits, {per_step['group_gemm']} group "
+        f"GEMMs of which {per_step['group_gemm_large']} large, "
+        f"{per_step['scale_accum']} df32 epilogues)")
+    if got != want:
+        raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
+    for name in ("split_fused", "group_gemm", "scale_accum"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{tag} path launched no {name} kernel")
+    bad = [m for m, _ in seen if not (math.isfinite(m["loss"]) and
+                                      math.isfinite(m["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"{tag}: non-finite metrics {bad}")
+    step_s = [sec for _, sec in seen[1:]]
+    mean_s = sum(step_s) / len(step_s)
+    log(f"[{tag}] {cfg.name} ({param_count(state.params) / 1e9:.3f} B f32 "
+        f"parameters): losses {[round(m['loss'], 6) for m, _ in seen]}, "
+        f"grad norms {[round(m['grad_norm'], 4) for m, _ in seen]}; step 0 "
+        f"{seen[0][1] * 1e3:.1f} ms, steps 1-{n_steps - 1} "
+        f"{[round(x * 1e3, 1) for x in step_s]} ms: {mean_s * 1e3:.1f} ms a "
+        f"step, {B * L / mean_s:.0f} tokens/s; peak device memory "
+        f"{peak / 1e9:.2f} GB (predicted {predicted / 1e9:.1f}; "
+        f"{held / 1e9:.2f} GB held before; {peak / param_count(state.params):.1f}"
+        f" B a parameter); {card}")
+    # one more step traced by kernel class (its launches are not counted)
+    from torch.profiler import ProfilerActivity, profile
+    batch = device_batch(pipe.batch_at(n_steps), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    trace_summary(prof, tag, 1, traced_ms, mean_s * 1e3, what="train steps")
+    del state, metrics, train_step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tag, counts
+
+
+def phase_train_families(dev, card: str):
+    """:func:`train_family` for each of :data:`TRAIN_FAMILIES`; returns
+    ``{"train_<family>": launches}``."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        t1 = time.perf_counter()
+        tag, counts = train_family(dev, arch, card)
+        out[tag] = counts
+        log(f"[{tag}] {time.perf_counter() - t1:.1f} s")
+    log(f"[train_families] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _leaf_paths(tree, prefix=""):
     """The paths of a nested dict's leaves, in flatten order."""
     if isinstance(tree, dict):
@@ -3538,6 +4173,7 @@ def main() -> int:
     paths["serve_obs"] = phase_serve_obs(dev, card)
     paths["flash"] = phase_flash(dev)
     paths["train"] = phase_train(dev)
+    paths.update(phase_train_families(dev, card))
     paths["serve_moe"], _ = phase_serve_moe(dev)
     paths["serve_mla"], _ = phase_serve_moe(dev, "deepseek_v2_236b",
                                             "serve_mla")

@@ -1,6 +1,6 @@
 """Deterministic, resumable, host-sharded data pipeline — a copy of
 ``repro.data.pipeline`` for the port (numpy only: batches are equal
-element for element).
+element for element, the modality inputs included).
 
 Design for 1000+-node training:
 
@@ -31,6 +31,10 @@ class DataConfig:
     vocab: int = 1024
     seed: int = 0
     source: str = "synthetic"       # synthetic | file:<path>
+    # modality stubs (the frontends are stubs: precomputed embeddings)
+    vision_seq: int = 0             # patch rows a batch row (vlm)
+    frames: int = 0                 # frame rows a batch row (encdec)
+    d_model: int = 0
 
 
 def _host_slice(cfg: DataConfig, host_id: int, num_hosts: int):
@@ -105,9 +109,22 @@ class Pipeline:
         self._start, self._per_host = _host_slice(cfg, host_id, num_hosts)
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """``tokens`` (rows, seq_len) int32; with ``vision_seq`` also
+        ``image_embeds`` and with ``frames`` also ``frames`` (rows, n,
+        d_model) f32, N(0, 1) from their own streams of ``(seed, step)``
+        (one draw for the host's rows, as the reference's)."""
+        cfg = self.cfg
         rows = [self.source.row(step, self._start + r)
                 for r in range(self._per_host)]
-        return {"tokens": np.stack(rows)}
+        batch = {"tokens": np.stack(rows)}
+        for key, n, stream in (("image_embeds", cfg.vision_seq, 1 << 20),
+                               ("frames", cfg.frames, 1 << 21)):
+            if n:
+                rng = np.random.default_rng(
+                    np.random.SeedSequence([cfg.seed, step, stream]))
+                batch[key] = rng.standard_normal(
+                    (self._per_host, n, cfg.d_model)).astype(np.float32)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

@@ -5,11 +5,17 @@ metrics)``: the loss ``next_token_loss(forward(params, batch))`` and its
 gradients by autograd (the emulated contractions differentiate through
 ``ozimmu``'s autograd Function, the attention through the flash recompute
 backward, the layer stack in remat blocks), optionally over strided
-microbatches accumulated in ``accum_dtype``, then one AdamW update.  The
-reference's int8 gradient compression across the ``pod`` axis and its
-ZeRO-1 state sharding come with the distributed slice of the port; the
-dense family trains, every other family raises naming what it lacks
-(``_UNTRAINED``).  The serve steps live in :mod:`repro_torch.serving`.
+microbatches accumulated in ``accum_dtype``, then one AdamW update.  Every
+family trains: the MoE routing weights differentiate through ``topk``,
+the dispatch and the combine (the expert choice itself, like the
+reference's, is discrete), the SSD and RG-LRU scans through their plain
+PyTorch operations, the vlm's gates and the encdec's encoder through the
+same autograd.  A parameter the loss does not reach (the hybrid's
+placeholder tail stack when a config has no tail layers) gets a zero
+gradient, as ``jax.grad`` gives it.  The reference's int8 gradient
+compression across the ``pod`` axis and its ZeRO-1 state sharding come
+with the distributed slice of the port.  The serve steps live in
+:mod:`repro_torch.serving`.
 """
 from __future__ import annotations
 
@@ -27,20 +33,6 @@ __all__ = ["TrainConfig", "TrainState", "init_state", "loss_and_grads",
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
-
-# what training each served family still lacks in the port
-_UNTRAINED = {
-    "moe": "its routing gradient and load-balance loss",
-    "mla_moe": "its routing gradient and load-balance loss",
-    "ssm": "the gradient of its chunked SSD scan, held to the reference's",
-    "hybrid": "the gradients of its RG-LRU scan and windowed attention, "
-              "held to the reference's",
-    "vlm": "the data pipeline's patch-embedding input and the gradient of "
-           "its gated cross-attention path, held to the reference's",
-    "encdec": "the data pipeline's frame input and the gradient of its "
-              "encoder and cross-attention path, held to the reference's",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -68,14 +60,16 @@ def init_state(cfg: ModelConfig, opt_cfg: optim.OptConfig,
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """``(loss, grads)`` of ``next_token_loss(forward(params, batch))``
     (the reference's ``jax.value_and_grad(loss_fn)``): the loss detached,
-    the gradients a tree shaped like ``params``."""
+    the gradients a tree shaped like ``params`` (zeros where the loss
+    does not reach a leaf)."""
     inputs = tree.tree_map(lambda p: p.detach().requires_grad_(), params)
     flat, treedef = tree.flatten(inputs)
     with torch.enable_grad():
         logits = api.get_model(cfg).forward(inputs, cfg, batch)
         loss = api.next_token_loss(logits, batch["tokens"])
         del logits
-        grads = tree.unflatten(treedef, list(torch.autograd.grad(loss, flat)))
+        grads = tree.unflatten(treedef, list(torch.autograd.grad(
+            loss, flat, allow_unused=True, materialize_grads=True)))
     return loss.detach(), grads
 
 
@@ -87,10 +81,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,
         raise NotImplementedError("compress_pod_grads (int8 gradient "
                                   "compression across the pod axis) comes "
                                   "with the distributed slice of the port")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"training the {cfg.family!r} family "
-                                  f"({_UNTRAINED.get(cfg.family, 'its model')}"
-                                  f") comes with a later slice of the port")
     acc_dt = _DTYPES[tcfg.accum_dtype]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):

@@ -4,16 +4,20 @@
         --full --steps 20 --batch 8 --seq 256 \
         --engine ozimmu_h-4:df32:fused --ckpt-dir ckpt
 
-Runs on the CUDA card unless ``--device cpu`` is given (the kernels' plain
-versions).  Like the reference it trains the arch's smoke config unless
-``--full`` asks for the published one, from random weights drawn from
-``--seed``, on the deterministic synthetic pipeline; with ``--ckpt-dir``
-it resumes from the latest checkpoint there (one the reference wrote
-restores as well) and checkpoints every ``--ckpt-every`` steps and at the
-end.  Under an ozimmu engine every contraction of the forward, of the
-remat recompute and of the backward runs emulated (``:fused``: through
-the split, group-GEMM and epilogue kernels).  ``--mesh`` keeps the
-reference's flag and raises until the distributed slice.
+Every arch trains (all seven families).  Runs on the CUDA card unless
+``--device cpu`` is given (the kernels' plain versions).  Like the
+reference it trains the arch's smoke config unless ``--full`` asks for the
+published one, from random weights drawn from ``--seed``, on the
+deterministic synthetic pipeline: the vlm family's batches carry
+``vision_seq`` rows of patch embeddings, the encdec family's ``seq`` rows
+of frame embeddings (:func:`data_config`), fed to the device as f32.  With
+``--ckpt-dir`` it resumes from the latest checkpoint there (one the
+reference wrote restores as well) and checkpoints every ``--ckpt-every``
+steps and at the end.  Under an ozimmu engine every contraction of the
+forward, of the remat recompute and of the backward runs emulated
+(``:fused``: through the split, group-GEMM and epilogue kernels).
+``--mesh`` keeps the reference's flag and raises until the distributed
+slice.
 """
 from __future__ import annotations
 
@@ -29,7 +33,30 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import plan
 from repro_torch.data import DataConfig, Pipeline
 from repro_torch.launch import steps as S
+from repro_torch.models.common import ModelConfig
 from repro_torch.obs import tracing
+
+
+def data_config(cfg: ModelConfig, *, seq_len: int, global_batch: int,
+                seed: int) -> DataConfig:
+    """The pipeline's config for ``cfg``, as the reference's launcher
+    builds it: ``vision_seq`` patch rows for the vlm family, ``seq_len``
+    frames for encdec, none otherwise."""
+    return DataConfig(seq_len=seq_len, global_batch=global_batch,
+                      vocab=cfg.vocab, seed=seed,
+                      vision_seq=cfg.vision_seq if cfg.family == "vlm"
+                      else 0,
+                      frames=seq_len if cfg.family == "encdec" else 0,
+                      d_model=cfg.d_model)
+
+
+def device_batch(batch, device) -> dict:
+    """A pipeline batch on ``device``: the tokens int32, the modality
+    inputs f32 (the reference feeds them as ``jnp.asarray`` does)."""
+    return {k: torch.from_numpy(v).to(device=device,
+                                      dtype=torch.int32 if k == "tokens"
+                                      else torch.float32)
+            for k, v in batch.items()}
 
 
 def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
@@ -56,8 +83,8 @@ def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
     opt_cfg = optim.OptConfig(lr=lr, warmup_steps=min(20, n_steps // 5 + 1),
                               total_steps=n_steps)
     tcfg = S.TrainConfig(microbatches=microbatches)
-    pipe = Pipeline(DataConfig(seq_len=seq_len, global_batch=global_batch,
-                               vocab=cfg.vocab, seed=seed))
+    pipe = Pipeline(data_config(cfg, seq_len=seq_len,
+                                global_batch=global_batch, seed=seed))
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -73,8 +100,7 @@ def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
     with tracing.profile(profile_dir):
         for step in range(start_step, n_steps):
             t_step = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(device) for k, v in
-                     pipe.batch_at(step).items()}
+            batch = device_batch(pipe.batch_at(step), device)
             state, metrics = train_step(state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             losses.append(metrics["loss"])

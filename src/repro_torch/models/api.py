@@ -12,8 +12,8 @@
 vision_seq, d) for the vlm family; ``frames`` (B, F, d) for encdec.
 ``ctx`` is the context the cache's cross K/V are projected from (the
 patch embeddings for vlm, the encoder output for encdec; ``params`` then
-required).  The shared next-token loss lives here too; only the dense
-family trains (``launch/steps.py`` says what each other family lacks).
+required).  The shared next-token loss lives here too; every family
+trains through it (``launch/steps.py``).
 """
 from __future__ import annotations
 

@@ -16,12 +16,18 @@ both bf16, and up-projects the whole cache to K and V on every decode step
 attention has one query head a KV head (G = 1), q/k head dim ``hd +
 rope_head_dim``, v head dim ``v_head_dim``.
 
-Left for later slices, and raising until then:
+Both families train: the forward differentiates through autograd (the
+renormalized top-k routing weights back to the router, the dispatch's
+``index_put_`` and the combine's gather, the E-batched expert
+contractions through ``ozimmu``'s autograd Function, the shared experts);
+the expert choice and the capacity drops are discrete, as in the
+reference.  :func:`aux_load_balance_loss` is the reference's Switch-style
+auxiliary loss; like the reference, no training loss adds it.
 
-* the expert-parallel all-to-all body of ``moe_ffn_a2a`` (a mesh; the
-  distributed slice).  Without a mesh the reference's ``a2a`` dispatch is
-  its scatter path, and so it is here;
-* ``aux_load_balance_loss`` (training).
+Left for a later slice, and raising until then: the expert-parallel
+all-to-all body of ``moe_ffn_a2a`` (a mesh; the distributed slice).
+Without a mesh the reference's ``a2a`` dispatch is its scatter path, and
+so it is here.
 """
 from __future__ import annotations
 
@@ -162,6 +168,18 @@ def moe_ffn_dispatch(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe_dispatch == "a2a":
         return moe_ffn_a2a(p, cfg, x)
     return moe_ffn(p, cfg, x)
+
+
+def aux_load_balance_loss(gates: torch.Tensor, sel: torch.Tensor,
+                          E: int) -> torch.Tensor:
+    """Switch-style auxiliary loss (the reference's): ``E * sum_e
+    frac_e * prob_e / K`` over the (T, K) selections ``sel`` and the (T, E)
+    softmaxed ``gates`` -- the fraction of choices routed to each expert
+    times its mean gate.  Differentiable in ``gates``."""
+    K = sel.shape[-1]
+    frac = F.one_hot(sel.long(), E).to(torch.float32).mean(dim=(0, 1))
+    prob = gates.mean(dim=0)
+    return E * (frac * prob).sum() / K
 
 
 # ---------------------------------------------------------------------------

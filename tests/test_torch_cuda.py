@@ -1084,6 +1084,65 @@ def test_smoke_train_step_on_card_equals_cpu(dev):
     assert math.isfinite(float(metrics["grad_norm"]))
 
 
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_236b",
+                                  "mamba2_780m", "recurrentgemma_9b",
+                                  "llama32_vision_11b",
+                                  "seamless_m4t_medium"])
+def test_smoke_family_train_step_on_card_equals_cpu(dev, arch):
+    """One smoke train step of each other family (``smoke()``, f32
+    activations, ``ozimmu_h-4:df32:fused``, the pipeline's batch with its
+    patch rows or frames) on the card against the CPU, as
+    :func:`test_smoke_train_step_on_card_equals_cpu` holds the dense one:
+    the loss within 1e-5, every gradient leaf within 1e-4 of its max|g|
+    (zero leaves equal), the same expert choices, and the full step's
+    loss and grad norm finite.  The tied heads' ``embed`` is scaled by
+    0.05 and the vlm's gates drawn from the seed, as the card phase does."""
+    import math
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import Pipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import data_config, device_batch
+    from repro_torch.models import moe
+    cfg = configs.get_config(arch, smoke=True, dtype="float32",
+                             engine_spec="ozimmu_h-4:df32:fused")
+    gen = torch.Generator().manual_seed(0)
+    state = S.init_state(cfg, optim.OptConfig(), gen, "cpu")
+    params = state.params
+    if cfg.family in ("ssm", "hybrid"):
+        params["embed"].mul_(0.05)
+    if cfg.family == "vlm":
+        for name in ("gate_attn", "gate_mlp"):
+            g = params["groups"]["cross"][name]
+            g.copy_(torch.rand(g.shape, generator=gen) + 0.5)
+    np_batch = Pipeline(data_config(cfg, seq_len=32, global_batch=2,
+                                    seed=1)).batch_at(0)
+    sels = {"cpu": [], "cuda": []}
+    route = moe._route
+
+    def recording(gates, topk, cap):
+        out = route(gates, topk, cap)
+        sels[gates.device.type].append(out[1].cpu())
+        return out
+    moe._route = recording
+    try:
+        lc, gc = S.loss_and_grads(cfg, params, device_batch(np_batch, "cpu"))
+        on_card = tree.tree_map(lambda t: t.to(dev), state)
+        batch = device_batch(np_batch, dev)
+        ld, gd = S.loss_and_grads(cfg, on_card.params, batch)
+    finally:
+        moe._route = route
+    assert len(sels["cpu"]) == len(sels["cuda"])
+    for a, b in zip(sels["cuda"], sels["cpu"]):
+        assert torch.equal(a, b)
+    assert abs(float(ld) - float(lc)) <= 1e-5
+    for a, b in zip(tree.leaves(gd), tree.leaves(gc)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * float(b.abs().max())
+    _, metrics = S.make_train_step(cfg, optim.OptConfig())(on_card, batch)
+    assert math.isfinite(float(metrics["loss"]))
+    assert math.isfinite(float(metrics["grad_norm"]))
+
+
 @pytest.mark.parametrize("mode", ["rn_const", "sm"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_split_whole_kernel_reads_a_transposed_head(dev, mode, dtype):

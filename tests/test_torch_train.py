@@ -9,7 +9,8 @@ flash attention are held in ``tests/test_torch_train_vjp.py``; here:
   of each leaf, and bitwise across remat blocks of 1 and 2 layers;
 * AdamW within 1e-6 relative over three steps (clipping and warmup
   active), ``lr_at`` equal;
-* ``Pipeline.batch_at`` equal; checkpoints written by either package
+* ``Pipeline.batch_at`` equal (with the vlm's patch rows and the
+  encdec's frames); checkpoints written by either package
   restore into the other; ``train()`` from a reference checkpoint within
   1e-4 of the reference's losses, restart-equivalent bit for bit, and
   microbatched within 1e-6;
@@ -198,9 +199,18 @@ def test_lr_schedule_equal():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("source,hosts", [("synthetic", 1),
-                                          ("synthetic", 2), ("file", 1)])
+                                          ("synthetic", 2), ("file", 1),
+                                          ("vlm", 1), ("encdec", 2)])
 def test_pipeline_batches_equal(tmp_path, source, hosts):
+    """Batches equal element for element: the synthetic and file token
+    sources, and the modality inputs of the launchers' ``DataConfig`` for
+    the vlm (``image_embeds``, ``vision_seq`` rows) and the encdec family
+    (``frames``, ``seq_len`` rows), each over its hosts."""
     kw = dict(seq_len=40, global_batch=4, vocab=300, seed=4)
+    if source == "vlm":
+        kw.update(vision_seq=6, d_model=8)
+    if source == "encdec":
+        kw.update(frames=40, d_model=8)
     if source == "file":
         path = tmp_path / "tokens.bin"
         np.random.default_rng(0).integers(0, 60000, 5000).astype(
@@ -213,6 +223,7 @@ def test_pipeline_batches_equal(tmp_path, source, hosts):
         for step in (0, 1, 7):
             r, p = rp.batch_at(step), pp.batch_at(step)
             assert sorted(r) == sorted(p)
+            assert len(r) == (1 if source in ("synthetic", "file") else 2)
             for key in r:
                 assert p[key].dtype == r[key].dtype
                 np.testing.assert_array_equal(p[key], r[key])
@@ -366,24 +377,51 @@ def test_train_step_launch_counts(monkeypatch):
     assert counts == {k: want[k] for k in counts}
 
 
+@pytest.mark.parametrize("arch", P_configs.ARCH_IDS)
+def test_train_step_runs_for_every_arch(arch):
+    """``make_train_step`` builds for every arch and one step of its smoke
+    config (the pipeline's batch, with the vlm's patch rows or the
+    encdec's frames) moves the parameters (no warmup: the schedule's
+    first rate is then nonzero) with a finite loss and grad norm."""
+    from repro_torch.data import Pipeline
+    cfg = P_configs.get_config(arch, smoke=True)
+    opt = P_optim.OptConfig(warmup_steps=0)
+    state = P_steps.init_state(cfg, opt, torch.Generator().manual_seed(0),
+                               "cpu")
+    batch = P_train.device_batch(Pipeline(P_train.data_config(
+        cfg, seq_len=16, global_batch=2, seed=1)).batch_at(0), "cpu")
+    new, metrics = P_steps.make_train_step(cfg, opt)(state, batch)
+    assert math.isfinite(float(metrics["loss"]))
+    assert math.isfinite(float(metrics["grad_norm"]))
+    assert int(new.step) == 1
+    assert any(not torch.equal(a, b) for a, b in
+               zip(P_tree.leaves(new.params), P_tree.leaves(state.params)))
+
+
 def test_train_step_refuses_what_later_slices_bring():
     cfg = P_configs.get_config(ARCH, smoke=True)
     with pytest.raises(NotImplementedError, match="distributed"):
         P_steps.make_train_step(cfg, P_optim.OptConfig(),
                                 P_steps.TrainConfig(compress_pod_grads=True))
-    moe = P_configs.get_config("deepseek_moe_16b", smoke=True)
-    with pytest.raises(NotImplementedError, match="moe"):
-        P_steps.make_train_step(moe, P_optim.OptConfig())
     with pytest.raises(NotImplementedError, match="distributed"):
         P_train.main(["--device", "cpu", "--steps", "2", "--batch", "2",
                       "--seq", "16", "--mesh", "data=2"])
 
 
-def test_launcher_trains_on_the_cpu(capsys):
-    """``python -m repro_torch.launch.train --device cpu --steps 2 --batch
-    2 --seq 16`` trains the smoke config and prints its loss lines."""
-    losses = P_train.main(["--device", "cpu", "--steps", "2", "--batch", "2",
-                           "--seq", "16", "--log-every", "1"])
+# one arch of each family
+LAUNCHER_ARCHS = ["internlm2_1_8b", "deepseek_moe_16b", "deepseek_v2_236b",
+                  "mamba2_780m", "recurrentgemma_9b", "llama32_vision_11b",
+                  "seamless_m4t_medium"]
+
+
+@pytest.mark.parametrize("arch", LAUNCHER_ARCHS)
+def test_launcher_trains_on_the_cpu(capsys, arch):
+    """``python -m repro_torch.launch.train --arch <arch> --device cpu
+    --steps 2 --batch 2 --seq 16`` trains the smoke config and prints its
+    loss lines, for every family."""
+    losses = P_train.main(["--arch", arch, "--device", "cpu", "--steps", "2",
+                           "--batch", "2", "--seq", "16", "--log-every",
+                           "1"])
     out = capsys.readouterr().out
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
     assert "[train] step     1  loss" in out
