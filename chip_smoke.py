@@ -208,6 +208,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    serve_encdec's requests are served again paged as phase 4's
    (``serve_encdec_paged``: the decoder's self K/V in the pool, the cross
    K/V resident per slot); the vlm's peak leaves no room for it.
+12. Mesh (``mesh``, :func:`phase_mesh`), last: two ranks, one process
+   each, on ``cuda:0`` over gloo (NCCL refuses two ranks on one device;
+   every kernel still runs on the card, gloo stages each collective
+   through host memory), started with ``torch.multiprocessing`` (spawn)
+   over a file store after the single-device serve of the same requests
+   freed its model.  gloo's MAX, int32 SUM and all_gather on CUDA tensors,
+   checked and timed; the decode contractions at internlm2-1.8b's width
+   (A 4x2048 against the frozen ``w_up`` 2048x8192 and LM head
+   2048x92672) under ``ozimmu_h-4:df32:fused@model`` and
+   ``oz2_h-4:df32:fast2:fused@model`` bitwise to the single-device result
+   (frozen and unfrozen), under ``@model/df32`` bitwise to the plain
+   versions on the CPU under the same collectives, the n = 4096 DGEMM
+   under ``ozimmu_h-8:f64:fused@model`` bitwise to the single-device one
+   and within 1e-8; then ``launch.serve.main`` with ``--mesh model=2`` at
+   the published 24 layers (2 slots, 2 requests, prompt 8, 8 new tokens):
+   both ranks' tokens equal the single-device run's, the launches a model
+   step the single-device run's (265 splits, 868 skinny group GEMMs, 217
+   epilogues) and the collectives a model step exact (265 maxima, 217
+   int32 sums); ms a model step untraced and the collectives' host share
+   from rank 0's trace.
 
 The launch counts of phases 3-8 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
@@ -4097,6 +4117,385 @@ def phase_train_families(dev, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh (two ranks on the one card)
+# ---------------------------------------------------------------------------
+
+# two ranks, one process each, on cuda:0 over gloo (NCCL refuses two ranks
+# on one device); launch.serve's flags at the published width
+MESH_WORLD = 2
+MESH_DEVICE = "cuda"
+MESH_GEN = 8
+MESH_FLAGS = ["--arch", "internlm2_1_8b", "--full", "--slots", "2",
+              "--requests", "2", "--prompt-len", "8", "--gen",
+              str(MESH_GEN), "--max-len", "16", "--device", MESH_DEVICE]
+MESH_SPEC = "ozimmu_h-4:df32:fused@model"
+# phase (a): the decode contractions (A 4x2048 against w_up and the LM
+# head, both frozen, as serving freezes them) under each spec; the
+# df32-strategy ones also against the plain versions on the CPU under the
+# same collectives; the DGEMM at n = 4096
+MESH_INT32 = ("ozimmu_h-4:df32:fused@model", "oz2_h-4:df32:fast2:fused@model")
+MESH_DF32 = "ozimmu_h-4:df32:fused@model/df32"
+MESH_DGEMM = "ozimmu_h-8:f64:fused@model"
+# d_model and the two frozen widths of phase (a): w_up, the padded LM head
+MESH_SHAPES = dict(d=2048, w_up=8192, head=92672)
+MESH_TIMEOUT_S = 600
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of ``fn()`` ended by a device sync."""
+    import statistics
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def mesh_probe(dev, rank: int) -> dict:
+    """gloo's collectives on CUDA tensors, one by one: MAX on f32 (the
+    splits' maxima), SUM on int32 (the stacked products) and all_gather
+    (the df32 fold), each checked and timed at a decode contraction's
+    sizes (host ms a call, the device synchronized)."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    world = dist.get_world_size()
+    for name in ("max_f32", "sum_int32", "all_gather_f32"):
+        try:
+            if name == "max_f32":
+                x = torch.tensor([1.0 + rank, -3.0], device=dev)
+                dist.all_reduce(x, op=dist.ReduceOp.MAX)
+                ok = x.tolist() == [float(world), -3.0]
+                big = torch.ones(4, device=dev)
+                fn = lambda: dist.all_reduce(big, op=dist.ReduceOp.MAX)
+            elif name == "sum_int32":
+                x = torch.tensor([rank + 1, 7], dtype=torch.int32, device=dev)
+                dist.all_reduce(x)
+                ok = x.tolist() == [world * (world + 1) // 2, 7 * world]
+                big = torch.ones((4, 4, 8192), dtype=torch.int32, device=dev)
+                fn = lambda: dist.all_reduce(big)
+            else:
+                x = torch.tensor([float(rank)], device=dev)
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x)
+                ok = [float(p) for p in parts] == [float(r) for r in
+                                                   range(world)]
+                big = torch.ones((2, 4, 8192), device=dev)
+                bigs = [torch.empty_like(big) for _ in range(world)]
+                fn = lambda: dist.all_gather(bigs, big)
+            out[name] = {"ok": ok, "ms": _host_ms(fn, 20)}
+        except Exception as e:   # recorded, then raised by the phase
+            out[name] = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+    return out
+
+
+def mesh_contractions(dev, mesh) -> list:
+    """Phase (a) on this rank: each case's sharded result against the
+    single-device one (or the CPU's plain versions), its launches and
+    collectives, and host ms sharded and single (the frozen split built
+    beforehand, as serving builds it)."""
+    import contextlib
+    import torch
+    from repro_torch.core import ozimmu, split_cache
+    from repro_torch.distributed import collectives, compat
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    dn = (((1,), (0,)), ((), ()))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    d = MESH_SHAPES["d"]
+    a = torch.randn((SLOTS, d), generator=gen, device=dev)
+    ws = {f"{name} ({d}x{MESH_SHAPES[name]})": torch.randn(
+        (d, MESH_SHAPES[name]), generator=gen, device=dev) * 0.02
+        for name in ("w_up", "head")}
+
+    def runner(spec, a_, b_, presplit=True):
+        """``(sharded, single)`` calls of one case."""
+        cfg = ozimmu.parse_spec(spec)
+        sp = split_cache.presplit_rhs(b_, dn, cfg) if presplit else None
+
+        def call(sharded):
+            with compat.set_mesh(mesh) if sharded else \
+                    contextlib.nullcontext():
+                return ozimmu.ozimmu_dot_general(a_, b_, dn, cfg,
+                                                 rhs_presplit=sp)
+        return (lambda: call(True)), (lambda: call(False))
+
+    def counted(fn):
+        fn()                                   # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        collectives.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in LAUNCHES.items() if v}, \
+            dict(collectives.COUNTS)
+
+    def case(tag, sharded, single, want, against, reps=5, **extra):
+        got, launches, colls = counted(sharded)
+        return dict(tag=tag, bitwise=same(got.to(want.device), want),
+                    against=against, launches=launches, collectives=colls,
+                    ms=_host_ms(sharded, reps),
+                    single_ms=_host_ms(single, reps),
+                    **{k: f(got) for k, f in extra.items()})
+
+    cases = []
+    for spec in MESH_INT32:
+        for wname, w in ws.items():
+            sharded, single = runner(spec, a, w)
+            unfrozen, _ = runner(spec, a, w, presplit=False)
+            want = single()
+            c = case(f"{spec} decode A {tuple(a.shape)} @ {wname}, frozen",
+                     sharded, single, want,
+                     "the single-device result (frozen and unfrozen)")
+            c["bitwise"] = c["bitwise"] and same(unfrozen(), want)
+            cases.append(c)
+    plain = MESH_DF32.replace(":fused", "")
+    for wname, w in ws.items():
+        sharded, single = runner(MESH_DF32, a, w)
+        cpu, _ = runner(plain, a.cpu(), w.cpu())
+        cases.append(case(
+            f"{MESH_DF32} decode A {tuple(a.shape)} @ {wname}, frozen",
+            sharded,
+            single, cpu(), f"the plain versions on the CPU ({plain}) "
+                           f"under the same collectives"))
+    _, (A, B) = dgemm_inputs(dev)
+    sharded, single = runner(MESH_DGEMM, A, B, presplit=False)
+    ref = torch.matmul(A, B)
+    cases.append(case(
+        f"{MESH_DGEMM} DGEMM n={A.shape[0]}", sharded, single, single(),
+        "the single-device result", reps=3,
+        err=lambda got: float((got - ref).abs().max() / ref.abs().max())))
+    return cases
+
+
+def mesh_serve(dev, mesh, tmp: str, rank: int) -> dict:
+    """Phase (b) on this rank: ``launch.serve.main`` with ``--mesh
+    model=2`` (rank 0 traced with ``--profile-dir``), its tokens, model
+    steps, launches and collectives; then the same requests on a fresh
+    runtime over the same parameters, timed untraced."""
+    import os
+    import torch
+    from repro_torch.distributed import collectives, compat
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    rec = {}
+    make_runtime = serve.make_runtime
+
+    def captured(cfg, params, **kw):
+        rt = make_runtime(cfg, params, **kw)
+        rec.update(cfg=cfg, params=params, kw=kw)
+        obs_instrument(rt, rec)
+        torch.cuda.synchronize()
+        reset_launches()            # the freeze's splits are not the run's
+        collectives.reset_counts()
+        return rt
+
+    prof = os.path.join(tmp, "profile")
+    argv = MESH_FLAGS + ["--engine", MESH_SPEC, "--mesh",
+                         f"model={MESH_WORLD}", "--profile-dir", prof]
+    serve.make_runtime = captured
+    try:
+        s = serve.main(argv)
+    finally:
+        serve.make_runtime = make_runtime
+    torch.cuda.synchronize()
+    out = dict(tokens=[list(r.generated) for r in rec["reqs"]],
+               steps=sum(rec["fed"]) + s["decode_steps"],
+               layers=rec["cfg"].n_layers,
+               launches={k: v for k, v in LAUNCHES.items() if v},
+               collectives=dict(collectives.COUNTS),
+               traced_ms=s["elapsed_s"] * 1e3,
+               peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                        if dev.type == "cuda" else 0.0))
+    if rank == 0:
+        out["ranges"] = _mesh_ranges(os.path.join(prof, "trace.json"))
+    import torch.distributed as dist
+    dist.barrier()              # rank 0 has written its trace
+    run = {}
+    rt = make_runtime(rec["cfg"], rec["params"], **rec["kw"])
+    obs_instrument(rt, run)
+    with compat.set_mesh(mesh):
+        torch.cuda.synchronize()
+        for p in rec["reqs"]:
+            rt.submit(p.prompt, MESH_GEN)
+        s2 = rt.run()
+        torch.cuda.synchronize()
+    out["rerun_tokens"] = [list(r.generated) for r in run["reqs"]]
+    out["ms_step"] = s2["elapsed_s"] * 1e3 / (sum(run["fed"])
+                                              + s2["decode_steps"])
+    return out
+
+
+def _mesh_ranges(path) -> dict:
+    """Host ms and count of the trace's ``ozimmu/mesh/*`` ranges (one a
+    collective), by name."""
+    events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    per = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation" and \
+                name.startswith("ozimmu/mesh/"):
+            n, ms = per.get(name, (0, 0.0))
+            per[name] = (n + 1, ms + float(e.get("dur", 0)) / 1e3)
+    return per
+
+
+def _mesh_rank(rank: int, tmp: str) -> None:
+    """One rank of the mesh phase: the gloo group from the file store,
+    the probe, phase (a), phase (b); the results to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    torch.set_num_threads(4)
+    dev = mesh_lib.init_distributed(MESH_DEVICE,
+                                    init_method=f"file://{tmp}/store",
+                                    rank=rank, world_size=MESH_WORLD)
+    try:
+        out = {"device": str(dev), "probe": mesh_probe(dev, rank)}
+        if not all(p["ok"] for p in out["probe"].values()):
+            raise AssertionError(f"gloo on {dev}: {out['probe']}")
+        mesh = mesh_lib.parse_mesh_spec(f"model={MESH_WORLD}")
+        out["contractions"] = mesh_contractions(dev, mesh)
+        out["serve"] = mesh_serve(dev, mesh, tmp, rank)
+        Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(dev, card):
+    """Phase 12 (``mesh``): two ranks, one process each, on ``cuda:0``
+    over gloo (NCCL refuses two ranks on one device; every kernel still
+    runs on the card, gloo stages each collective through host memory).
+    First the single-device serve of the same requests in this process
+    (``launch.serve.main``, ``MESH_FLAGS``, ``ozimmu_h-4:df32:fused@model``
+    with no mesh), freed before the ranks start.  Then on each rank: gloo's
+    MAX / int32 SUM / all_gather on CUDA tensors; (a) the decode
+    contractions at internlm2-1.8b's width (A 4x2048 against the frozen
+    ``w_up`` and LM head) under ``@model`` for group-EF and Ozaki-II
+    fast2, bitwise to the single-device result, ``@model/df32`` bitwise to
+    the plain versions on the CPU under the same collectives, and the
+    n = 4096 DGEMM under ``ozimmu_h-8:f64:fused@model`` bitwise to the
+    single-device one and within 1e-8 of ``torch.matmul``; (b)
+    ``serve.main`` with ``--mesh model=2``: every request's tokens equal
+    to the single-device run's on both ranks, exact launches (265 splits,
+    868 group GEMMs, all skinny, 217 epilogues) and collectives (265
+    maxima, 217 int32 sums) a model step, ms a step untraced and the
+    collectives' host share from rank 0's trace.  Returns rank 0's serve
+    launches."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    tag = "mesh"
+    rec = {}
+    make_runtime = serve.make_runtime
+
+    def captured(cfg, params, **kw):
+        rt = make_runtime(cfg, params, **kw)
+        obs_instrument(rt, rec)
+        torch.cuda.synchronize()
+        reset_launches()
+        return rt
+    serve.make_runtime = captured
+    try:
+        s = serve.main(MESH_FLAGS + ["--engine", MESH_SPEC])
+    finally:
+        serve.make_runtime = make_runtime
+    torch.cuda.synchronize()
+    single = dict(tokens=[list(r.generated) for r in rec["reqs"]],
+                  steps=sum(rec["fed"]) + s["decode_steps"],
+                  launches={k: v for k, v in LAUNCHES.items() if v},
+                  ms_step=s["elapsed_s"] * 1e3)
+    single["ms_step"] /= single["steps"]
+    del rec, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {card}: single-device serve ({MESH_SPEC}, no mesh): "
+        f"{single['steps']} model steps, {single['ms_step']:.1f} ms a "
+        f"step, launches {single['launches']}; this process keeps "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved for the "
+        f"ranks' start")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _mesh_rank, args=(tmp,), nprocs=MESH_WORLD, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"{tag}: the ranks ran past "
+                                     f"{MESH_TIMEOUT_S} s")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+    log(f"[{tag}] {MESH_WORLD} ranks on {ranks[0]['device']} over gloo, "
+        f"{time.perf_counter() - t0:.1f} s with their start")
+    for r, out in enumerate(ranks):
+        log(f"[{tag}] rank {r} gloo on CUDA tensors: " + "; ".join(
+            f"{k} ok, {v['ms']:.3f} ms a call" for k, v in
+            out["probe"].items()))
+    bad = []
+    for r, out in enumerate(ranks):
+        for c in out["contractions"]:
+            extra = f", error {c['err']:.3e}" if "err" in c else ""
+            log(f"[{tag}] rank {r} {c['tag']}: "
+                f"{'bitwise' if c['bitwise'] else 'DIFFERS from'} "
+                f"{c['against']}{extra}; {c['ms']:.2f} ms (single device "
+                f"{c['single_ms']:.2f}); launches {c['launches']}; "
+                f"collectives {c['collectives']}")
+            if not c["bitwise"] or c.get("err", 0.0) > 1e-8 or \
+                    not math.isfinite(c.get("err", 0.0)):
+                bad.append((r, c["tag"]))
+    if bad:
+        raise AssertionError(f"{tag}: contractions off: {bad}")
+
+    for r, out in enumerate(ranks):
+        sv = out["serve"]
+        steps, cfg_layers = sv["steps"], sv["layers"]
+        contractions = cfg_layers * 9 + 1
+        want = {"split_fused": steps * (cfg_layers * 11 + 1),
+                "group_gemm": steps * contractions * 4,
+                "group_gemm_skinny": steps * contractions * 4,
+                "scale_accum": steps * contractions}
+        want_coll = {"pmax_scales": want["split_fused"],
+                     "psum_exact_int32": steps * contractions,
+                     "psum_df32": 0, "psum_compensated": 0}
+        got = {k: sv["launches"].get(k, 0) for k in want}
+        log(f"[{tag}] rank {r}: {steps} model steps, launches {got}, "
+            f"collectives {sv['collectives']} (expected {want}, "
+            f"{want_coll}); peak {sv['peak_gb']:.2f} GB")
+        if got != want or sv["collectives"] != want_coll or \
+                steps != single["steps"] or \
+                sv["launches"] != single["launches"]:
+            raise AssertionError(f"{tag}: rank {r}'s launches or "
+                                 f"collectives are off")
+        if sv["tokens"] != single["tokens"] or \
+                sv["rerun_tokens"] != single["tokens"]:
+            raise AssertionError(f"{tag}: rank {r}'s tokens "
+                                 f"{sv['tokens']} differ from the "
+                                 f"single-device run's {single['tokens']}")
+    sv = ranks[0]["serve"]
+    coll_ms = sum(ms for _, ms in sv["ranges"].values())
+    log(f"[{tag}] {card}: tokens of both ranks equal the single-device "
+        f"run's ({len(single['tokens'])} requests x {MESH_GEN}); ms a "
+        f"model step untraced: rank 0 {sv['ms_step']:.1f}, rank 1 "
+        f"{ranks[1]['serve']['ms_step']:.1f} against single-device "
+        f"{single['ms_step']:.1f}; rank 0's trace: {sv['traced_ms']:.0f} "
+        f"ms for {sv['steps']} steps, collectives {coll_ms:.0f} ms of it "
+        f"({100 * coll_ms / sv['traced_ms']:.1f}%): " + "; ".join(
+            f"{name[len('ozimmu/mesh/'):]} {n} calls {ms:.1f} ms "
+            f"({1e3 * ms / n:.0f} us a call)"
+            for name, (n, ms) in sorted(sv["ranges"].items())))
+    return {k: ranks[0]["serve"]["launches"].get(k, 0) for k in LAUNCHES}
+
+
 def _leaf_paths(tree, prefix=""):
     """The paths of a nested dict's leaves, in flatten order."""
     if isinstance(tree, dict):
@@ -4145,8 +4544,12 @@ def main() -> int:
                 f"spilled bytes a thread, {r['smem_bytes']} bytes of shared "
                 f"memory and {r['threads']} threads a block"
                 for name, r in fa.resources(dt, ATTN["D"], ATTN["D"]).items()))
+    def lap(name):
+        log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+
     kern = phase_kernels(dev)
     host_us = wrapper_host_us(dev)
+    lap("kernels")
     paths = {}
     paths["dgemm"], _ = phase_dgemm(
         dev, DGEMM_SPEC, ("split_fused", "group_gemm", "scale_accum_plain"))
@@ -4170,13 +4573,17 @@ def main() -> int:
     paths["serve_sm"], _, _ = phase_serve(
         dev, SM_MODEL_SPEC, ("split_fused", "group_gemm", "scale_accum"),
         tag="serve_sm")
+    lap("dgemm, serve, serve_oz2, serve_sm")
     paths["serve_obs"] = phase_serve_obs(dev, card)
     paths["flash"] = phase_flash(dev)
+    lap("serve_obs, flash")
     paths["train"] = phase_train(dev)
     paths.update(phase_train_families(dev, card))
+    lap("train, train_families")
     paths["serve_moe"], _ = phase_serve_moe(dev)
     paths["serve_mla"], _ = phase_serve_moe(dev, "deepseek_v2_236b",
                                             "serve_mla")
+    lap("serve_moe, serve_mla")
     for arch in STATE_SERVE:
         tag = STATE_SERVE[arch]["tag"]
         paths[tag], _, extra = phase_serve_state(dev, arch, card)
@@ -4184,6 +4591,9 @@ def main() -> int:
     for arch, tag in CTX_SERVE.items():
         paths[tag], _, extra = phase_serve_ctx(dev, arch, card)
         paths.update(extra)
+    lap("serve_ssm, serve_hybrid, serve_encdec, serve_vlm")
+    paths["mesh"] = phase_mesh(dev, card)
+    lap("mesh")
 
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -17,8 +17,9 @@ package restores into the other: the state bridge between them, beside
   complete; a crash mid-save never corrupts the latest checkpoint.
 * **Retention** — the ``keep`` most recent checkpoints are kept.
 
-The reference's reshard-on-restore (``shardings``) comes with the
-distributed slice of the port.
+The reference's reshard-on-restore (``shardings``) comes with the second
+distributed slice of the port (2b: the port's mesh so far replicates
+every parameter on every rank).
 """
 from __future__ import annotations
 

@@ -35,3 +35,8 @@ def get_config(name: str, *, smoke: bool = False, **overrides) -> ModelConfig:
     mod = get_arch_module(name)
     cfg = mod.smoke() if smoke else mod.full()
     return cfg.with_(**overrides) if overrides else cfg
+
+
+def rules_overrides(name: str) -> dict:
+    """Per-arch logical->mesh overrides merged over the base rule table."""
+    return getattr(get_arch_module(name), "RULES_OVERRIDES", {})

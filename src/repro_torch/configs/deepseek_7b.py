@@ -1,9 +1,12 @@
 """deepseek-7b [dense] — 30L d_model=4096 32H (GQA kv=32 = MHA) d_ff=11008
 vocab=102400; llama-arch.  [arXiv:2401.02954; hf]
 
-The reference's mesh key (``RULES_OVERRIDES``) and benchmark
-``SKIP_SHAPES`` come with the distributed slice of the port."""
+The reference's mesh key (``RULES_OVERRIDES``) rides along for
+``launch.mesh.mesh_rules``; its benchmark ``SKIP_SHAPES`` come with the
+port's benchmark."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"cache_heads": "model"}  # kv divisible by 16
 
 
 def full() -> ModelConfig:

@@ -3,10 +3,14 @@ d_ff=1408 vocab=102400; 2 shared + 64 routed experts, top-6, fine-grained.
 [arXiv:2401.06066; hf]
 
 The reference's mesh keys (``RULES_OVERRIDES``: experts on the data axis,
-the expert MLP on the model axis) have no counterpart until the
-distributed slice of the port.  ``moe_dispatch="a2a"`` without a mesh
-takes the reference's own no-mesh branch, the scatter dispatch."""
+the expert MLP on the model axis) ride along for
+``launch.mesh.mesh_rules``.  ``moe_dispatch="a2a"`` without a data axis
+takes the reference's own no-mesh branch, the scatter dispatch; the
+all-to-all over a data axis is the second distributed slice (2b)."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"experts": ("data",), "expert_mlp": "model",
+                   "cache_heads": "model"}  # kv=16
 
 
 def full() -> ModelConfig:

@@ -9,12 +9,17 @@ keeps a full Q projection, and so does the port: it does not change cache
 or FFN shapes.)
 
 The reference's mesh keys (``RULES_OVERRIDES``: experts on the data axis,
-the expert MLP, the latent and the rope key on the model axis) and its
-benchmark's ``SKIP_SHAPES`` have no counterpart until the distributed
-slice of the port.
-``moe_dispatch="a2a"`` without a mesh takes the reference's own no-mesh
-branch, the scatter dispatch."""
+the expert MLP, the latent and the rope key on the model axis) ride along
+for ``launch.mesh.mesh_rules``; its benchmark's ``SKIP_SHAPES`` come with
+the port's benchmark.  ``moe_dispatch="a2a"`` without a data axis takes
+the reference's own no-mesh branch, the scatter dispatch; the all-to-all
+over a data axis is the second distributed slice (2b)."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"experts": ("data",), "expert_mlp": "model",
+                   # MLA decode cache: shard the 512-dim latent and the
+                   # 64-dim rope key over the model axis
+                   "kv_lora": "model", "cache_hd": "model"}
 
 
 def full() -> ModelConfig:

@@ -2,6 +2,8 @@
 vocab=92544; GQA.  [arXiv:2403.17297; hf]"""
 from repro_torch.models.common import ModelConfig
 
+RULES_OVERRIDES = {"cache_hd": "model"}
+
 
 def full() -> ModelConfig:
     return ModelConfig(

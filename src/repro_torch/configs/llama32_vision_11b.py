@@ -5,9 +5,12 @@ vocab=128256; gated cross-attn image layers every 5th layer (8 total).
 40 layers = 8 groups x (4 self + 1 gated cross).  The vision frontend is a
 stub, as in the reference: the model takes precomputed patch embeddings
 (B, vision_seq=1600, d_model) as its cross-attention memory.  The
-reference's mesh rule (``RULES_OVERRIDES``) and shape skips have no
-counterpart until the distributed slice of the port."""
+reference's mesh rule (``RULES_OVERRIDES``) rides along for
+``launch.mesh.mesh_rules``; its shape skips come with the port's
+benchmark."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"cache_hd": "model"}
 
 
 def full() -> ModelConfig:

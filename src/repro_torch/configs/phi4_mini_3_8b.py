@@ -1,9 +1,12 @@
 """phi4-mini-3.8b [dense] — 32L d_model=3072 24H (GQA kv=8) d_ff=8192
 vocab=200064; RoPE + SwiGLU + GQA.  [arXiv:2412.08905; hf]
 
-The reference's mesh key (``RULES_OVERRIDES``) and benchmark
-``SKIP_SHAPES`` come with the distributed slice of the port."""
+The reference's mesh key (``RULES_OVERRIDES``) rides along for
+``launch.mesh.mesh_rules``; its benchmark ``SKIP_SHAPES`` come with the
+port's benchmark."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"cache_hd": "model"}
 
 
 def full() -> ModelConfig:

@@ -4,9 +4,11 @@ d_ff=12288 vocab=256000; RG-LRU + local attention, pattern (R, R, A).
 
 38 layers = 12 x (R, R, A) pattern blocks + 2 tail R layers.  Local window
 2048 (a ring buffer of min(max_len, 2048) K/V rows).  The reference's mesh
-rule (``RULES_OVERRIDES``: the decode cache sharded on its head dim) has
-no counterpart until the distributed slice of the port."""
+rule (``RULES_OVERRIDES``: the decode cache sharded on its head dim) rides
+along for ``launch.mesh.mesh_rules``."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"cache_hd": "model"}
 
 
 def full() -> ModelConfig:

@@ -3,9 +3,12 @@
 
 The audio frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings (B, frames, d_model).  GELU MLPs.  The
-reference's mesh rule (``RULES_OVERRIDES``) and shape skips have no
-counterpart until the distributed slice of the port."""
+reference's mesh rule (``RULES_OVERRIDES``) rides along for
+``launch.mesh.mesh_rules``; its shape skips come with the port's
+benchmark."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"cache_heads": "model"}  # kv divisible by 16
 
 
 def full() -> ModelConfig:

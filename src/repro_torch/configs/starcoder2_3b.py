@@ -1,9 +1,12 @@
 """starcoder2-3b [dense] — 30L d_model=3072 24H (GQA kv=2) d_ff=12288
 vocab=49152; GQA + RoPE.  [arXiv:2402.19173; hf]
 
-The reference's mesh key (``RULES_OVERRIDES``) and benchmark
-``SKIP_SHAPES`` come with the distributed slice of the port."""
+The reference's mesh key (``RULES_OVERRIDES``) rides along for
+``launch.mesh.mesh_rules``; its benchmark ``SKIP_SHAPES`` come with the
+port's benchmark."""
 from repro_torch.models.common import ModelConfig
+
+RULES_OVERRIDES = {"cache_hd": "model"}
 
 
 def full() -> ModelConfig:

@@ -37,8 +37,13 @@ instead, and both take ``epilogue_fn`` for their df32 accumulator: the
 whole epilogue of a contraction in one call (defaults
 :func:`df32_epilogue` and :func:`oz2_df32_epilogue`; the reference has no
 such hook, its per-chunk and per-window epilogues run inside one jitted
-program).  ``partial=True`` returns the unrounded accumulator.  The mesh ``product_reduce`` hook comes
-with the distributed slice of the port.
+program).  Two more hooks serve a contraction sharded over a mesh
+(``ozimmu._bmm_sharded``): ``product_reduce``, applied ONCE to the stacked
+``(G, *batch, m, p)`` int32 tensor of every slice/group product before any
+conversion or scaling (an exact cross-rank sum makes the sharded
+evaluation bit-identical to the unsharded one), and ``partial=True``,
+which returns the unrounded accumulator (a :class:`DF32` pair, or the
+raw f64/f32 one) for the caller's error-free cross-rank fold.
 
 Subnormals are flushed as the reference's XLA arithmetic flushes them
 (``splitting.ftz``): every epilogue reads subnormal scales and
@@ -223,8 +228,22 @@ def _out_shape(sa: Split, sb: Split):
 # Alg. 4 — naive accumulation
 # ---------------------------------------------------------------------------
 
+def _reduce_products(prods, product_reduce: Optional[Callable]):
+    """Apply ``product_reduce`` once to the stacked int32 products (one
+    collective for the whole contraction); the list passes through
+    untouched without a hook."""
+    if product_reduce is None:
+        return prods
+    reduced = product_reduce(torch.stack(prods))
+    if reduced.dtype != torch.int32:
+        raise TypeError(f"product_reduce must preserve int32 exactness, "
+                        f"returned {reduced.dtype}")
+    return list(reduced.unbind(0))
+
+
 def matmul_naive(sa: Split, sb: Split, *, accum: str = "f64",
                  out_dtype=None, partial: bool = False,
+                 product_reduce: Optional[Callable] = None,
                  scale_accum_fn: Optional[Callable] = None,
                  pair_gemm_fn: Optional[Callable] = None
                  ) -> Union[torch.Tensor, DF32]:
@@ -240,7 +259,8 @@ def matmul_naive(sa: Split, sb: Split, *, accum: str = "f64",
     gemm = pair_gemm_fn or (
         lambda s, t: slice_group_gemm(sa, sb, [(s, t)]))
     with _tracing.phase_scope("group_gemm"):
-        prods = [gemm(s, t) for s, t in pairs]
+        prods = _reduce_products([gemm(s, t) for s, t in pairs],
+                                 product_reduce)
 
     if accum == "df32":
         fn = scale_accum_fn or _scale_accum_df32
@@ -299,6 +319,7 @@ def _group_chunks(k: int, r: int):
 def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
                     out_dtype=None, r: Optional[int] = None,
                     group_gemm_fn=None, partial: bool = False,
+                    product_reduce: Optional[Callable] = None,
                     scale_accum_fn: Optional[Callable] = None,
                     epilogue_fn: Optional[Callable] = None
                     ) -> Union[torch.Tensor, DF32]:
@@ -323,7 +344,8 @@ def matmul_group_ef(sa: Split, sb: Split, *, accum: str = "f64",
     gg = group_gemm_fn or (lambda pairs: slice_group_gemm(sa, sb, pairs))
     chunks = list(_group_chunks(k, r))
     with _tracing.phase_scope("group_gemm"):
-        prods = [gg(pairs) for _, pairs in chunks]
+        prods = _reduce_products([gg(pairs) for _, pairs in chunks],
+                                 product_reduce)
 
     # The 2^(-beta*g) group exponent folds into the row scale (exact).
     if accum == "df32":
@@ -522,6 +544,7 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
                r: Optional[int] = None, n_total: Optional[int] = None,
                digit_bits: Optional[int] = None, group_gemm_fn=None,
                partial: bool = False,
+               product_reduce: Optional[Callable] = None,
                scale_accum_fn: Optional[Callable] = None,
                unscale_fn: Optional[Callable] = None,
                epilogue_fn: Optional[Callable] = None
@@ -568,7 +591,8 @@ def matmul_oz2(sa: Split, sb: Split, *, accum: str = "f64",
     gg = group_gemm_fn or (lambda pairs: slice_group_gemm(sa, sb, pairs))
     chunks = list(_oz2_chunks(k, r, fast))
     with _tracing.phase_scope("group_gemm"):
-        prods = [gg(pairs) for _, pairs in chunks]
+        prods = _reduce_products([gg(pairs) for _, pairs in chunks],
+                                 product_reduce)
     groups = [g for g, _ in chunks]
 
     if accum == "df32":

@@ -18,10 +18,8 @@ The named variants and the spec grammar are the reference's:
 
 Every spec parses exactly as in the reference (same configs, same error
 texts), and every variant executes, with a fixed or an ``auto`` k, on the
-plain path and on the ``:fused`` kernel path.  One exception remains:
-``@mesh`` specs raise ``NotImplementedError`` at execution (the
-distributed slice; ``check_supported``).  On CUDA every variant runs, the
-sign-magnitude ones included: the group GEMM takes their stored digits
+plain path and on the ``:fused`` kernel path.  On CUDA every variant runs,
+the sign-magnitude ones included: the group GEMM takes their stored digits
 with their signedness.  ``auto`` k probes the operands of an eager call;
 inside ``plan.static_plan()`` (the serving runtime's steps) it takes the
 static plan, as the reference's jitted calls do, and a call with a frozen
@@ -36,6 +34,18 @@ group-GEMM kernel.  Both are differentiable: a ``torch.autograd.Function``
 evaluates the two cotangents through the same emulation under the
 transposed dimension numbers (the reference's custom VJP), so the
 backward's contractions run the same kernels as the forward's.
+
+Mesh-native mode (``@axis`` / ``@axis/int32`` / ``@axis/df32``): when a
+mesh with that axis is installed (:mod:`repro_torch.distributed.compat`),
+the axis has more than one rank and divides the contraction length, the
+contraction is sharded over it.  Every rank holds the whole operands,
+contracts its range ``[r n/D, (r+1) n/D)`` and ends with the replicated
+result (the reference's ``shard_map`` in/out specs, one process a rank).
+``int32`` agrees the row/column maxima across ranks and sums the stacked
+int32 products exactly before the epilogue: bit-identical to the
+single-device emulation.  ``df32`` folds the ranks' partial accumulators
+with TwoSum in rank order.  Without such a mesh the spec runs on one
+device, as in the reference.
 """
 from __future__ import annotations
 
@@ -48,12 +58,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core import accumulate, splitting
+from repro_torch.distributed import collectives, compat
 from repro_torch.obs import registry as _obs
 from repro_torch.obs import tracing as _tracing
 
 __all__ = ["OzimmuConfig", "VARIANTS", "ozimmu_matmul", "ozimmu_dot_general",
            "parse_spec", "canonical_rhs", "canonical_fast2", "variant_name",
-           "split_operands", "splitter_for", "check_supported"]
+           "split_operands", "splitter_for"]
 
 DimensionNumbers = Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]],
                          Tuple[Tuple[int, ...], Tuple[int, ...]]]
@@ -78,11 +89,17 @@ class OzimmuConfig:
     target_eps: Optional[float] = None
     target_eps_mode: str = "deterministic"
     target_delta: Optional[float] = None
-    mesh_axis: Optional[str] = None  # ``@axis`` (distributed slice)
-    mesh_reduce: str = "int32"
+    mesh_axis: Optional[str] = None  # mesh-native contraction sharding axis
+    mesh_reduce: str = "int32"      # int32 (exact product sum) | df32
+                                    # (compensated partial-accumulator sum)
 
     def with_(self, **kw) -> "OzimmuConfig":
         return dataclasses.replace(self, **kw)
+
+    def local(self) -> "OzimmuConfig":
+        """This config without the mesh-native reduction (single-device
+        semantics: the body a rank runs on its range)."""
+        return self.with_(mesh_axis=None) if self.mesh_axis else self
 
 
 VARIANTS = {
@@ -268,38 +285,37 @@ def parse_spec(spec: str) -> OzimmuConfig:
         mesh_axis=mesh_axis, mesh_reduce=mesh_reduce))
 
 
-def check_supported(cfg: OzimmuConfig) -> None:
-    """Raise ``NotImplementedError`` for what parses but the port does not
-    execute yet: the mesh-native ``@axis`` specs."""
-    if cfg.mesh_axis is not None:
-        raise NotImplementedError(
-            f"mesh-native specs (@{cfg.mesh_axis}) come with the "
-            f"distributed slice of the port")
-
-
-def splitter_for(cfg: OzimmuConfig, n: int):
+def splitter_for(cfg: OzimmuConfig, n: int, rowmax_reduce=None):
     """``split(x, axis) -> Split`` for contraction length ``n`` under
     ``cfg``: the split kernel under ``:fused`` for every constant-ratio
     strategy, the library splitter otherwise and for the adaptive ``rn``
     (its grid needs a fresh row maximum per slice) — bit-identical either
-    way."""
+    way.  ``rowmax_reduce`` (a mesh-axis max) widens the row/column maxima
+    before the grids are derived."""
     beta = splitting.beta_for(cfg.split, n)
     if cfg.use_pallas == "fused" and cfg.split != "rn":
         from repro_torch.kernels import ops as kops
-        return lambda x, axis: kops.split_fused(x, cfg.k, beta,
-                                                mode=cfg.split, axis=axis)
+        return lambda x, axis: kops.split_fused(
+            x, cfg.k, beta, mode=cfg.split, axis=axis,
+            rowmax_reduce=rowmax_reduce)
     splitter = _SPLITTERS[cfg.split]
-    return lambda x, axis: splitter(x, cfg.k, beta=beta, axis=axis)
+    return lambda x, axis: splitter(x, cfg.k, beta=beta, axis=axis,
+                                    rowmax_reduce=rowmax_reduce)
 
 
 def split_operands(a: torch.Tensor, b: Optional[torch.Tensor],
-                   cfg: OzimmuConfig, *,
+                   cfg: OzimmuConfig, *, n_total: Optional[int] = None,
+                   rowmax_reduce=None,
                    rhs_presplit: Optional[splitting.Split] = None):
     """Step (i)+(ii): slice A row-wise and B column-wise (per batch
-    element).  ``rhs_presplit`` (a frozen column-scale Split from
+    element).  ``n_total`` overrides the contraction length beta (eq. 4)
+    comes from when ``a``/``b`` are one rank's range of a longer
+    contraction; ``rowmax_reduce`` then makes the grids globally agreed.
+    ``rhs_presplit`` (a frozen column-scale Split from
     :mod:`repro_torch.core.split_cache`) skips the B side; ``b`` may then
     be None."""
-    split = splitter_for(cfg, a.shape[-1])
+    n = n_total if n_total is not None else a.shape[-1]
+    split = splitter_for(cfg, n, rowmax_reduce)
     sa = split(a, 0)
     if rhs_presplit is not None:
         return sa, rhs_presplit
@@ -307,11 +323,20 @@ def split_operands(a: torch.Tensor, b: Optional[torch.Tensor],
 
 
 def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
-               cfg: OzimmuConfig, *, partial: bool = False,
+               cfg: OzimmuConfig, *, n_total: Optional[int] = None,
+               rowmax_reduce=None, product_reduce=None,
+               partial: bool = False,
                rhs_presplit: Optional[splitting.Split] = None):
-    """Single-device emulated batched matmul on canonical operands."""
+    """Single-device emulated batched matmul on canonical operands (the
+    body a rank runs on its range when the distributed hooks are given:
+    ``n_total`` the whole contraction's length, which beta and r come
+    from; ``rowmax_reduce`` for the splitters; ``product_reduce`` on the
+    stacked int32 products; ``partial`` for the unrounded
+    accumulator)."""
     with _tracing.phase_scope("split"):
-        sa, sb = split_operands(a, b, cfg, rhs_presplit=rhs_presplit)
+        sa, sb = split_operands(a, b, cfg, n_total=n_total,
+                                rowmax_reduce=rowmax_reduce,
+                                rhs_presplit=rhs_presplit)
     group_gemm_fn = scale_accum_fn = pair_gemm_fn = unscale_fn = None
     epilogue_fn = None
     if cfg.use_pallas:
@@ -335,21 +360,82 @@ def _bmm_local(a: torch.Tensor, b: Optional[torch.Tensor],
     if cfg.accumulate == "naive":
         return accumulate.matmul_naive(
             sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype,
-            partial=partial, scale_accum_fn=scale_accum_fn,
-            pair_gemm_fn=pair_gemm_fn)
+            partial=partial, product_reduce=product_reduce,
+            scale_accum_fn=scale_accum_fn, pair_gemm_fn=pair_gemm_fn)
+    n = n_total if n_total is not None else a.shape[-1]
     if cfg.accumulate == "oz2":
         return accumulate.matmul_oz2(
             sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype,
-            fast=cfg.fast, n_total=a.shape[-1],
+            fast=cfg.fast, n_total=n,
             digit_bits=splitting.digit_bits(cfg.split, sa.beta),
             group_gemm_fn=group_gemm_fn, partial=partial,
-            scale_accum_fn=scale_accum_fn, unscale_fn=unscale_fn,
-            epilogue_fn=epilogue_fn)
-    r = splitting.compute_r(a.shape[-1], sa.beta)
+            product_reduce=product_reduce, scale_accum_fn=scale_accum_fn,
+            unscale_fn=unscale_fn, epilogue_fn=epilogue_fn)
+    r = splitting.compute_r(n, sa.beta)
     return accumulate.matmul_group_ef(
         sa, sb, accum=cfg.accum_dtype, out_dtype=a.dtype, r=r,
         group_gemm_fn=group_gemm_fn, partial=partial,
-        scale_accum_fn=scale_accum_fn, epilogue_fn=epilogue_fn)
+        product_reduce=product_reduce, scale_accum_fn=scale_accum_fn,
+        epilogue_fn=epilogue_fn)
+
+
+def _bmm_sharded(a: torch.Tensor, b: torch.Tensor, cfg: OzimmuConfig,
+                 mesh, rhs_presplit: Optional[splitting.Split] = None
+                 ) -> torch.Tensor:
+    """Mesh-native emulated batched matmul: the contraction axis sharded
+    over ``cfg.mesh_axis``, the cross-rank sum inside the scheme.
+
+    This rank takes its range ``[r n/D, (r+1) n/D)`` of A and of B (or,
+    with ``rhs_presplit``, a view of that range of the frozen K-major
+    digits: the cached full-matrix grid IS the agreed one, since splitting
+    is elementwise given the grid).  Strategy ``int32``: the row/column
+    maxima are agreed across ranks (one max a split) and the stacked int32
+    products summed exactly (one sum a contraction), so the epilogue runs
+    on the global products — bit-identical to the single-device
+    emulation.  Strategy ``df32``: each rank accumulates its partial on
+    local grids (no max), and the partial accumulators are folded with
+    TwoSum in rank order (``psum_df32`` for a df32 pair,
+    ``psum_compensated`` for an f32/f64 one), rounded once at the end.
+    A frozen B split keeps its global grid there: a valid splitting
+    either way, as in the reference."""
+    axis = cfg.mesh_axis
+    n = a.shape[-1]
+    size, rank = mesh.size(axis), mesh.index(axis)
+    lo, hi = rank * n // size, (rank + 1) * n // size
+    al, bl, sb = a[..., lo:hi], b[..., lo:hi, :], None
+    if rhs_presplit is not None:
+        sp = rhs_presplit
+        bl, sb = None, splitting.Split(
+            sp.digits[..., lo:hi, :], sp.scale, sp.base, sp.beta, 1,
+            gbase=sp.gbase, signmag=sp.signmag)
+    local = cfg.local()
+    if cfg.mesh_reduce == "int32":
+        return _bmm_local(
+            al, bl, local, n_total=n,
+            rowmax_reduce=lambda v: collectives.pmax_scales(v, axis),
+            product_reduce=lambda p: collectives.psum_exact_int32(p, axis),
+            rhs_presplit=sb)
+    part = _bmm_local(al, bl, local, n_total=n, partial=True,
+                      rhs_presplit=sb)
+    if isinstance(part, accumulate.DF32):
+        return collectives.psum_df32(part, axis).to_float(a.dtype)
+    return accumulate._narrow(collectives.psum_compensated(part, axis),
+                              a.dtype)
+
+
+def _mesh_for(cfg: OzimmuConfig, n: int):
+    """The installed mesh if the mesh-native path applies, else None (no
+    mesh, the axis missing or of one rank, or a contraction it does not
+    divide: the caller runs the single-device emulation)."""
+    if cfg.mesh_axis is None:
+        return None
+    mesh = compat.get_abstract_mesh()
+    if mesh.empty or cfg.mesh_axis not in mesh.axis_names:
+        return None
+    size = mesh.shape[cfg.mesh_axis]
+    if size <= 1 or n % size != 0:
+        return None
+    return mesh
 
 
 def _check_presplit(a: torch.Tensor, b_shape, cfg: OzimmuConfig,
@@ -402,7 +488,6 @@ def _bmm_impl(a: torch.Tensor, b: torch.Tensor, cfg: OzimmuConfig,
         raise ValueError(f"bad batched GEMM shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     cfg = canonical_fast2(cfg)
-    check_supported(cfg)
     if cfg.auto_k:
         if rhs_presplit is not None:
             # the split cache resolved auto k at freeze time with the
@@ -411,14 +496,18 @@ def _bmm_impl(a: torch.Tensor, b: torch.Tensor, cfg: OzimmuConfig,
                             auto_k=False)
         else:
             # eager: the planner probes the operands (outside a
-            # plan.static_plan() scope)
+            # plan.static_plan() scope).  Resolved before the mesh
+            # dispatch, so every rank contracts with the same k.
             from repro_torch.core import plan
             cfg = cfg.with_(k=plan.auto_k(a, b, cfg), auto_k=False)
     if rhs_presplit is not None:
         _check_presplit(a, b.shape, cfg, rhs_presplit)
     if _obs.enabled():
         _record_emulation(cfg, a, b.shape[-1], rhs_presplit is not None)
-    return _bmm_local(a, b, cfg, rhs_presplit=rhs_presplit)
+    mesh = _mesh_for(cfg, a.shape[-1])
+    if mesh is not None:
+        return _bmm_sharded(a, b, cfg, mesh, rhs_presplit)
+    return _bmm_local(a, b, cfg.local(), rhs_presplit=rhs_presplit)
 
 
 # ---------------------------------------------------------------------------

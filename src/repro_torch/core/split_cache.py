@@ -4,7 +4,7 @@
 At inference the B operand of almost every emulated contraction is a
 static weight matrix.  :class:`SplitCache` freezes it into its
 spec-resolved :class:`~repro_torch.core.splitting.Split` ONCE, keyed by
-``(tensor identity, spec, dimension_numbers, layout)``, and the
+``(tensor identity, spec, dimension_numbers, mesh, layout)``, and the
 ``rhs_presplit=`` path of :func:`repro_torch.core.ozimmu.
 ozimmu_dot_general` then skips the B-side splitter — bit-identical to the
 uncached path (the splitters are deterministic and rounding-exact).
@@ -20,7 +20,9 @@ Auto k (``...-auto`` specs) is resolved at freeze time by
 reference's jitted serving step resolves to.  A call that gets the frozen
 split adopts its k (``ozimmu._bmm_impl``), so the serving path of both
 packages agrees on k.  Constant-scaling (oz2, fast2) splits carry their
-``gbase`` through the cache and :func:`stack_leading`.
+``gbase`` through the cache and :func:`stack_leading`.  Under a mesh the
+entry is still the full-matrix split (the grid the ranks agree on); a
+sharded contraction reads its rank's range of the digits as a view.
 
 Every stats transition (hit, miss, invalidation) is mirrored into the
 process-global metrics registry (``split_cache.*`` counters and the
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.core import splitting
 from repro_torch.core.splitting import Split
+from repro_torch.distributed import compat
 from repro_torch.obs import registry as _obs
 from repro_torch.obs import tracing as _tracing
 
@@ -76,7 +79,6 @@ def presplit_rhs(b: torch.Tensor, dimension_numbers, cfg) -> Split:
     the emulation's compute dtype."""
     from repro_torch.core import ozimmu
     cfg = ozimmu.canonical_fast2(cfg)
-    ozimmu.check_supported(cfg)
     b3, n = ozimmu.canonical_rhs(b, ozimmu._canonicalize_dnums(
         dimension_numbers))
     k = resolved_k(cfg, n, b3.dtype)
@@ -135,6 +137,15 @@ def _cfg_key(cfg, k: int, dtype) -> Tuple:
     return (cfg.split, int(k), str(dtype), bool(getattr(cfg, "fast", False)))
 
 
+def _mesh_key() -> Tuple:
+    """The installed mesh's ``(axis, size)`` pairs, sorted; ``()`` without
+    a mesh — the mesh half of the split-cache and prefix-cache keys."""
+    mesh = compat.get_abstract_mesh()
+    if mesh.empty:
+        return ()
+    return tuple(sorted(mesh.shape.items()))
+
+
 class SplitCache:
     """Freeze-once cache of spec-resolved weight splits (thread-safe,
     weakref-invalidated)."""
@@ -153,7 +164,15 @@ class SplitCache:
         dimension_numbers)`` under ``cfg``.  ``dtype`` is the compute dtype
         when it differs from ``b.dtype`` (cast inside; the entry stays
         anchored on ``b``).  ``layout="stack_leading"`` stores the
-        :func:`stack_leading` layout."""
+        :func:`stack_leading` layout.
+
+        The key's mesh half (:func:`_mesh_key`) keeps the reference's key.
+        The entry is the full-matrix split under any mesh today (a rank
+        reads its contraction range of the digits as a view), so one cache
+        used with and without a mesh freezes the same split twice; serving
+        never does, since it freezes its weights once when the runtime is
+        built.  The half keeps apart entries that a mesh-laid-out split,
+        holding only a rank's range, would make different."""
         from repro_torch.core import ozimmu
         if layout not in ("k_leading", "stack_leading"):
             raise ValueError(f"unknown split layout {layout!r}")
@@ -161,7 +180,7 @@ class SplitCache:
         dnums = ozimmu._canonicalize_dnums(dimension_numbers)
         (_, bc), (_, bb) = dnums
         k = resolved_k(cfg, math.prod(b.shape[i] for i in bc), dtype)
-        key = (id(b), _cfg_key(cfg, k, dtype), dnums, layout)
+        key = (id(b), _cfg_key(cfg, k, dtype), dnums, _mesh_key(), layout)
         in_bytes = math.prod(b.shape) * torch.empty((), dtype=dtype
                                                     ).element_size()
         with self._lock:

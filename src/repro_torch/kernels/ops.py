@@ -4,7 +4,8 @@
 On the card the split is one launch of the split kernel (row maxima,
 bases, reciprocal grids, scales and digits); only the Ozaki-II
 constant-grid modes derive their grid here first (their maximum spans a
-whole batch element).  The df32 epilogue of a contraction is one launch
+whole batch element), and so does every mode under a ``rowmax_reduce``
+hook (the maxima agreed across a mesh axis).  The df32 epilogue of a contraction is one launch
 over all its chunk products: the group-EF one of the epilogue kernel, the
 Ozaki-II one (ladder fold, windows, fast2 unscale) of the const-scale
 kernel.  A CPU tensor takes the kernels' plain versions, the same
@@ -27,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.accumulate import DF32, slice_group_gemm
-from repro_torch.core.splitting import Split, _geo_scales, _global_base
+from repro_torch.core.splitting import Split, _geo_scales, _global_base, \
+    _rowmax
 from repro_torch.kernels import scale_accum as _sa
 from repro_torch.kernels import split_fused as _sf
 from repro_torch.obs import tracing as _tracing
@@ -55,21 +57,31 @@ def _check_mode(mode: str) -> None:
                          f", got {mode!r}")
 
 
-def _split(a, k, beta, mode, axis, plain: bool) -> Split:
+def _split(a, k, beta, mode, axis, plain: bool,
+           rowmax_reduce=None) -> Split:
     """The Split through the kernels' wrappers, or their plain versions
-    (``plain``).  The constant-grid modes derive each batch element's
-    maximum and grid here (``split_fused.grid``) and extract the digits on
-    it; every other mode is one whole split."""
+    (``plain``).  The constant-grid modes, and every mode under a
+    ``rowmax_reduce`` hook, derive the maxima (reduced by the hook) and
+    grid here (``split_fused.grid``) and extract the digits on it; every
+    other split is one whole split."""
     _check_mode(mode)
     kmode = _KERNEL_MODE[mode]
-    if mode in _GLOBAL:
-        base, invgrid = _sf.grid(_global_base(a, axis, None), beta, kmode)
+    if mode in _GLOBAL or rowmax_reduce is not None:
+        if mode in _GLOBAL:
+            rowmax = _global_base(a, axis, rowmax_reduce)
+        else:
+            rowmax = rowmax_reduce(_rowmax(a, axis))
+        base, invgrid = _sf.grid(rowmax, beta, kmode)
         extract = _sf.split_fused_ref if plain else _sf.split_fused
         with _tracing.phase_scope("kernel/split_fused"):
             digits = extract(a, invgrid, k=k, beta=beta, mode=kmode,
                              axis=axis)
+        gbase = base[..., 0] if mode in _GLOBAL else None
+        if mode.endswith("_fast2"):
+            gbase = torch.full(base.shape[:-1], 2.0, dtype=base.dtype,
+                               device=base.device)
         return Split(digits, _geo_scales(base, beta, k), base, beta, axis,
-                     gbase=base[..., 0])
+                     gbase=gbase, signmag=(mode == "sm"))
     whole = _sf.split_whole_ref if plain else _sf.split_whole
     with _tracing.phase_scope("kernel/split_fused"):
         digits, scale, base, gbase = whole(a, k=k, beta=beta, mode=kmode,
@@ -80,7 +92,8 @@ def _split(a, k, beta, mode, axis, plain: bool) -> Split:
 
 
 def split_fused(a: torch.Tensor, k: int, beta: int, *,
-                mode: str = "rn_const", axis: int = 0) -> Split:
+                mode: str = "rn_const", axis: int = 0,
+                rowmax_reduce=None) -> Split:
     """Fused splitting (Alg. 3 ``bitmask`` / Alg. 8 ``rn_const`` / the
     sign-magnitude ``sm`` / the oz2 constant-grid modes ``oz2_bitmask`` /
     ``oz2_rn`` and their fast2 twins): the same :class:`Split` as the
@@ -94,16 +107,23 @@ def split_fused(a: torch.Tensor, k: int, beta: int, *,
     onto the per-row reciprocal grid, which is bit-identical to the
     reference's constant-grid kernel; that grid is derived here and the
     digits come from the kernel.  The fast2 modes keep the per-row grids
-    and attach ``gbase = 2`` (``splitting._with_fast2_gbase``).  A CPU
-    tensor takes the plain versions (:func:`split_fused_ref`)."""
-    return _split(a, k, beta, mode, axis, plain=False)
+    and attach ``gbase = 2`` (``splitting._with_fast2_gbase``).
+    ``rowmax_reduce`` (the mesh-axis max hook) widens the row maxima
+    before the grids are derived, exactly as in the library splitters:
+    with it every mode takes the constant-grid modes' route (the maxima,
+    the hook, the grid, then the digits kernel on it).  A CPU tensor takes
+    the plain versions (:func:`split_fused_ref`)."""
+    return _split(a, k, beta, mode, axis, plain=False,
+                  rowmax_reduce=rowmax_reduce)
 
 
 def split_fused_ref(a: torch.Tensor, k: int, beta: int, *,
-                    mode: str = "rn_const", axis: int = 0) -> Split:
+                    mode: str = "rn_const", axis: int = 0,
+                    rowmax_reduce=None) -> Split:
     """Plain version of :func:`split_fused` (on either device): the
     maxima, grid, digits and scales as separate PyTorch operations."""
-    return _split(a, k, beta, mode, axis, plain=True)
+    return _split(a, k, beta, mode, axis, plain=True,
+                  rowmax_reduce=rowmax_reduce)
 
 
 def group_gemm(sa: Split, sb: Split, pairs) -> torch.Tensor:

@@ -19,21 +19,37 @@ registry, the plan ledger's summary, and at the end the serving summary
 and ``decode_observed``), every ``--metrics-every`` scheduler rounds and
 once at the end; ``--profile-dir DIR`` traces the serving loop into
 ``DIR/trace.json`` with the emulation's ``ozimmu/*`` phase ranges.
-``--mesh`` keeps the reference's flag and raises until the distributed
-slice brings it.
+
+``--mesh model=N`` serves on N ranks, one process each (SPMD), with an
+``@model`` engine spec sharding every emulated contraction over them
+(``ozimmu_h-4:df32:fused@model``: bitwise the single-device tokens).  The
+process group comes from torchrun (``torchrun --nproc-per-node N -m
+repro_torch.launch.serve ...``) or is already initialized by the caller
+(:func:`repro_torch.launch.mesh.init_distributed`): gloo when ranks
+share one card or run on the CPU, NCCL when each rank has a card of its
+own (that route has not yet run on any host; the one-card runs use
+gloo).  Every
+rank holds the whole model; rank 0 prints.  A ``data`` or ``pod`` axis of
+more than one rank (the batch split) is the second distributed slice and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, resolve_device
 from repro_torch.core import plan
+from repro_torch.distributed import compat
+from repro_torch.distributed.sharding import use_rules
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import api, encdec
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import tracing as obs_tracing
@@ -116,7 +132,10 @@ def main(argv=None):
                     default="bf16",
                     help="matmul engine spec, e.g. bf16, f32 or "
                          "ozimmu_h-4:df32:fused")
-    ap.add_argument("--mesh", default=None, help="(not ported yet)")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh spec, e.g. 'model=2': shards the contractions "
+                         "of an '@model' engine over that many ranks "
+                         "(torchrun); default no mesh (single device)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the unified metrics document (registry "
                          "snapshot + plan ledger + serving summary) to "
@@ -135,18 +154,53 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh comes with the distributed slice "
-                                  "of the port")
     n_requests = args.requests if args.requests is not None else args.slots
-    device = resolve_device(args.device)
+    started = False
+    if args.mesh:
+        other = [a for a, n in mesh_lib.spec_axes(args.mesh).items()
+                 if a != "model" and n > 1]
+        if other:
+            raise NotImplementedError(
+                f"--mesh {args.mesh}: the {'/'.join(other)} split of the "
+                f"batch comes with the second distributed slice of the "
+                f"port (2b); this one shards contractions over 'model' "
+                f"only")
+        started = not dist.is_initialized()
+        device = mesh_lib.init_distributed(args.device)
+        started = started and dist.is_initialized()
+    else:
+        device = resolve_device(args.device)
+    try:
+        mesh = mesh_lib.parse_mesh_spec(args.mesh)
+        if mesh is not None and mesh.rank == 0:
+            backend = dist.get_backend() if dist.is_initialized() \
+                else "one process"
+            print(f"[serve] mesh {mesh.shape} over {compat.world()[1]} "
+                  f"ranks ({backend}, {device}); rank 0 prints")
+        with contextlib.ExitStack() as stack:
+            if mesh is not None:
+                stack.enter_context(compat.set_mesh(mesh))
+                stack.enter_context(use_rules(mesh_lib.mesh_rules(
+                    mesh, args.arch)))
+            return _serve(args, n_requests, device,
+                          lead=mesh is None or mesh.rank == 0)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _serve(args, n_requests: int, device, lead: bool):
+    """Serve ``args``'s requests on ``device``.  Only the ``lead`` rank
+    prints and writes the metrics document and the trace."""
+    say = print if lead else (lambda *a, **kw: None)
+    if not lead:
+        args.metrics_json = args.profile_dir = None
     cfg = configs.get_config(args.arch, smoke=not args.full,
                              engine_spec=args.engine)
     oz_cfg = cfg.engine.ozimmu_config
     if oz_cfg is not None:
-        print(f"[serve] engine {args.engine}: "
-              f"{plan.describe_config(oz_cfg, cfg.d_model, cfg.d_model, cfg.d_model)}")
+        say(f"[serve] engine {args.engine}: "
+            f"{plan.describe_config(oz_cfg, cfg.d_model, cfg.d_model, cfg.d_model)}")
     model = api.get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(cfg, generator=gen, device=device)
@@ -160,10 +214,10 @@ def main(argv=None):
                            ctx=ctx, device=device)
     if runtime.split_cache is not None:
         st = runtime.split_cache.stats
-        print(f"[serve] split-cache: froze {st.misses} weight splits "
-              f"({st.cached_bytes / 1e6:.2f} MB resident)")
+        say(f"[serve] split-cache: froze {st.misses} weight splits "
+            f"({st.cached_bytes / 1e6:.2f} MB resident)")
     if len(plan.get_ledger()):
-        print(f"[serve] planner: {plan.get_ledger().describe()}")
+        say(f"[serve] planner: {plan.get_ledger().describe()}")
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len,
                             dtype=np.int32) for _ in range(n_requests)]
@@ -182,36 +236,36 @@ def main(argv=None):
             for r in reqs]
     if args.metrics_json:
         dump_metrics(args.metrics_json, runtime, final=True)
-        print(f"[serve] metrics written to {args.metrics_json}")
-    print(f"[serve] {args.arch} on {device}: {s['tokens_generated']} tokens "
-          f"from {s['requests']['finished']} requests in {dt:.2f}s "
-          f"({s['tokens_per_s']:.1f} tok/s, slots={args.slots}, "
-          f"prefill_calls={s['prefill_calls']}, "
-          f"evictions={s['evictions']})")
+        say(f"[serve] metrics written to {args.metrics_json}")
+    say(f"[serve] {args.arch} on {device}: {s['tokens_generated']} tokens "
+        f"from {s['requests']['finished']} requests in {dt:.2f}s "
+        f"({s['tokens_per_s']:.1f} tok/s, slots={args.slots}, "
+        f"prefill_calls={s['prefill_calls']}, "
+        f"evictions={s['evictions']})")
     if s["ttft_s"]["mean"] is not None:
-        print(f"[serve] TTFT mean {s['ttft_s']['mean']:.3f}s "
-              f"p95 {s['ttft_s']['p95']:.3f}s; queue depth max "
-              f"{s['queue_depth']['max']}")
+        say(f"[serve] TTFT mean {s['ttft_s']['mean']:.3f}s "
+            f"p95 {s['ttft_s']['p95']:.3f}s; queue depth max "
+            f"{s['queue_depth']['max']}")
     if s["split_cache"] is not None:
         sc = s["split_cache"]
-        print(f"[serve] split-cache: weight-split hit rate "
-              f"{sc['weight_split_hit_rate']:.2f}, "
-              f"{sc['avoided_split_bytes'] / 1e6:.2f} MB of decode-time "
-              f"re-splitting avoided")
+        say(f"[serve] split-cache: weight-split hit rate "
+            f"{sc['weight_split_hit_rate']:.2f}, "
+            f"{sc['avoided_split_bytes'] / 1e6:.2f} MB of decode-time "
+            f"re-splitting avoided")
     if s.get("prefix_cache") is not None:
         pc = s["prefix_cache"]
-        print(f"[serve] prefix-cache: hit rate {pc['hit_rate']:.2f} "
-              f"({pc['hit_tokens']} prefill tokens aliased, "
-              f"{pc['entries']} entries)")
+        say(f"[serve] prefix-cache: hit rate {pc['hit_rate']:.2f} "
+            f"({pc['hit_tokens']} prefill tokens aliased, "
+            f"{pc['entries']} entries)")
     if runtime.decode_observed is not None:
         obs = runtime.decode_observed
-        print(f"[serve] observed per decode step: "
-              f"{obs['contractions']:.0f} contractions, "
-              f"{obs['int8_gemms']:.0f} int8 GEMMs "
-              f"({obs['int8_gemms_presplit']:.0f} on presplit weights), "
-              f"{obs['highprec_adds']:.0f} high-precision adds")
-    print("[serve] sample continuation:",
-          outs[0][-args.gen:][:16].tolist())
+        say(f"[serve] observed per decode step: "
+            f"{obs['contractions']:.0f} contractions, "
+            f"{obs['int8_gemms']:.0f} int8 GEMMs "
+            f"({obs['int8_gemms_presplit']:.0f} on presplit weights), "
+            f"{obs['highprec_adds']:.0f} high-precision adds")
+    say("[serve] sample continuation:",
+        outs[0][-args.gen:][:16].tolist())
     return s
 
 

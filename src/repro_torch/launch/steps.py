@@ -14,7 +14,7 @@ same autograd.  A parameter the loss does not reach (the hybrid's
 placeholder tail stack when a config has no tail layers) gets a zero
 gradient, as ``jax.grad`` gives it.  The reference's int8 gradient
 compression across the ``pod`` axis and its ZeRO-1 state sharding come
-with the distributed slice of the port.  The serve steps live in
+with the second distributed slice of the port (2b).  The serve steps live in
 :mod:`repro_torch.serving`.
 """
 from __future__ import annotations
@@ -80,7 +80,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,
     if tcfg.compress_pod_grads:
         raise NotImplementedError("compress_pod_grads (int8 gradient "
                                   "compression across the pod axis) comes "
-                                  "with the distributed slice of the port")
+                                  "with the second distributed slice of the "
+                                  "port (2b)")
     acc_dt = _DTYPES[tcfg.accum_dtype]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):

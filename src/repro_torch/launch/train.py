@@ -16,8 +16,9 @@ reference wrote restores as well) and checkpoints every ``--ckpt-every``
 steps and at the end.  Under an ozimmu engine every contraction of the
 forward, of the remat recompute and of the backward runs emulated
 (``:fused``: through the split, group-GEMM and epilogue kernels).
-``--mesh`` keeps the reference's flag and raises until the distributed
-slice.
+``--mesh`` keeps the reference's flag and raises: the sharded trainer
+(the batch over ``data``, ZeRO-1, gradient compression) is the second
+distributed slice of the port (2b).
 """
 from __future__ import annotations
 
@@ -71,8 +72,10 @@ def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
     losses)``.  ``on_step(step, metrics, seconds)`` sees every step's
     metrics (floats) and wall seconds (the loss read back included)."""
     if mesh is not None:
-        raise NotImplementedError("--mesh comes with the distributed slice "
-                                  "of the port")
+        raise NotImplementedError("train --mesh comes with the second "
+                                  "distributed slice of the port (2b: the "
+                                  "batch split, ZeRO-1, gradient "
+                                  "compression)")
     device = resolve_device(device)
     cfg = configs.get_config(arch, smoke=smoke, engine_spec=engine)
     oz_cfg = cfg.engine.ozimmu_config
@@ -139,7 +142,7 @@ def main(argv=None):
                     help="matmul engine spec, e.g. bf16, f32 or "
                          "ozimmu_h-4:df32:fused")
     ap.add_argument("--mesh", default=None,
-                    help="(comes with the distributed slice)")
+                    help="(comes with the second distributed slice, 2b)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-3)

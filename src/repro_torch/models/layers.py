@@ -4,7 +4,9 @@ port of ``repro.models.layers``.
 All contractions route through the model's ``MatmulEngine``, so any layer
 runs its GEMMs through the INT8 Ozaki emulation under an ozimmu spec, in
 the forward and in the backward alike.  The reference's ``shard(...)``
-layout hints have no counterpart: the port has no mesh yet.
+layout hints have no counterpart: the port's mesh shards only the
+emulated contractions (``@axis`` engine specs), every rank holding whole
+operands (``repro_torch.distributed.sharding``).
 """
 from __future__ import annotations
 

@@ -24,10 +24,11 @@ the expert choice and the capacity drops are discrete, as in the
 reference.  :func:`aux_load_balance_loss` is the reference's Switch-style
 auxiliary loss; like the reference, no training loss adds it.
 
-Left for a later slice, and raising until then: the expert-parallel
-all-to-all body of ``moe_ffn_a2a`` (a mesh; the distributed slice).
-Without a mesh the reference's ``a2a`` dispatch is its scatter path, and
-so it is here.
+Left for the second distributed slice (2b), and raising until then: the
+expert-parallel all-to-all body of ``moe_ffn_a2a`` over a ``data`` mesh
+axis.  Without one the reference's ``a2a`` dispatch is its scatter path,
+and so it is here (an ``@model`` engine still shards each expert
+contraction over ``model``).
 """
 from __future__ import annotations
 
@@ -153,14 +154,16 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn_a2a(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The expert-parallel dispatch.  The port has no mesh yet, so this is
-    the reference's no-mesh branch: the scatter path.  A mesh-native
-    engine spec asks for a mesh and raises."""
-    spec = cfg.engine.ozimmu_config
-    if spec is not None and spec.mesh_axis is not None:
+    """The expert-parallel dispatch.  Without a ``data`` mesh axis whose
+    size divides the experts this is the reference's fallback, the
+    scatter path; with one, the all-to-all raises (slice 2b)."""
+    from repro_torch.distributed import compat
+    mesh = compat.get_abstract_mesh()
+    data = mesh.shape.get("data", 1)
+    if data > 1 and cfg.n_experts % data == 0:
         raise NotImplementedError(
-            "the MoE all-to-all over a mesh comes with the distributed "
-            "slice of the port")
+            "the MoE all-to-all over the data axis comes with the second "
+            "distributed slice of the port (2b)")
     return moe_ffn(p, cfg, x)
 
 

@@ -7,7 +7,8 @@ and the decay differently): gradients clipped by their global norm,
 bias-corrected moments, the decay decoupled and applied to the f32 base
 (the master copy when ``master_f32``), linear warmup then cosine decay to
 ``min_lr_frac``.  The reference's ZeRO-1 state sharding (``zero_axes``,
-the ``state_axes`` hooks) comes with the distributed slice of the port.
+the ``state_axes`` hooks) comes with the second distributed slice of the
+port (2b).
 """
 from __future__ import annotations
 

@@ -46,22 +46,17 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.split_cache import _mesh_key
 from repro_torch.obs import registry as _obs
 from repro_torch.serving.kvcache import PagedKV
 
 __all__ = ["PrefixCache", "PrefixEntry", "PrefixStats", "config_key"]
 
-# the mesh half of the key: the port has no mesh yet, and () is what the
-# reference's key holds when no mesh is active (the distributed slice
-# replaces it)
-_MESH_KEY: Tuple = ()
-
-
 def config_key(cfg) -> Tuple:
     """The non-token half of the prefix key: numerically distinct
     pipelines (det vs ``:prob``, other meshes) never alias each other's
     prefixes."""
-    return (cfg.name, cfg.family, cfg.engine_spec, _MESH_KEY)
+    return (cfg.name, cfg.family, cfg.engine_spec, _mesh_key())
 
 
 @dataclasses.dataclass

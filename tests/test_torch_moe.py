@@ -31,6 +31,8 @@ contractions the reference holds bit-identical to ``:fused``
 (``tests/test_fused_pipeline.py``); the expert contraction above is held
 against the reference's ``:fused`` path itself.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -47,6 +49,7 @@ from repro.models import moe as R_moe
 from repro.serving import presplit as R_presplit
 from repro_torch import configs as P_configs
 from repro_torch.core.engine import make_engine as P_make_engine
+from repro_torch.distributed import compat as P_compat
 from repro_torch.models import api as P_api
 from repro_torch.models import common as P_common
 from repro_torch.models import moe as P_moe
@@ -190,8 +193,9 @@ def test_moe_ffn_matches_reference(ref_params, case):
 
 def test_a2a_without_a_mesh_is_the_scatter_path(ref_params):
     """``full()`` sets ``moe_dispatch="a2a"``: with no mesh it is
-    ``moe_ffn`` (the reference's own branch); a mesh-native spec raises,
-    and so do an unknown family (``get_model`` looks it up as the
+    ``moe_ffn`` (the reference's own branch), under a mesh-native spec
+    too; a mesh with a data axis (the all-to-all, the second distributed
+    slice) raises, and so do an unknown family (``get_model`` looks it up as the
     reference's ``_FAMILY_MODULES[cfg.family]`` does) and a family that is
     not a MoE one."""
     _, nparams, _ = ref_params
@@ -203,9 +207,17 @@ def test_a2a_without_a_mesh_is_the_scatter_path(ref_params):
         (1, 4, pcfg.d_model)).astype(np.float32))
     assert torch.equal(P_moe.moe_ffn_dispatch(lp, pcfg, x),
                        P_moe.moe_ffn(lp, pcfg, x))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        P_moe.moe_ffn_dispatch(
-            lp, pcfg.with_(engine_spec="ozimmu_h-4:df32@model"), x)
+    mcfg = pcfg.with_(engine_spec="ozimmu_h-4:df32@model")
+    assert torch.equal(P_moe.moe_ffn_dispatch(lp, mcfg, x),
+                       P_moe.moe_ffn(lp, mcfg, x))
+    # the mesh surface moe_ffn_a2a reads, for a data axis of 2 ranks (a
+    # real one needs 2 processes: tests/test_torch_mesh.py)
+    data_mesh = types.SimpleNamespace(empty=False, axis_names=("data",),
+                                      shape={"data": 2}, coord={"data": 0},
+                                      rank=0)
+    with P_compat.set_mesh(data_mesh), \
+            pytest.raises(NotImplementedError, match="distributed slice"):
+        P_moe.moe_ffn_dispatch(lp, mcfg, x)
     with pytest.raises(KeyError, match="audio"):
         P_api.get_model(pcfg.with_(family="audio"))
     with pytest.raises(ValueError, match="not a MoE family"):

@@ -119,6 +119,15 @@ def test_parse_spec_error_texts(spec):
 @pytest.mark.parametrize("spec,later", [
     ("ozimmu_h-4@model", "distributed")])
 def test_unported_specs_raise_naming_their_slice(spec, later):
-    a = torch.ones((2, 8), dtype=torch.float64)
+    """An ``@axis`` spec executes: with no mesh installed it runs on one
+    device, bitwise the spec without the suffix (the sharded path is
+    ``tests/test_torch_distributed.py``'s).  What the mesh does not run
+    yet raises naming its slice: the trainer's mesh."""
+    a = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 8)))
+    cfg = P.parse_spec(spec)
+    assert torch.equal(P.ozimmu_matmul(a, a.T, cfg),
+                       P.ozimmu_matmul(a, a.T, cfg.local()))
+    from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match=later):
-        P.ozimmu_matmul(a, a.T, P.parse_spec(spec))
+        train.train("internlm2_1_8b", engine=spec, mesh="model=2",
+                    device="cpu")

@@ -29,7 +29,7 @@ What is held, and how tightly:
   --prefill-chunk 4``, with and without ``--prefix-cache`` (the CI's
   serving smokes' flags), for the three archs those smokes run; the prefix
   cache without ``page_block`` raises, and so does the launcher's
-  ``--mesh``, naming its slice.
+  ``--mesh`` over a data axis, naming its slice.
 """
 import numpy as np
 import pytest
@@ -367,8 +367,9 @@ def test_dense_paged_runtime_matches_reference_paged_runtime():
 def test_prefix_cache_raises_naming_its_slice():
     """The prefix cache is ported (``--prefix-cache`` serves, see
     ``test_launcher_serves_paged``) and raises only without a pool; the
-    launcher's ``--mesh`` (the one flag of a slice not yet ported) raises,
-    naming its slice, before any model is built.  ``--metrics-json`` and
+    launcher's ``--mesh`` over a data axis (the second distributed slice;
+    ``--mesh model=N`` serves, ``tests/test_torch_mesh.py``) raises,
+    naming its slice, before any process group or model is built.  ``--metrics-json`` and
     ``--profile-dir`` serve (``tests/test_torch_obs_serving.py``)."""
     from repro_torch.launch import serve
     from repro_torch.serving import ServingRuntime
@@ -379,7 +380,7 @@ def test_prefix_cache_raises_naming_its_slice():
         ServingRuntime(cfg, params, slots=2, max_len=16, prefix_cache=True,
                        device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="--mesh comes with the distributed slice"):
+                       match="comes with the second distributed slice"):
         serve.main(["--page-block", "8", "--prefix-cache", "--mesh",
                     "data=2", "--device", "cpu"])
 

@@ -1,0 +1,211 @@
+"""Rank bodies of the port's mesh tests (``tests/test_torch_distributed.py``
+and ``tests/test_torch_mesh.py``).
+
+:func:`spawn` starts one process a rank over a gloo group from a file
+store under the test's temporary directory, runs a job on every rank and
+returns each rank's results.  This module imports torch and
+``repro_torch`` only: a spawned child re-imports it, and JAX must not load
+there.  Inputs and results travel as ``torch.save`` files of tensors and
+plain Python values.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs
+from repro_torch.core import ozimmu, split_cache
+from repro_torch.core.accumulate import DF32
+from repro_torch.distributed import collectives, compat
+from repro_torch.distributed.sharding import use_rules
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import serve
+from repro_torch.models import api
+from repro_torch.serving import ServingRuntime
+
+DN = (((1,), (0,)), ((), ()))
+TIMEOUT_S = 240
+
+
+def spawn(job: str, world: int, tmp: Path, inputs=None):
+    """Run ``JOBS[job]`` on ``world`` ranks; returns the ranks' results in
+    rank order.  A rank that raises fails the call with its traceback; a
+    run past :data:`TIMEOUT_S` is killed."""
+    tmp = Path(tmp)
+    torch.save(inputs or {}, tmp / "inputs.pt")
+    ctx = torch.multiprocessing.start_processes(
+        _main, args=(job, world, str(tmp)), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"mesh job {job!r} ran past {TIMEOUT_S} s")
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+
+
+def _main(rank: int, job: str, world: int, tmp: str) -> None:
+    torch.set_num_threads(1)
+    mesh_lib.init_distributed("cpu", init_method=f"file://{tmp}/store",
+                              rank=rank, world_size=world)
+    try:
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+        out = JOBS[job](rank, inputs)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _counted(fn):
+    """``fn()`` and the collectives it ran, by function."""
+    collectives.reset_counts()
+    out = fn()
+    return out, dict(collectives.COUNTS)
+
+
+def _mm(a, b, spec, **kw):
+    return ozimmu.ozimmu_dot_general(a, b, DN, ozimmu.parse_spec(spec), **kw)
+
+
+def contractions(rank: int, x):
+    """Every case of ``tests/test_torch_distributed.py`` on a mesh of the
+    world along ``model``: the int32 sweep (with and without a frozen B
+    split, f64, the VJP), the df32 bodies, the compensated folds and the
+    2^25 cancellation case.  Rank 0 also runs each int32 case unsharded
+    (no mesh installed)."""
+    mesh = mesh_lib.parse_mesh_spec(f"model={dist.get_world_size()}")
+    out = {"int32": {}, "int32_counts": {}, "presplit": {},
+           "presplit_counts": {}, "df32": {}, "ref": {}}
+    cache = split_cache.SplitCache()
+    for spec in x["int32_specs"]:
+        a, b = x["a"], x["b"]
+        sp_ref = split_cache.presplit_rhs(b, DN, ozimmu.parse_spec(spec))
+        if rank == 0:
+            out["ref"][spec] = _mm(a, b, spec)
+            out["ref"]["presplit " + spec] = _mm(a, b, spec,
+                                                 rhs_presplit=sp_ref)
+        with compat.set_mesh(mesh):
+            out["int32"][spec], out["int32_counts"][spec] = _counted(
+                lambda: _mm(a, b, spec))
+            sp = cache.get(b, DN, ozimmu.parse_spec(spec))
+            out["presplit"][spec], out["presplit_counts"][spec] = _counted(
+                lambda: _mm(a, b, spec, rhs_presplit=sp))
+    spec = x["f64_spec"]
+    if rank == 0:
+        out["ref"]["f64"] = _mm(x["a64"], x["b64"], spec)
+    with compat.set_mesh(mesh):
+        out["f64"] = _mm(x["a64"], x["b64"], spec)
+    spec = x["vjp_spec"]
+
+    def grads(with_mesh: bool):
+        a = x["a"].clone().requires_grad_()
+        b = x["b"].clone().requires_grad_()
+        with compat.set_mesh(mesh) if with_mesh else \
+                contextlib.nullcontext():
+            ozimmu.ozimmu_matmul(a, b, ozimmu.parse_spec(spec)).backward(
+                x["g"])
+        return a.grad, b.grad
+    if rank == 0:
+        out["ref"]["vjp"] = grads(False)
+    (out["vjp"], out["vjp_counts"]) = _counted(lambda: grads(True))
+    for spec in x["df32_specs"]:
+        with compat.set_mesh(mesh):
+            out["df32"][spec] = _mm(x["a"], x["b"], spec)
+    with compat.set_mesh(mesh):
+        out["comp32"] = collectives.psum_compensated(x["part32"][rank],
+                                                     "model")
+        out["comp64"] = collectives.psum_compensated(x["part64"][rank],
+                                                     "model")
+        # hi = (-1)^r 2^25, lo = 1: a plain f32 sum of hi + lo rounds every
+        # partial back to +-2^25 and returns 0; the df32 fold keeps the 4
+        hi = torch.tensor([(-1.0) ** rank * 2.0 ** 25])
+        lo = torch.ones(1)
+        plain = hi + lo
+        dist.all_reduce(plain)
+        acc = collectives.psum_df32(DF32(hi, lo), "model")
+        out["cancel"] = (float(plain[0]), float(acc.hi[0] + acc.lo[0]))
+    return out
+
+
+def _capture_serve(argv):
+    """``serve.main(argv)`` and the runtime it served with."""
+    seen = {}
+    make = serve.make_runtime
+
+    def captured(*args, **kw):
+        seen["rt"] = make(*args, **kw)
+        return seen["rt"]
+    serve.make_runtime = captured
+    try:
+        s = serve.main(argv)
+    finally:
+        serve.make_runtime = make
+    return s, seen["rt"]
+
+
+def serving(rank: int, x):
+    """``serve.main`` single-device and with ``--mesh model=2``; the
+    paged + chunked + prefix-cached runtime against the monolithic one
+    under the mesh; and what the mesh does not serve yet (an axis other
+    than ``model``, the MoE all-to-all over a data axis)."""
+    out = {}
+    toks = lambda rt: [list(r.generated) for r in
+                       sorted(rt.sched.finished, key=lambda r: r.rid)]
+    s, rt = _capture_serve(x["argv"])
+    out["single"] = toks(rt)
+    s, rt = _capture_serve(x["argv"] + ["--mesh", "model=2"])
+    out["mesh"] = toks(rt)
+    out["mesh_summary"] = {"finished": s["requests"]["finished"],
+                           "hit_rate":
+                           s["split_cache"]["weight_split_hit_rate"]}
+    try:
+        serve.main(x["argv"] + ["--mesh", "data=2"])
+    except NotImplementedError as e:
+        out["data_axis"] = str(e)
+
+    arch, spec = "internlm2_1_8b", x["spec"]
+    cfg = configs.get_config(arch, smoke=True, engine_spec=spec)
+    mesh = mesh_lib.parse_mesh_spec("model=2")
+    gen = torch.Generator().manual_seed(0)
+    params = api.get_model(cfg).init(cfg, generator=gen, device="cpu")
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab, size=9, dtype=np.int32)
+    waves = [[np.concatenate([prefix, rng.integers(0, cfg.vocab, size=2,
+                                                   dtype=np.int32)])
+              for _ in range(3)] for _ in range(2)]
+    with compat.set_mesh(mesh), use_rules(mesh_lib.mesh_rules(mesh, arch)):
+        cold = ServingRuntime(cfg, params, slots=2, max_len=32,
+                              device="cpu")
+        out["mono"] = [[o.tolist() for o in cold.generate(
+            [p.copy() for p in w], 3)] for w in waves]
+        collectives.reset_counts()
+        rt = ServingRuntime(cfg, params, slots=2, max_len=32, page_block=4,
+                            prefill_chunk=3, prefix_cache=True,
+                            device="cpu")
+        out["paged"] = [[o.tolist() for o in rt.generate(
+            [p.copy() for p in w], 3)] for w in waves]
+        out["paged_counts"] = dict(collectives.COUNTS)
+        out["prefix"] = {"hits": rt.prefix.stats.hits,
+                         "hit_tokens": rt.prefix.stats.hit_tokens,
+                         "key_mesh": rt.prefix.key0[-1]}
+        out["split_key_mesh"] = split_cache._mesh_key()
+
+    moe = configs.get_config("deepseek_moe_16b", smoke=True,
+                             engine_spec=spec)
+    from repro_torch.models import moe as moe_mod
+    with compat.set_mesh(mesh_lib.parse_mesh_spec("data=2")):
+        try:
+            moe_mod.moe_ffn_a2a({}, moe, torch.zeros(1, 2, moe.d_model))
+        except NotImplementedError as e:
+            out["moe_a2a"] = str(e)
+    return out
+
+
+JOBS = {"contractions": contractions, "serving": serving}
