@@ -228,6 +228,20 @@ Phases (each raises on failure, so any failure exits non-zero):
    epilogues) and the collectives a model step exact (265 maxima, 217
    int32 sums); ms a model step untraced and the collectives' host share
    from rank 0's trace.
+13. Train mesh (``train_mesh``, :func:`phase_train_mesh`), last: the data
+   axis of training.  internlm2-1.8b at its published width, cut in depth
+   so that two ranks fit the card (``train_depth`` with ``ranks=2``); the
+   single-device step on the whole batch of 8 in this process (the
+   witness), freed; then two ranks on ``cuda:0`` over gloo run
+   ``launch.train.main`` with ``--mesh data=2`` (4 rows a rank, 3 steps):
+   step 0's loss within 1e-5 and the averaged gradients of ``embed``,
+   ``lm_head`` and the first and last layers' ``wq`` and ``w_down``
+   within 1e-3 of max|g| of the witness's, bitwise equal on both ranks;
+   the parameters bitwise equal on both ranks after every step; a rank's
+   launches a step exactly ``train_step_launches`` at 4 rows; its
+   collectives a step one f32 SUM a gradient leaf and one for the loss,
+   one ZeRO-1 ``all_gather`` a leaf; ms a step, the gradient mean's and
+   the gathers' host ms and the peak a rank logged.
 
 The launch counts of phases 3-8 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
@@ -3730,12 +3744,20 @@ TRAIN_ALLOCATOR_RESERVE = 8.3e9
 TRAIN_WITNESS_MAX = 1.5e9
 
 
-def train_memory(cfg) -> tuple:
+# ZeRO-1 over the data ranks splits AdamW's two moments and their
+# functional update's new copies: 4 f32 tensors, 16 bytes a parameter
+TRAIN_ZERO_BYTES = 16.0
+
+
+def train_memory(cfg, ranks: int = 1) -> tuple:
     """``(predicted peak bytes, f32 parameters)`` of a train phase on
     ``cfg`` at ``TRAIN`` batch and seq: :data:`TRAIN_BYTES_A_PARAM` a
-    parameter of the tree built on the meta device,
-    :data:`TRAIN_TIED_BYTES` an element of a tied head's ``embed``, and
-    ``DEPTH_HEADROOM``."""
+    parameter of the tree built on the meta device, less the share of
+    :data:`TRAIN_ZERO_BYTES` that ZeRO-1 over ``ranks`` data ranks moves
+    to the other ranks, :data:`TRAIN_TIED_BYTES` an element of a tied
+    head's ``embed``, and ``DEPTH_HEADROOM``: a rank's peak.  The
+    activations are counted at the whole batch even when a rank holds a
+    share of it."""
     import torch
     from repro_torch.models import api
     from repro_torch.models.common import param_count
@@ -3743,18 +3765,19 @@ def train_memory(cfg) -> tuple:
                                    device="meta")
     n = param_count(tree)
     tied = 0 if "lm_head" in tree else tree["embed"].numel()
-    return int(TRAIN_BYTES_A_PARAM * n + TRAIN_TIED_BYTES * tied +
-               DEPTH_HEADROOM), n
+    per = TRAIN_BYTES_A_PARAM - TRAIN_ZERO_BYTES * (1 - 1 / ranks)
+    return int(per * n + TRAIN_TIED_BYTES * tied + DEPTH_HEADROOM), n
 
 
-def train_depth(cfg, free_bytes: int):
+def train_depth(cfg, free_bytes: int, ranks: int = 1):
     """``(cfg, predicted peak, why)``: the published depth if its
     predicted peak (:func:`train_memory`) and
-    :data:`TRAIN_ALLOCATOR_RESERVE` fit ``free_bytes``, else the most
-    whole units that fit, each cut with remat blocks that divide it:
-    layers (moe, mla_moe, ssm), both stacks together (encdec), the vlm's
-    groups of ``cross_every`` layers, the hybrid's pattern blocks with the
-    tail cut first."""
+    :data:`TRAIN_ALLOCATOR_RESERVE` fit ``free_bytes`` (its share
+    ``free_bytes / ranks`` when ``ranks`` data ranks share the card, each
+    with ZeRO-1), else the most whole units that fit, each cut with remat
+    blocks that divide it: layers (moe, mla_moe, ssm), both stacks
+    together (encdec), the vlm's groups of ``cross_every`` layers, the
+    hybrid's pattern blocks with the tail cut first."""
     import math
     fam = cfg.family
 
@@ -3778,22 +3801,27 @@ def train_depth(cfg, free_bytes: int):
         nb, what = cfg.n_layers, "layers"
         cands = [cfg.with_(n_layers=k, remat_block=rb(k))
                  for k in range(nb, 0, -1)]
-    room = free_bytes - TRAIN_ALLOCATOR_RESERVE
-    peak = train_memory(cfg)[0]
+    share = free_bytes / ranks
+    room = share - TRAIN_ALLOCATOR_RESERVE
+    peak = train_memory(cfg, ranks)[0]
     if peak <= room:
         return cfg, peak, "depth not cut"
+    where = (f"the {free_bytes / 1e9:.1f} GB free" if ranks == 1 else
+             f"a rank's {share / 1e9:.1f} GB of the {free_bytes / 1e9:.1f} "
+             f"GB free ({ranks} ranks on the card)")
+    per = TRAIN_BYTES_A_PARAM - TRAIN_ZERO_BYTES * (1 - 1 / ranks)
+    zero = "" if ranks == 1 else (f", ZeRO-1 over {ranks} ranks sparing "
+                                  f"{TRAIN_BYTES_A_PARAM - per:g}")
     for k, c in zip(range(nb, 0, -1), cands):
-        pk, n = train_memory(c)
+        pk, n = train_memory(c, ranks)
         if pk <= room:
             return c, pk, (f"depth cut {nb} -> {k} {what}: the published "
                            f"depth's predicted peak {peak / 1e9:.1f} GB "
-                           f"exceeds the {free_bytes / 1e9:.1f} GB free "
-                           f"less the allocator's "
+                           f"exceeds {where} less the allocator's "
                            f"{TRAIN_ALLOCATOR_RESERVE / 1e9:.1f} GB; "
-                           f"{n / 1e9:.3f} B parameters at "
-                           f"{TRAIN_BYTES_A_PARAM:g} B a parameter (+ "
-                           f"{TRAIN_TIED_BYTES:g} an element of a tied "
-                           f"embedding)")
+                           f"{n / 1e9:.3f} B parameters at {per:g} B a "
+                           f"parameter{zero} (+ {TRAIN_TIED_BYTES:g} an "
+                           f"element of a tied embedding)")
     raise AssertionError(f"{cfg.name}: not one unit of {what} fits "
                          f"{room / 1e9:.1f} GB")
 
@@ -4496,6 +4524,319 @@ def phase_mesh(dev, card):
     return {k: ranks[0]["serve"]["launches"].get(k, 0) for k in LAUNCHES}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: train_mesh (the data axis of training, two ranks on the one card)
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_STEPS = 3
+# launch.train's flags: internlm2-1.8b at its published width (the depth
+# cut by patching the rank's config registry), global batch 8 x seq 256
+# split over data=2
+TRAIN_MESH_FLAGS = ["--arch", "internlm2_1_8b", "--full", "--mesh",
+                    f"data={MESH_WORLD}", "--engine", MODEL_SPEC, "--batch",
+                    str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+                    "--steps", str(TRAIN_MESH_STEPS), "--log-every", "1",
+                    "--device", MESH_DEVICE]
+# the leaves whose averaged step-0 gradients are held to the witness's
+# (the stacked layer leaves at their first and last layer)
+TRAIN_MESH_LEAVES = ("embed", "layers/attn/wq", "layers/mlp/w_down",
+                     "lm_head")
+
+
+def _mesh_grads(grads) -> dict:
+    """The named gradients of :data:`TRAIN_MESH_LEAVES`, stacked layer
+    leaves split into their first and last layer."""
+    from repro_torch import tree
+    named = dict(zip(_leaf_paths(grads), tree.leaves(grads)))
+    out = {}
+    for name in TRAIN_MESH_LEAVES:
+        g = named[name]
+        if name.startswith("layers/"):
+            out[f"{name}[0]"], out[f"{name}[-1]"] = g[0], g[-1]
+        else:
+            out[name] = g
+    return out
+
+
+def _bit_sums(tensors) -> list:
+    """Two checksums of each f32 tensor's bit patterns (the int32 words
+    summed whole and at odd positions, in int64): equal bits give equal
+    sums."""
+    import torch
+    out = []
+    for t in tensors:
+        w = t.detach().reshape(-1).view(torch.int32)
+        out.append([int(w.sum()), int(w[1::2].sum())])
+    return out
+
+
+def _train_mesh_rank(rank: int, tmp: str, layers: int, remat: int) -> None:
+    """One rank of the train_mesh phase: the gloo group from the file
+    store, ``launch.train.main(TRAIN_MESH_FLAGS)`` with the config registry
+    patched to ``layers`` layers in remat blocks of ``remat``, each step
+    recorded (ms, launches, collectives, the gradient mean's and the
+    gathers' host ms, the parameters' bit sums), rank 0's averaged step-0
+    gradients of :data:`TRAIN_MESH_LEAVES` saved; the record to
+    ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, tree
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    torch.set_num_threads(4)
+    dev = mesh_lib.init_distributed(MESH_DEVICE,
+                                    init_method=f"file://{tmp}/store",
+                                    rank=rank, world_size=MESH_WORLD)
+    get, make = configs.get_config, S.make_train_step
+    mean, gather = S.batch_mean, collectives.all_gather_cat
+    steps, cur = [], {}
+
+    def cut(*args, **kw):
+        return get(*args, **kw).with_(n_layers=layers, remat_block=remat)
+
+    def sync_ms(fn, key):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            cur[key] = cur.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return timed
+
+    timed_mean = sync_ms(mean, "mean_ms")
+
+    def mean_recorded(loss, grads):
+        loss, grads = timed_mean(loss, grads)
+        if not steps:
+            named = _mesh_grads(grads)
+            cur["grad_sums"] = _bit_sums(named.values())
+            if rank == 0:
+                torch.save({k: g.cpu() for k, g in named.items()},
+                           Path(tmp, "grads0.pt"))
+        return loss, grads
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def recorded(state, batch):
+            cur.clear()
+            launches0, counts0 = dict(LAUNCHES), dict(collectives.COUNTS)
+            data0 = dict(collectives.DATA_COUNTS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            leaves = tree.leaves(state.params)
+            steps.append(dict(
+                cur, ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                rows=int(batch["tokens"].shape[0]),
+                launches={k: LAUNCHES[k] - launches0.get(k, 0)
+                          for k in LAUNCHES},
+                collectives={k: collectives.COUNTS[k] - counts0[k]
+                             for k in counts0},
+                data={k: collectives.DATA_COUNTS[k] - data0[k]
+                      for k in data0},
+                devices=sorted({str(p.device) for p in leaves} |
+                               {str(batch["tokens"].device)}),
+                param_sums=_bit_sums(leaves)))
+            return state, metrics
+        return recorded
+
+    configs.get_config = cut
+    S.make_train_step, S.batch_mean = recording, mean_recorded
+    collectives.all_gather_cat = sync_ms(gather, "gather_ms")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        collectives.reset_counts()
+        losses = train.main(TRAIN_MESH_FLAGS)
+        torch.cuda.synchronize()
+        out = dict(device=str(dev), backend=dist.get_backend(),
+                   losses=losses, steps=steps,
+                   launches={k: v for k, v in LAUNCHES.items()},
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        configs.get_config, S.make_train_step = get, make
+        S.batch_mean, collectives.all_gather_cat = mean, gather
+        dist.destroy_process_group()
+
+
+def phase_train_mesh(dev, card):
+    """Phase 13 (``train_mesh``): the data axis of training.  internlm2-1.8b
+    at its published width, cut in depth so that two ranks fit the card
+    (:func:`train_depth` with ``ranks=2``: half the free memory a rank,
+    ZeRO-1 sparing half of AdamW's moments and their new copies), under
+    ``MODEL_SPEC``, random weights from the seed, the synthetic pipeline
+    at global batch 8 x seq 256.
+
+    1. The witness, in this process: the single-device step on the whole
+       batch of 8 at the same depth from the same seed (its loss and
+       gradients, then two steps of ``make_train_step``, the second
+       timed); freed before the ranks start.
+    2. Two ranks, one process each, on ``cuda:0`` over gloo:
+       ``launch.train.main`` with ``--mesh data=2`` for
+       :data:`TRAIN_MESH_STEPS` steps (4 rows a rank).  Held: step 0's
+       loss on both ranks within 1e-5 of the witness's; the averaged
+       gradients of :data:`TRAIN_MESH_LEAVES` within 1e-3 of the
+       witness's max|g| (not bitwise: a weight cotangent contracts over
+       the tokens, and its split scales follow the rows a rank holds),
+       bitwise equal on both ranks; the parameters bitwise equal on both
+       ranks after every step (two checksums of the bit patterns a leaf);
+       a rank's launches a step exactly :func:`train_step_launches` at 4
+       rows; its collectives a step exactly one f32 SUM a gradient leaf
+       and one for the loss and one ``all_gather`` a ZeRO-1 leaf, no
+       contraction collective; finite losses, equal on both ranks; every
+       parameter and batch on ``cuda:0``.  Logged: ms a step against the
+       witness's, the gradient mean's and the gathers' host ms a step,
+       the peak device memory a rank.  Returns rank 0's launches."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.data import Pipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import data_config, device_batch
+    from repro_torch.models import api
+    tag = "train_mesh"
+    B, L, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN_MESH_STEPS
+    rows = B // MESH_WORLD
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    full = configs.get_config("internlm2_1_8b", engine_spec=MODEL_SPEC)
+    cfg, predicted, why = train_depth(full, free, ranks=MESH_WORLD)
+    per_step, n_contr = train_step_launches(cfg, rows, L)
+    log(f"[{tag}] {card}: {cfg.name}: {why}; {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, remat blocks of "
+        f"{cfg.remat_block}; global batch {B} x seq {L}, {rows} rows a "
+        f"rank on {MESH_WORLD} ranks; predicted peak "
+        f"{predicted / 1e9:.1f} GB a rank; {n_contr} emulated "
+        f"contractions a rank a step")
+
+    # 1. the witness on one device
+    opt_cfg = optim.OptConfig(lr=3e-3,            # the launcher's rule
+                              warmup_steps=min(20, n_steps // 5 + 1),
+                              total_steps=n_steps)
+    state = S.init_state(cfg, opt_cfg,
+                         torch.Generator(device=dev).manual_seed(SEED), dev)
+    pipe = Pipeline(data_config(cfg, seq_len=L, global_batch=B, seed=SEED))
+    batch = device_batch(pipe.batch_at(0), dev)
+    loss, grads = S.loss_and_grads(cfg, state.params, batch)
+    w_loss = float(loss)
+    witness = {k: g.cpu() for k, g in _mesh_grads(grads).items()}
+    del loss, grads
+    step_fn = S.make_train_step(cfg, opt_cfg)
+    state, _ = step_fn(state, batch)
+    batch = device_batch(pipe.batch_at(1), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    w_ms = (time.perf_counter() - t0) * 1e3
+    del state, metrics, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] witness (one device, batch {B}): step-0 loss "
+        f"{w_loss:.6f}; a step {w_ms:.1f} ms (step 1); this process keeps "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+    # 2. the ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            _train_mesh_rank, args=(tmp, cfg.n_layers, cfg.remat_block),
+            nprocs=MESH_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"{tag}: the ranks ran past "
+                                     f"{MESH_TIMEOUT_S} s")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        mine = torch.load(Path(tmp, "grads0.pt"))
+    log(f"[{tag}] {MESH_WORLD} ranks on {ranks[0]['device']} over "
+        f"{ranks[0]['backend']}, {time.perf_counter() - t0:.1f} s with "
+        f"their start")
+
+    dims = optim.zero_axes(api.get_model(cfg).init(
+        cfg, generator=torch.Generator(), device="meta"), MESH_WORLD)
+    want_data = {"pmean": len(dims) + 1,
+                 "all_gather_cat": sum(d is not None for d in dims)}
+    want_dev = "cuda:0" if MESH_DEVICE == "cuda" else MESH_DEVICE
+    bad = []
+    for r, out in enumerate(ranks):
+        st = out["steps"]
+        if len(st) != n_steps or len(out["losses"]) != n_steps:
+            bad.append(f"rank {r} ran {len(st)} steps")
+            continue
+        devs = {d for s_ in st for d in s_["devices"]}
+        if devs != {want_dev} or not want_dev.startswith(out["device"]):
+            bad.append(f"rank {r} ran on {out['device']} / {sorted(devs)}")
+        if not all(math.isfinite(x) for x in out["losses"]) or \
+                out["losses"] != ranks[0]["losses"]:
+            bad.append(f"rank {r} losses {out['losses']}")
+        dloss = abs(out["losses"][0] - w_loss)
+        if not dloss <= 1e-5:
+            bad.append(f"rank {r} step-0 loss off the witness's by "
+                       f"{dloss:.3e}")
+        for i, s_ in enumerate(st):
+            got = {k: s_["launches"].get(k, 0) for k in per_step}
+            coll = {k: v for k, v in s_["collectives"].items() if v}
+            if s_["rows"] != rows or got != per_step or coll or \
+                    s_["data"] != want_data:
+                bad.append(f"rank {r} step {i}: {s_['rows']} rows, "
+                           f"launches {got} (expected {per_step}), "
+                           f"data-axis collectives {s_['data']} (expected "
+                           f"{want_data}), contraction collectives {coll}")
+            if s_["param_sums"] != ranks[0]["steps"][i]["param_sums"]:
+                bad.append(f"rank {r} step {i}: parameters differ from "
+                           f"rank 0's")
+        if st[0]["grad_sums"] != ranks[0]["steps"][0]["grad_sums"]:
+            bad.append(f"rank {r}: averaged gradients differ from rank 0's")
+    per_leaf = {}
+    for name, w in witness.items():
+        g = mine[name].to(dev)
+        w = w.to(dev)
+        per_leaf[name] = float((g - w).abs().max() / w.abs().max())
+        del g, w
+        if not per_leaf[name] <= 1e-3:
+            bad.append(f"gradient {name} off the witness's by "
+                       f"{per_leaf[name]:.3e} of its max|g|")
+    del mine, witness
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+    log(f"[{tag}] both ranks: losses {ranks[0]['losses']} (step 0 within "
+        f"{abs(ranks[0]['losses'][0] - w_loss):.3e} of the witness's); "
+        f"averaged step-0 gradients bitwise equal on both ranks, "
+        f"max|diff| / max|g| against the witness's: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in per_leaf.items())
+        + f"; parameters bitwise equal on both ranks after each of "
+        f"{n_steps} steps (bit-pattern checksums); launches a step "
+        f"{per_step}; collectives a step {want_data}")
+    for r, out in enumerate(ranks):
+        st = out["steps"]
+        later = st[1:]
+        mean_ms = sum(s_["ms"] for s_ in later) / len(later)
+        log(f"[{tag}] {card}: rank {r}: ms a step "
+            f"{[round(s_['ms'], 1) for s_ in st]} (steps 1-{n_steps - 1} "
+            f"{mean_ms:.1f} ms against the witness's {w_ms:.1f}); the "
+            f"gradient mean (host, synchronized) "
+            f"{[round(s_['mean_ms'], 1) for s_ in st]} ms, the ZeRO-1 "
+            f"gathers {[round(s_['gather_ms'], 1) for s_ in st]} ms a "
+            f"step; peak device memory {out['peak_gb']:.2f} GB "
+            f"(predicted {predicted / 1e9:.1f})")
+    return {k: v for k, v in ranks[0]["launches"].items()}
+
+
 def _leaf_paths(tree, prefix=""):
     """The paths of a nested dict's leaves, in flatten order."""
     if isinstance(tree, dict):
@@ -4594,6 +4935,8 @@ def main() -> int:
     lap("serve_ssm, serve_hybrid, serve_encdec, serve_vlm")
     paths["mesh"] = phase_mesh(dev, card)
     lap("mesh")
+    paths["train_mesh"] = phase_train_mesh(dev, card)
+    lap("train_mesh")
 
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -17,16 +17,25 @@ would throw away the accuracy the scheme paid for, so:
     precision accumulators (``partial=True``) gathered and folded in rank
     order with TwoSum, so every rank computes the same bits.
 
-Each takes the axis name of the installed mesh
+The data axis of training adds two more:
+
+  * :func:`pmean` — the loss and the gradients of the ranks' shares of a
+    batch, summed in f32 across the ``batch`` rule's axes and divided by
+    their size, so every rank holds the same bits.
+  * :func:`all_gather_cat` — the ZeRO-1 update's parameter slices,
+    gathered and concatenated back into whole parameters.
+
+Each takes the axis name(s) of the installed mesh
 (:func:`repro_torch.distributed.compat.set_mesh`) and runs one collective
-on that axis's process group, under a ``ozimmu/mesh/<name>`` phase scope;
-:data:`COUNTS` counts the collectives by function.  On a gloo group a CUDA
+on each axis's process group, under a ``ozimmu/mesh/<name>`` phase scope;
+:data:`COUNTS` counts the contraction collectives by function and
+:data:`DATA_COUNTS` the data axis's.  On a gloo group a CUDA
 tensor is staged through pinned host memory by gloo itself; a failed
 collective raises.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -37,15 +46,22 @@ from repro_torch.distributed import compat
 from repro_torch.obs import tracing as _tracing
 
 __all__ = ["psum_exact_int32", "psum_df32", "psum_compensated",
-           "pmax_scales", "COUNTS", "reset_counts"]
+           "pmax_scales", "pmean", "all_gather_cat", "COUNTS",
+           "DATA_COUNTS", "reset_counts"]
 
 COUNTS: Dict[str, int] = {"pmax_scales": 0, "psum_exact_int32": 0,
                           "psum_df32": 0, "psum_compensated": 0}
+DATA_COUNTS: Dict[str, int] = {"pmean": 0, "all_gather_cat": 0}
 
 
 def reset_counts() -> None:
-    for name in COUNTS:
-        COUNTS[name] = 0
+    for counts in (COUNTS, DATA_COUNTS):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str) -> None:
+    (COUNTS if name in COUNTS else DATA_COUNTS)[name] += 1
 
 
 def _group(axis_name: str):
@@ -68,7 +84,7 @@ def _all_reduce(x: torch.Tensor, op, axis_name: str,
         return x
     out = x.contiguous()
     with _tracing.phase_scope(f"mesh/{name}"):
-        COUNTS[name] += 1
+        _count(name)
         dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -82,7 +98,7 @@ def _all_gather(x: torch.Tensor, axis_name: str, name: str
         return [x]
     parts = [torch.empty_like(x) for _ in range(size)]
     with _tracing.phase_scope(f"mesh/{name}"):
-        COUNTS[name] += 1
+        _count(name)
         dist.all_gather(parts, x, group=group)
     return parts
 
@@ -141,3 +157,29 @@ def psum_compensated(x: torch.Tensor, axis_name: str) -> torch.Tensor:
         s, err = _two_sum(s, part)
         e = ftz(e + err)
     return ftz(s + e)
+
+
+def pmean(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The mean of ``x`` across the ranks of ``axes`` (the data-parallel
+    axes, :func:`repro_torch.distributed.sharding.rule_axes`): an f32 SUM
+    on each axis's group in turn, then one division by their product.
+    Every rank gets the same bits (an all-reduce hands each rank the one
+    reduced value).  ``x`` is overwritten when it is f32 and contiguous."""
+    out = x.to(torch.float32)
+    size = 1
+    for axis in axes:
+        out = _all_reduce(out, dist.ReduceOp.SUM, axis, "pmean")
+        size *= _group(axis)[1]
+    return out / size if size > 1 else out
+
+
+def all_gather_cat(x: torch.Tensor, dim: int,
+                   axes: Sequence[str]) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes``, concatenated on ``dim`` in the
+    ranks' row-major order over ``axes`` (the first axis outermost): the
+    innermost axis is gathered first, so each later gather joins whole
+    blocks.  Undoes a split of ``dim`` into that many equal slices."""
+    for axis in reversed(tuple(axes)):
+        parts = _all_gather(x, axis, "all_gather_cat")
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return x

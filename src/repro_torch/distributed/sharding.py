@@ -10,8 +10,11 @@ name or a tuple of names), equal to ``tuple(PartitionSpec(...))``.
 
 The reference's ``shard()`` layout hint (a ``with_sharding_constraint``
 on an activation) has no counterpart: the port's models carry no layout
-hints (``models/layers.py``), and its mesh shards only the emulated
-contractions (``@axis`` engine specs), every rank holding whole operands.
+hints (``models/layers.py``), and its mesh shards the emulated
+contractions (``@axis`` engine specs), every rank holding whole operands,
+and the training data axis.  :func:`rule_axes` reads which mesh axes a
+rule spans on the live mesh: ``batch`` the ranks a training batch is split
+over, ``zero`` those the ZeRO-1 optimizer state is split over.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import threading
 from typing import Optional, Sequence, Tuple
 
 __all__ = ["SINGLE_POD_RULES", "MULTI_POD_RULES", "use_rules", "get_rules",
-           "logical_to_pspec", "spec_tree"]
+           "logical_to_pspec", "spec_tree", "rule_axes"]
 
 Rules = dict  # logical axis name -> mesh axis | tuple | None
 
@@ -114,3 +117,24 @@ def spec_tree(axes_tree, rules: Optional[Rules] = None):
     if isinstance(axes_tree, (list, tuple)):
         return type(axes_tree)(spec_tree(v, rules) for v in axes_tree)
     return axes_tree
+
+
+def rule_axes(name: str) -> Tuple[Tuple[str, ...], int, int]:
+    """``(axes, size, index)``: the installed mesh's axes of more than one
+    rank that the active rule ``name`` maps to, in mesh order as the rule
+    names them, their product, and this rank's row-major index over them
+    (the first axis outermost).  ``((), 1, 0)`` without a mesh, without
+    rules, or when no such axis has more than one rank."""
+    from repro_torch.distributed import compat
+    mesh = compat.get_abstract_mesh()
+    entry = (get_rules() or {}).get(name)
+    if mesh.empty or not entry:
+        return (), 1, 0
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    axes = tuple(a for a in names
+                 if a in mesh.axis_names and mesh.shape[a] > 1)
+    size, index = 1, 0
+    for a in axes:
+        size *= mesh.shape[a]
+        index = index * mesh.shape[a] + mesh.index(a)
+    return axes, size, index

@@ -13,9 +13,10 @@ built by functions, never at import: building one is collective.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
-from typing import Dict, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -24,7 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.distributed.compat import Mesh, world
 
 __all__ = ["make_production_mesh", "make_test_mesh", "parse_mesh_spec",
-           "spec_axes", "mesh_rules", "init_distributed"]
+           "spec_axes", "mesh_rules", "init_distributed", "process_group"]
 
 _PRESETS = {"single_pod": {"data": 16, "model": 16},
             "multi_pod": {"pod": 2, "data": 16, "model": 16}}
@@ -140,3 +141,23 @@ def init_distributed(device: Optional[Union[str, torch.device]] = None, *,
     elif device.type == "cuda" and dist.get_backend() == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@contextlib.contextmanager
+def process_group(spec: Optional[str],
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> Iterator[torch.device]:
+    """A launcher's rank device for the block: with a mesh ``spec``, the
+    default process group too (:func:`init_distributed`), destroyed on
+    exit if this block started it; without one, :func:`resolve_device`."""
+    if not spec:
+        yield resolve_device(device)
+        return
+    started = not dist.is_initialized()
+    device = init_distributed(device)
+    started = started and dist.is_initialized()
+    try:
+        yield device
+    finally:
+        if started:
+            dist.destroy_process_group()

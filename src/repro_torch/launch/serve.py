@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs
 from repro_torch.core import plan
 from repro_torch.distributed import compat
 from repro_torch.distributed.sharding import use_rules
@@ -155,7 +155,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     n_requests = args.requests if args.requests is not None else args.slots
-    started = False
     if args.mesh:
         other = [a for a, n in mesh_lib.spec_axes(args.mesh).items()
                  if a != "model" and n > 1]
@@ -165,12 +164,7 @@ def main(argv=None):
                 f"batch comes with the second distributed slice of the "
                 f"port (2b); this one shards contractions over 'model' "
                 f"only")
-        started = not dist.is_initialized()
-        device = mesh_lib.init_distributed(args.device)
-        started = started and dist.is_initialized()
-    else:
-        device = resolve_device(args.device)
-    try:
+    with mesh_lib.process_group(args.mesh, args.device) as device:
         mesh = mesh_lib.parse_mesh_spec(args.mesh)
         if mesh is not None and mesh.rank == 0:
             backend = dist.get_backend() if dist.is_initialized() \
@@ -184,9 +178,6 @@ def main(argv=None):
                     mesh, args.arch)))
             return _serve(args, n_requests, device,
                           lead=mesh is None or mesh.rank == 0)
-    finally:
-        if started:
-            dist.destroy_process_group()
 
 
 def _serve(args, n_requests: int, device, lead: bool):

@@ -16,23 +16,38 @@ reference wrote restores as well) and checkpoints every ``--ckpt-every``
 steps and at the end.  Under an ozimmu engine every contraction of the
 forward, of the remat recompute and of the backward runs emulated
 (``:fused``: through the split, group-GEMM and epilogue kernels).
-``--mesh`` keeps the reference's flag and raises: the sharded trainer
-(the batch over ``data``, ZeRO-1, gradient compression) is the second
-distributed slice of the port (2b).
+
+``--mesh data=2`` (or ``model=N``, or both) trains on one process a rank,
+started by torchrun (``torch.distributed``; gloo when the ranks share a
+card or run on the CPU):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --steps 4 --batch 4 --seq 16 --mesh data=2 --device cpu
+
+Each ``data`` rank reads its rows of the global batch, the loss and the
+gradients are averaged over ``data``, the AdamW state is split over it
+(ZeRO-1) and the checkpoint gathers it whole (rank 0 writes, and a
+checkpoint restores onto another mesh); the ranks of a ``model`` line
+shard the contractions of an ``@model`` engine.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch import configs, optim, resolve_device
+from repro_torch import configs, optim
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import plan
 from repro_torch.data import DataConfig, Pipeline
+from repro_torch.distributed import compat
+from repro_torch.distributed.sharding import rule_axes, use_rules
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as S
 from repro_torch.models.common import ModelConfig
 from repro_torch.obs import tracing
@@ -70,13 +85,33 @@ def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
           on_step: Optional[Callable] = None):
     """Train ``arch`` for steps ``[start, n_steps)``; returns ``(state,
     losses)``.  ``on_step(step, metrics, seconds)`` sees every step's
-    metrics (floats) and wall seconds (the loss read back included)."""
-    if mesh is not None:
-        raise NotImplementedError("train --mesh comes with the second "
-                                  "distributed slice of the port (2b: the "
-                                  "batch split, ZeRO-1, gradient "
-                                  "compression)")
-    device = resolve_device(device)
+    metrics (floats) and wall seconds (the loss read back included).
+    ``mesh``, a mesh spec (``"data=2"``), trains on the ranks of the
+    default process group, which it starts (and ends) from torchrun's
+    environment unless one is running; the state it returns holds this
+    rank's ZeRO-1 slices."""
+    with mesh_lib.process_group(mesh, device) as device, \
+            contextlib.ExitStack() as stack:
+        mesh = mesh_lib.parse_mesh_spec(mesh)
+        if mesh is not None:
+            stack.enter_context(compat.set_mesh(mesh))
+            stack.enter_context(use_rules(mesh_lib.mesh_rules(mesh, arch)))
+        return _train(arch, smoke=smoke, n_steps=n_steps,
+                      global_batch=global_batch, seq_len=seq_len,
+                      ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                      microbatches=microbatches, engine=engine, mesh=mesh,
+                      seed=seed, log_every=log_every, lr=lr,
+                      profile_dir=profile_dir, device=device,
+                      print_fn=print_fn, on_step=on_step)
+
+
+def _train(arch, *, smoke, n_steps, global_batch, seq_len, ckpt_dir,
+           ckpt_every, microbatches, engine, mesh, seed, log_every, lr,
+           profile_dir, device, print_fn, on_step):
+    """:func:`train` on ``device`` under the installed ``mesh`` (or
+    none).  Only rank 0 prints."""
+    if mesh is not None and mesh.rank != 0:
+        print_fn = lambda *a, **kw: None
     cfg = configs.get_config(arch, smoke=smoke, engine_spec=engine)
     oz_cfg = cfg.engine.ozimmu_config
     if oz_cfg is not None:
@@ -86,17 +121,28 @@ def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
     opt_cfg = optim.OptConfig(lr=lr, warmup_steps=min(20, n_steps // 5 + 1),
                               total_steps=n_steps)
     tcfg = S.TrainConfig(microbatches=microbatches)
+    _, hosts, host = rule_axes("batch")
     pipe = Pipeline(data_config(cfg, seq_len=seq_len,
-                                global_batch=global_batch, seed=seed))
+                                global_batch=global_batch, seed=seed),
+                    host_id=host, num_hosts=hosts)
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    if mesh is not None:
+        backend = dist.get_backend() if dist.is_initialized() \
+            else "one process"
+        print_fn(f"[train] mesh {mesh.shape} over {compat.world()[1]} "
+                 f"ranks ({backend}, {device}): {global_batch // hosts} "
+                 f"rows of a batch a rank; rank 0 prints")
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    state = S.init_state(cfg, opt_cfg, gen, device)
+    zero = mesh.shape.get("data", 1) if mesh is not None else 1
+    state = S.init_state(cfg, opt_cfg, gen, device, zero_divisor=zero)
+    opt_axes = S.state_axes(state.params, zero)
+    shardings = S.state_shardings(state, opt_axes)
     start_step = 0
     if ckpt and ckpt.latest_step() is not None:
-        state, start_step = ckpt.restore(state)
+        state, start_step = ckpt.restore(state, shardings=shardings)
         print_fn(f"[train] resumed from step {start_step}")
-    train_step = S.make_train_step(cfg, opt_cfg, tcfg)
+    train_step = S.make_train_step(cfg, opt_cfg, tcfg, opt_axes=opt_axes)
 
     losses = []
     t0 = time.time()
@@ -122,9 +168,9 @@ def train(arch: str, *, smoke: bool = True, n_steps: int = 100,
                          f"{dt * 1e3:.0f} ms/step")
                 t0 = time.time()
             if ckpt and (step + 1) % ckpt_every == 0:
-                ckpt.save(step + 1, state)
+                ckpt.save(step + 1, state, shardings=shardings)
     if ckpt:
-        ckpt.save(n_steps, state, blocking=True)
+        ckpt.save(n_steps, state, blocking=True, shardings=shardings)
     return state, losses
 
 
@@ -142,7 +188,11 @@ def main(argv=None):
                     help="matmul engine spec, e.g. bf16, f32 or "
                          "ozimmu_h-4:df32:fused")
     ap.add_argument("--mesh", default=None,
-                    help="(comes with the second distributed slice, 2b)")
+                    help="mesh spec, e.g. 'data=2' (the batch split, the "
+                         "gradient mean and ZeRO-1 over that many ranks), "
+                         "'model=2' (an '@model' engine's contractions) "
+                         "or 'data=2,model=2'; one process a rank "
+                         "(torchrun); default no mesh (single device)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-3)
@@ -154,16 +204,20 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    _, losses = train(args.arch, smoke=args.smoke, n_steps=args.steps,
-                      global_batch=args.batch, seq_len=args.seq,
-                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                      microbatches=args.microbatches, engine=args.engine,
-                      mesh=args.mesh, seed=args.seed,
-                      log_every=args.log_every, lr=args.lr,
-                      profile_dir=args.profile_dir, device=args.device)
-    k = max(1, len(losses) // 10)
-    print(f"[train] first-{k} mean loss {np.mean(losses[:k]):.4f}  "
-          f"last-{k} mean loss {np.mean(losses[-k:]):.4f}")
+    with mesh_lib.process_group(args.mesh, args.device) as device:
+        _, losses = train(args.arch, smoke=args.smoke, n_steps=args.steps,
+                          global_batch=args.batch, seq_len=args.seq,
+                          ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every,
+                          microbatches=args.microbatches,
+                          engine=args.engine, mesh=args.mesh,
+                          seed=args.seed, log_every=args.log_every,
+                          lr=args.lr, profile_dir=args.profile_dir,
+                          device=device)
+        if compat.world()[0] == 0:
+            k = max(1, len(losses) // 10)
+            print(f"[train] first-{k} mean loss {np.mean(losses[:k]):.4f}  "
+                  f"last-{k} mean loss {np.mean(losses[-k:]):.4f}")
     return losses
 
 

@@ -1,4 +1,5 @@
-"""AdamW — PyTorch port of ``repro.optim.adamw`` (single device).
+"""AdamW with ZeRO-1 sharded optimizer state — PyTorch port of
+``repro.optim.adamw``.
 
 Functional, as the reference: ``init(params, cfg) -> OptState`` and
 ``step(grads, params, state, cfg) -> (params, state, metrics)``, with the
@@ -6,21 +7,37 @@ reference's update written out by hand (``torch.optim.AdamW`` places eps
 and the decay differently): gradients clipped by their global norm,
 bias-corrected moments, the decay decoupled and applied to the f32 base
 (the master copy when ``master_f32``), linear warmup then cosine decay to
-``min_lr_frac``.  The reference's ZeRO-1 state sharding (``zero_axes``,
-the ``state_axes`` hooks) comes with the second distributed slice of the
-port (2b).
+``min_lr_frac``.
+
+ZeRO-1: the reference names, for each parameter, its largest unsharded
+axis divisible by the ``zero`` mesh axes (``zero_axes``) and lets XLA
+partition the moments (and the master copy) on it.  The port's models
+carry no logical axes and every rank holds every parameter whole, so
+:func:`zero_axes` works on shapes: the largest dim divisible by the
+divisor (the first of equal ones), the dim the reference picks when no
+logical axis maps to a mesh axis.  Given those ``state_axes`` under a
+mesh whose ``zero`` rule spans more than one rank, ``mu``, ``nu`` and
+``master`` hold this rank's slice of that dim only; :func:`step` clips by
+the global norm of the whole gradients (which every rank holds, averaged),
+updates its slices elementwise and gathers the new parameter slices over
+the ``zero`` axes (one ``all_gather`` a parameter on each axis).  The
+update being elementwise, the gathered parameters are bitwise the
+unsharded update's.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import rule_axes
 
-__all__ = ["OptConfig", "OptState", "init", "lr_at", "global_norm", "step"]
+__all__ = ["OptConfig", "OptState", "init", "lr_at", "global_norm", "step",
+           "zero_axes", "zero_divisor", "zero_slice", "zero_gather"]
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -42,17 +59,73 @@ class OptState(NamedTuple):
     count: torch.Tensor             # int32 scalar: updates taken
 
 
-def init(params, cfg: OptConfig = OptConfig()) -> OptState:
+# ---------------------------------------------------------------------------
+# ZeRO-1 dims
+# ---------------------------------------------------------------------------
+
+def zero_divisor(fallback: int = 1) -> int:
+    """The number of ZeRO-1 shards: the product of the installed mesh's
+    axes that the active ``zero`` rule names (``("data",)``, or ``("pod",
+    "data")`` in the multi-pod tables), else ``fallback`` (the reference's
+    ``zero_divisor`` argument, used when no mesh is installed)."""
+    size = rule_axes("zero")[1]
+    return size if size > 1 else fallback
+
+
+def zero_axes(params, divisor: int) -> List[Optional[int]]:
+    """For each leaf of ``params`` in flatten order, the dim its ZeRO-1
+    state is split on: the largest dim divisible by the divisor (the
+    first of equal ones), None where no dim is.  The divisor is
+    :func:`zero_divisor` with ``divisor`` as the fallback, as the
+    reference derives it."""
+    n = zero_divisor(divisor)
+    out = []
+    for p in tree.leaves(params):
+        best, best_dim = None, 0
+        for i, size in enumerate(p.shape):
+            if size % n == 0 and size > best_dim:
+                best, best_dim = i, size
+        out.append(best)
+    return out
+
+
+def zero_slice(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    """This rank's ZeRO-1 slice of a whole ``x`` (a view): its share of
+    ``dim`` over the installed mesh's ``zero`` axes; ``x`` itself where
+    ``dim`` is None or the state is not split."""
+    _, size, index = rule_axes("zero")
+    if dim is None or size == 1:
+        return x
+    chunk = x.shape[dim] // size
+    return x.narrow(dim, index * chunk, chunk)
+
+
+def zero_gather(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    """The whole tensor of every rank's :func:`zero_slice` ``x`` (one
+    ``all_gather`` on each ``zero`` axis); ``x`` itself where ``dim`` is
+    None or the state is not split."""
+    names, size, _ = rule_axes("zero")
+    if dim is None or size == 1:
+        return x
+    return collectives.all_gather_cat(x, dim, names)
+
+
+def init(params, cfg: OptConfig = OptConfig(),
+         state_axes: Optional[List[Optional[int]]] = None) -> OptState:
     """Zero f32 moments (and the f32 master copy) on each parameter's
-    device."""
-    mu = tree.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+    device; with ``state_axes`` (:func:`zero_axes`) under a mesh that
+    splits the state, this rank's slices of them only."""
+    flat, treedef = tree.flatten(params)
+    dims = state_axes if state_axes is not None else [None] * len(flat)
+    own = [zero_slice(p, d) for p, d in zip(flat, dims)]
+    mu = tree.unflatten(treedef, [torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device) for p in own])
     nu = tree.tree_map(torch.clone, mu)
-    master = (tree.tree_map(lambda p: p.to(torch.float32, copy=True), params)
+    master = (tree.unflatten(treedef, [p.to(torch.float32, copy=True)
+                                       for p in own])
               if cfg.master_f32 else None)
-    device = tree.leaves(params)[0].device
     return OptState(mu, nu, master,
-                    torch.zeros((), dtype=torch.int32, device=device))
+                    torch.zeros((), dtype=torch.int32, device=flat[0].device))
 
 
 def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
@@ -75,8 +148,11 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def step(grads, params, state: OptState, cfg: OptConfig):
-    """One AdamW update.  Returns (new_params, new_state, metrics)."""
+def step(grads, params, state: OptState, cfg: OptConfig,
+         state_axes: Optional[List[Optional[int]]] = None):
+    """One AdamW update.  Returns (new_params, new_state, metrics).  With
+    ``state_axes`` the state holds the slices :func:`init` gave it: each
+    split leaf is updated on this rank's slice and gathered whole."""
     count = state.count + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -96,13 +172,19 @@ def step(grads, params, state: OptState, cfg: OptConfig):
                            + cfg.weight_decay * base)
         return new.to(p.dtype), m, v, new
 
+    def zero_upd(g, p, m, v, master, dim):
+        new_p, m, v, new = upd(zero_slice(g, dim), zero_slice(p, dim), m, v,
+                               master)
+        return zero_gather(new_p, dim), m, v, new
+
     flat_p, treedef = tree.flatten(params)
     flat_g, flat_m, flat_v = (tree.leaves(t) for t in
                               (grads, state.mu, state.nu))
     flat_ma = (tree.leaves(state.master) if state.master is not None
                else [None] * len(flat_p))
-    outs = [upd(g, p, m, v, ma) for g, p, m, v, ma in
-            zip(flat_g, flat_p, flat_m, flat_v, flat_ma)]
+    dims = state_axes if state_axes is not None else [None] * len(flat_p)
+    outs = [zero_upd(*leaf) for leaf in
+            zip(flat_g, flat_p, flat_m, flat_v, flat_ma, dims)]
     new_p, new_m, new_v = (tree.unflatten(treedef, [o[j] for o in outs])
                            for j in range(3))
     new_master = (tree.unflatten(treedef, [o[3] for o in outs])

@@ -11,9 +11,11 @@
   and the paged + chunked + prefix-cached runtime under the mesh gives the
   monolithic mesh runtime's over a cold and a hit wave (the reference's
   ``test_serving_prefix_chunked_paged_mesh_bitwise``);
-* what stays for the second distributed slice raises, naming it: a
-  ``data`` axis under ``serve --mesh``, the MoE all-to-all over a data
-  axis, ``train --mesh`` and ``compress_pod_grads``.
+* what stays for the second half of the second distributed slice raises,
+  naming it: a ``data`` axis under ``serve --mesh``, the MoE all-to-all
+  over a data axis and ``compress_pod_grads``; ``train --mesh`` in one
+  process fails as the reference's does (the sharded trainer is
+  ``tests/test_torch_train_mesh.py``'s).
 """
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from repro.core import split_cache as R_split_cache
 from repro.distributed import compat as R_compat
 from repro.distributed import sharding as R_sharding
 from repro.launch import mesh as R_mesh
+from repro.launch import train as R_train
 from repro.models import api as R_api
 from repro.serving import prefix_cache as R_prefix
 from repro_torch import configs as P_configs
@@ -150,8 +153,15 @@ def test_cache_keys_mesh_half_matches_reference():
 
 
 def test_second_slice_raises_naming_it():
-    with pytest.raises(NotImplementedError, match="2b"):
+    """``train --mesh`` runs now: in one process ``train(mesh="model=2")``
+    fails as the reference's ``train`` does, on a mesh larger than the
+    world, with the same text.  ``compress_pod_grads`` stays with the
+    second half of slice 2b."""
+    with pytest.raises(ValueError) as r_err:
+        R_train.main(["--mesh", "model=2"])
+    with pytest.raises(ValueError) as p_err:
         P_train.train("internlm2_1_8b", mesh="model=2", device="cpu")
+    assert str(p_err.value) == str(r_err.value)
     cfg = P_configs.get_config("internlm2_1_8b", smoke=True)
     with pytest.raises(NotImplementedError, match="2b"):
         P_steps.make_train_step(cfg, None, P_steps.TrainConfig(

@@ -121,13 +121,20 @@ def test_parse_spec_error_texts(spec):
 def test_unported_specs_raise_naming_their_slice(spec, later):
     """An ``@axis`` spec executes: with no mesh installed it runs on one
     device, bitwise the spec without the suffix (the sharded path is
-    ``tests/test_torch_distributed.py``'s).  What the mesh does not run
-    yet raises naming its slice: the trainer's mesh."""
+    ``tests/test_torch_distributed.py``'s).  The trainer's mesh no longer
+    waits for a later slice: in one process ``train(engine=spec,
+    mesh="model=2")`` fails as the reference's ``train`` does (the mesh
+    needs two devices), with the same text and no slice named."""
     a = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 8)))
     cfg = P.parse_spec(spec)
     assert torch.equal(P.ozimmu_matmul(a, a.T, cfg),
                        P.ozimmu_matmul(a, a.T, cfg.local()))
+    from repro.launch import train as r_train
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=later):
+    with pytest.raises(ValueError) as r_err:
+        r_train.main(["--engine", spec, "--mesh", "model=2"])
+    with pytest.raises(ValueError) as p_err:
         train.train("internlm2_1_8b", engine=spec, mesh="model=2",
                     device="cpu")
+    assert str(p_err.value) == str(r_err.value)
+    assert later not in str(p_err.value)

@@ -399,13 +399,22 @@ def test_train_step_runs_for_every_arch(arch):
 
 
 def test_train_step_refuses_what_later_slices_bring():
+    """``compress_pod_grads`` raises, naming the distributed slice that
+    brings the ``pod`` axis.  ``--mesh data=2`` trains now: in one process
+    it fails as the reference's launcher does (the mesh needs two
+    devices), with the same text."""
+    from repro.launch import train as r_train
     cfg = P_configs.get_config(ARCH, smoke=True)
     with pytest.raises(NotImplementedError, match="distributed"):
         P_steps.make_train_step(cfg, P_optim.OptConfig(),
                                 P_steps.TrainConfig(compress_pod_grads=True))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        P_train.main(["--device", "cpu", "--steps", "2", "--batch", "2",
-                      "--seq", "16", "--mesh", "data=2"])
+    argv = ["--steps", "2", "--batch", "2", "--seq", "16", "--mesh",
+            "data=2"]
+    with pytest.raises(ValueError) as r_err:
+        r_train.main(argv)
+    with pytest.raises(ValueError) as p_err:
+        P_train.main(["--device", "cpu"] + argv)
+    assert str(p_err.value) == str(r_err.value)
 
 
 # one arch of each family

@@ -1,5 +1,5 @@
-"""Rank bodies of the port's mesh tests (``tests/test_torch_distributed.py``
-and ``tests/test_torch_mesh.py``).
+"""Rank bodies of the port's mesh tests (``tests/test_torch_distributed.py``,
+``tests/test_torch_mesh.py`` and ``tests/test_torch_train_mesh.py``).
 
 :func:`spawn` starts one process a rank over a gloo group from a file
 store under the test's temporary directory, runs a job on every rank and
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs
+from repro_torch import configs, tree
 from repro_torch.core import ozimmu, split_cache
 from repro_torch.core.accumulate import DF32
 from repro_torch.distributed import collectives, compat
@@ -37,18 +37,28 @@ def spawn(job: str, world: int, tmp: Path, inputs=None):
     """Run ``JOBS[job]`` on ``world`` ranks; returns the ranks' results in
     rank order.  A rank that raises fails the call with its traceback; a
     run past :data:`TIMEOUT_S` is killed."""
+    return start(job, world, tmp, inputs)()
+
+
+def start(job: str, world: int, tmp: Path, inputs=None):
+    """:func:`spawn` without waiting: starts the ranks and returns the
+    function that waits for them and returns their results."""
     tmp = Path(tmp)
     torch.save(inputs or {}, tmp / "inputs.pt")
     ctx = torch.multiprocessing.start_processes(
         _main, args=(job, world, str(tmp)), nprocs=world, join=False,
         start_method="spawn")
     deadline = time.monotonic() + TIMEOUT_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"mesh job {job!r} ran past {TIMEOUT_S} s")
-    return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+
+    def wait():
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"mesh job {job!r} ran past "
+                                   f"{TIMEOUT_S} s")
+        return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+    return wait
 
 
 def _main(rank: int, job: str, world: int, tmp: str) -> None:
@@ -208,4 +218,111 @@ def serving(rank: int, x):
     return out
 
 
-JOBS = {"contractions": contractions, "serving": serving}
+def _steps_recorded(fn):
+    """``fn()`` with every train step's new parameters recorded (the
+    trainer's ``make_train_step`` wrapped): ``(fn(), [params, ...], the
+    last step's moments)``."""
+    from repro_torch.launch import steps as S
+    seen, last = [], []
+    make = S.make_train_step
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            seen.append([p.clone() for p in tree.leaves(state.params)])
+            last[:] = tree.leaves((state.opt.mu, state.opt.nu))
+            return state, metrics
+        return recorded
+    S.make_train_step = recording
+    try:
+        return fn(), seen, last
+    finally:
+        S.make_train_step = make
+
+
+def training(rank: int, x):
+    """The data axis of training on a ``data=2`` mesh: step 0's averaged
+    loss and gradients (f32 activations, this rank's rows), the ZeRO-1
+    update against the unsharded one on the same gradients, ``train.main``
+    with ``--mesh data=2`` (every step's parameters recorded, a
+    checkpoint written), the one-process checkpoint restored onto the
+    mesh, ``compressed_psum`` on this rank's shards; then ``train.main``
+    with ``--mesh model=2`` under an ``@model`` engine, and on rank 0 the
+    same runs without a mesh."""
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.optim import compress
+    out = {}
+    arch = "internlm2_1_8b"
+    mesh = mesh_lib.parse_mesh_spec("data=2")
+    rules = mesh_lib.mesh_rules(mesh, arch)
+    cfg = configs.get_config(arch, smoke=True, engine_spec=x["spec"],
+                             dtype="float32")
+    params = x["params"]
+    rows = len(x["tokens"]) // 2
+    mine = {"tokens": x["tokens"][rank * rows:(rank + 1) * rows]}
+    with compat.set_mesh(mesh), use_rules(rules):
+        own_loss, own_grads = S.loss_and_grads(cfg, params, mine)
+        collectives.reset_counts()
+        loss, grads = S.batch_mean(own_loss, own_grads)
+        out["mean_counts"] = dict(collectives.DATA_COUNTS)
+        out["loss"], out["grads"] = float(loss), tree.leaves(grads)
+
+        # ZeRO-1 against the unsharded update, two steps on the same
+        # gradients (the second halved)
+        ocfg = optim.OptConfig(lr=1e-2, warmup_steps=1, total_steps=4,
+                               master_f32=True)
+        axes = S.state_axes(params, 2)
+        whole = optim.init(params, ocfg)
+        zero = optim.init(params, ocfg, axes)
+        out["zero_axes"] = axes
+        pw = pz = params
+        for scale in (1.0, 0.5):
+            g = tree.tree_map(lambda t: t * scale, grads)
+            pw, whole, _ = optim.step(g, pw, whole, ocfg)
+            collectives.reset_counts()
+            pz, zero, _ = optim.step(g, pz, zero, ocfg, axes)
+        out["zero_counts"] = dict(collectives.DATA_COUNTS)
+        out["zero"] = {"params": (tree.leaves(pw), tree.leaves(pz)),
+                       "state": ([optim.zero_slice(t, d) for t, d in zip(
+                           tree.leaves((whole.mu, whole.nu, whole.master)),
+                           axes * 3)],
+                           tree.leaves((zero.mu, zero.nu, zero.master)))}
+
+    # the one-process checkpoint restored onto the mesh
+        like = S.TrainState(params, optim.init(params, optim.OptConfig(),
+                                               axes),
+                            torch.zeros((), dtype=torch.int32))
+        restored, step = Checkpointer(x["one_ckpt"]).restore(
+            like, shardings=S.state_shardings(like, axes))
+        out["restored"] = (step, tree.leaves(restored))
+
+        # compressed_psum on this rank's shards, with error feedback
+        err = compress.init_state(x["shards"][rank])
+        out["psum"] = []
+        collectives.reset_counts()
+        for _ in range(3):
+            mean, err = compress.compressed_psum(x["shards"][rank], err,
+                                                 "data")
+            out["psum"].append((mean, err))
+        out["psum_counts"] = dict(collectives.COUNTS)
+
+    argv = ["--arch", arch, "--device", "cpu", "--batch", "4", "--seq",
+            "16", "--log-every", "0", "--engine", x["spec"]]
+    out["train"], out["train_params"], out["train_state"] = \
+        _steps_recorded(lambda: train.main(
+        argv + ["--steps", "3", "--mesh", "data=2", "--ckpt-dir",
+                x["mesh_ckpt"]]))
+    out["model"] = train.main(argv[:-1] + [x["spec"] + "@model", "--steps",
+                                           "3", "--mesh", "model=2"])
+    if rank == 0:
+        out["single"] = train.main(argv + ["--steps", "3"])
+    return out
+
+
+JOBS = {"contractions": contractions, "serving": serving,
+        "training": training}

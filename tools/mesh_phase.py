@@ -1,8 +1,9 @@
-"""chip_smoke.py's mesh phase alone on the card: build the kernels, print
-the card, run ``phase_mesh`` (two ranks on cuda:0 over gloo).  From the
+"""chip_smoke.py's mesh phases alone on the card: build the kernels, print
+the card, run ``phase_mesh`` (serving, two ranks on cuda:0 over gloo)
+and/or ``phase_train_mesh`` (training's data axis, likewise).  From the
 repository root, on a machine with a CUDA card:
 
-    python3 tools/mesh_phase.py
+    python3 tools/mesh_phase.py [mesh] [train_mesh]     # default: both
 """
 import subprocess
 import sys
@@ -23,7 +24,12 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, torch.__version__, torch.version.cuda, flush=True)
-    print(chip_smoke.phase_mesh(torch.device("cuda"), card), flush=True)
+    phases = {"mesh": chip_smoke.phase_mesh,
+              "train_mesh": chip_smoke.phase_train_mesh}
+    for name in sys.argv[1:] or list(phases):
+        t1 = time.time()
+        print(name, phases[name](torch.device("cuda"), card), flush=True)
+        print(f"{name} seconds {time.time() - t1:.1f}", flush=True)
     print(f"seconds {time.time() - t0:.1f}")
 
 
