@@ -227,7 +227,15 @@ Phases (each raises on failure, so any failure exits non-zero):
    step the single-device run's (265 splits, 868 skinny group GEMMs, 217
    epilogues) and the collectives a model step exact (265 maxima, 217
    int32 sums); ms a model step untraced and the collectives' host share
-   from rank 0's trace.
+   from rank 0's trace; then (c) ``launch.serve.main`` with ``--mesh
+   data=2`` under ``ozimmu_h-4:df32:fused`` on the same requests (one
+   slot a rank, every rank running every model call on its own rows):
+   both ranks' tokens equal the single-device run's, the launches a model
+   step the single-device run's, no contraction collective and exactly one
+   ``all_gather_rows`` of the greedy tokens a model call; each rank's
+   first prefill logits against the single-device run's rows (bitwise, or
+   within 1e-3 of max|logit|, reported); ms a model step, the peak and
+   the host ms a gather a rank.
 13. Train mesh (``train_mesh``, :func:`phase_train_mesh`), last: the data
    axis of training.  internlm2-1.8b at its published width, cut in depth
    so that two ranks fit the card (``train_depth`` with ``ranks=2``); the
@@ -241,7 +249,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    launches a step exactly ``train_step_launches`` at 4 rows; its
    collectives a step one f32 SUM a gradient leaf and one for the loss,
    one ZeRO-1 ``all_gather`` a leaf; ms a step, the gradient mean's and
-   the gathers' host ms and the peak a rank logged.
+   the gathers' host ms and the peak a rank logged.  Then (b) the same
+   for deepseek-moe-16b at its published widths (64 experts of 2048 x
+   1408, top-6), cut in depth likewise, for 2 steps, its experts' tokens
+   exchanged by all-to-all over ``data``: the witness is the one-device
+   step 0 on each rank's rows with the scatter path, averaged (the
+   per-rank capacity); no expert flips against it; the all-to-alls a step
+   exact (six a layer), each one's bytes and host ms logged.
 
 The launch counts of phases 3-8 are zeroed just before each path runs and
 read just after; every kernel of a path must have launched, and the group
@@ -3384,10 +3398,11 @@ def _mlp(cfg, T: int, f: Optional[int] = None):
     return _unit(_proj(d, T, f), _proj(d, T, f), _proj(f, T, d))
 
 
-def _moe_layer(cfg, B: int, L: int):
+def _moe_layer(cfg, B: int, L: int, expert_ranks: int = 1):
     """A MoE layer: GQA or MLA attention; the three E-batched expert
-    products over the capacity's rows; the shared experts (the f32 router
-    is no emulated contraction)."""
+    products over the capacity's rows (under the all-to-all over
+    ``expert_ranks`` data ranks, over every rank's capacity rows); the
+    shared experts (the f32 router is no emulated contraction)."""
     from repro_torch.models import moe
     d, T, fe = cfg.d_model, B * L, cfg.d_ff_expert
     if cfg.family == "mla_moe":
@@ -3400,14 +3415,14 @@ def _moe_layer(cfg, B: int, L: int):
                             cfg.kv_chunk), _proj(H * vd, T, d))
     else:
         attn = _attn(cfg, B, L)
-    cap = moe._capacity(cfg, T)
+    cap = moe._capacity(cfg, T) * expert_ranks
     parts = [attn, _proj(d, cap, fe), _proj(d, cap, fe), _proj(fe, cap, d)]
     if cfg.n_shared_experts:
         parts.append(_mlp(cfg, T, fe * cfg.n_shared_experts))
     return _unit(*parts)
 
 
-def train_step_contractions(cfg, B: int, L: int):
+def train_step_contractions(cfg, B: int, L: int, expert_ranks: int = 1):
     """``(n, m)`` of every emulated contraction of one train step of
     ``cfg`` at batch ``B`` x seq ``L`` (an encdec batch's ``L`` frames):
     its contraction length and rows.  A unit of the layer stack runs its
@@ -3422,14 +3437,16 @@ def train_step_contractions(cfg, B: int, L: int):
     mla_moe: 14; ssm: 2 (``w_in``, ``w_out``); hybrid: 18 a pattern block
     and 5 a tail layer; vlm: 9 a self layer and 9 (+ 2 a further key
     chunk) a cross layer, whose ``wk``/``wv`` read the patch rows; encdec:
-    8 an encoder layer over the frames, 15 a decoder layer."""
+    8 an encoder layer over the frames, 15 a decoder layer.
+    ``expert_ranks``: the data ranks a MoE's all-to-all exchanges the
+    experts' tokens over (``B`` is then a rank's rows)."""
     d, T, fam = cfg.d_model, B * L, cfg.family
     head = _proj(d, T, cfg.padded_vocab)
     units = []                                   # (unit, forward runs)
     if fam == "dense":
         units = [(_unit(_attn(cfg, B, L), _mlp(cfg, T)), 2)] * cfg.n_layers
     elif fam in ("moe", "mla_moe"):
-        units = [(_moe_layer(cfg, B, L), 2)] * cfg.n_layers
+        units = [(_moe_layer(cfg, B, L, expert_ranks), 2)] * cfg.n_layers
     elif fam == "ssm":
         d_inner = cfg.expand * d
         p_in = 2 * d_inner + 2 * cfg.d_state + d_inner // cfg.ssm_headdim
@@ -3461,7 +3478,7 @@ def train_step_contractions(cfg, B: int, L: int):
     return out
 
 
-def train_step_launches(cfg, B: int, L: int):
+def train_step_launches(cfg, B: int, L: int, expert_ranks: int = 1):
     """Kernel launches of one train step under ``MODEL_SPEC`` by
     construction (:func:`train_step_contractions`): two splits and one
     df32 epilogue a contraction, and a group GEMM for each chunk of the
@@ -3473,7 +3490,7 @@ def train_step_launches(cfg, B: int, L: int):
     from repro_torch.core.accumulate import _group_chunks
     from repro_torch.core.splitting import compute_beta, compute_r
     from repro_torch.kernels.group_gemm import SKINNY_MAX_M
-    cs = train_step_contractions(cfg, B, L)
+    cs = train_step_contractions(cfg, B, L, expert_ranks)
     chunks = [len(list(_group_chunks(4, compute_r(n, compute_beta(n)))))
               for n, _ in cs]
     large = sum(c for c, (_, m) in zip(chunks, cs) if m > SKINNY_MAX_M)
@@ -3933,7 +3950,7 @@ def train_family(dev, arch: str, card: str):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import steps as S
     from repro_torch.launch.train import data_config, device_batch
-    from repro_torch.models import api, moe
+    from repro_torch.models import api
     from repro_torch.models.common import param_count
     B, L, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN_FAMILY_STEPS
     gc.collect()
@@ -3975,14 +3992,8 @@ def train_family(dev, arch: str, card: str):
     # 1. step 0 in f32 activations
     def grads_under(spec, batch, dtype="float32"):
         """(loss, gradients, each MoE layer's forward selections, ms)."""
-        sels, route = [], moe._route
-
-        def recording(gates, topk, cap):
-            out = route(gates, topk, cap)
-            if len(sels) < cfg.n_layers:           # the forward, not the
-                sels.append(out[1])                # remat recompute
-            return out
-        moe._route = recording
+        install, uninstall, sels = _routing_recorder(cfg.n_layers)
+        install()
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3991,7 +4002,7 @@ def train_family(dev, arch: str, card: str):
             loss = float(loss)
             ms = (time.perf_counter() - t0) * 1e3
         finally:
-            moe._route = route
+            uninstall()
         return loss, g, sels, ms
 
     def compare(a, b, what):
@@ -4358,6 +4369,73 @@ def mesh_serve(dev, mesh, tmp: str, rank: int) -> dict:
     return out
 
 
+def keep_prefill_logits(rt, rec) -> None:
+    """Keep in ``rec['logits']``, on the CPU, the last position's logits of
+    ``rt``'s first model call (its first prefill): the rows of its slots
+    on this rank."""
+    argmax, vocab = rt._argmax, rt.cfg.vocab
+
+    def kept(logits):
+        if "logits" not in rec:
+            rec["logits"] = logits[:, -1, :vocab].float().cpu()
+        return argmax(logits)
+    rt._argmax = kept
+
+
+def mesh_serve_data(dev, tmp: str, rank: int) -> dict:
+    """Phase (c) on this rank: ``launch.serve.main`` with ``--mesh
+    data=2`` under ``MODEL_SPEC`` on ``MESH_FLAGS``' requests, the slots
+    split over the ranks: its tokens, model steps and calls, launches,
+    collectives, ms a model step, peak, the host ms of each gather of the
+    greedy tokens (device synchronized around it) and its first prefill
+    logits (to ``logits<rank>.pt``)."""
+    import gc
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, gather_ms = {}, []
+    make_runtime, gather = serve.make_runtime, collectives.all_gather_rows
+
+    def captured(cfg, params, **kw):
+        rt = make_runtime(cfg, params, **kw)
+        obs_instrument(rt, rec)
+        keep_prefill_logits(rt, rec)
+        torch.cuda.synchronize()
+        reset_launches()            # the freeze's splits are not the run's
+        collectives.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        return rt
+
+    def timed(x, axes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(x, axes)
+        torch.cuda.synchronize()
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    serve.make_runtime, collectives.all_gather_rows = captured, timed
+    try:
+        s = serve.main(MESH_FLAGS + ["--engine", MODEL_SPEC, "--mesh",
+                                     f"data={MESH_WORLD}"])
+    finally:
+        serve.make_runtime, collectives.all_gather_rows = make_runtime, gather
+    torch.cuda.synchronize()
+    torch.save(rec["logits"], Path(tmp, f"logits{rank}.pt"))
+    steps = sum(rec["fed"]) + s["decode_steps"]
+    return dict(tokens=[list(r.generated) for r in rec["reqs"]],
+                steps=steps, calls=s["prefill_calls"] + s["decode_steps"],
+                launches={k: v for k, v in LAUNCHES.items() if v},
+                collectives=dict(collectives.COUNTS),
+                data=dict(collectives.DATA_COUNTS),
+                ms_step=s["elapsed_s"] * 1e3 / steps,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                gather_ms=gather_ms)
+
+
 def _mesh_ranges(path) -> dict:
     """Host ms and count of the trace's ``ozimmu/mesh/*`` ranges (one a
     collective), by name."""
@@ -4389,6 +4467,7 @@ def _mesh_rank(rank: int, tmp: str) -> None:
         mesh = mesh_lib.parse_mesh_spec(f"model={MESH_WORLD}")
         out["contractions"] = mesh_contractions(dev, mesh)
         out["serve"] = mesh_serve(dev, mesh, tmp, rank)
+        out["serve_data"] = mesh_serve_data(dev, tmp, rank)
         Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -4412,8 +4491,12 @@ def phase_mesh(dev, card):
     to the single-device run's on both ranks, exact launches (265 splits,
     868 group GEMMs, all skinny, 217 epilogues) and collectives (265
     maxima, 217 int32 sums) a model step, ms a step untraced and the
-    collectives' host share from rank 0's trace.  Returns rank 0's serve
-    launches."""
+    collectives' host share from rank 0's trace; (c) ``serve.main`` with
+    ``--mesh data=2`` under ``MODEL_SPEC`` (:func:`mesh_serve_data`,
+    :func:`mesh_data_check`): one slot a rank, the tokens, launches a
+    model step and first prefill logits against the single-device run's,
+    one gather of the greedy tokens a model call.  Returns rank 0's
+    launches of (b) and (c), as paths ``mesh`` and ``mesh_data``."""
     import gc
     import tempfile
     import torch
@@ -4426,6 +4509,7 @@ def phase_mesh(dev, card):
     def captured(cfg, params, **kw):
         rt = make_runtime(cfg, params, **kw)
         obs_instrument(rt, rec)
+        keep_prefill_logits(rt, rec)
         torch.cuda.synchronize()
         reset_launches()
         return rt
@@ -4438,7 +4522,7 @@ def phase_mesh(dev, card):
     single = dict(tokens=[list(r.generated) for r in rec["reqs"]],
                   steps=sum(rec["fed"]) + s["decode_steps"],
                   launches={k: v for k, v in LAUNCHES.items() if v},
-                  ms_step=s["elapsed_s"] * 1e3)
+                  ms_step=s["elapsed_s"] * 1e3, logits=rec["logits"])
     single["ms_step"] /= single["steps"]
     del rec, s
     gc.collect()
@@ -4463,6 +4547,8 @@ def phase_mesh(dev, card):
                                      f"{MESH_TIMEOUT_S} s")
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(MESH_WORLD)]
+        data_logits = [torch.load(Path(tmp, f"logits{r}.pt"))
+                       for r in range(MESH_WORLD)]
     log(f"[{tag}] {MESH_WORLD} ranks on {ranks[0]['device']} over gloo, "
         f"{time.perf_counter() - t0:.1f} s with their start")
     for r, out in enumerate(ranks):
@@ -4484,16 +4570,23 @@ def phase_mesh(dev, card):
     if bad:
         raise AssertionError(f"{tag}: contractions off: {bad}")
 
+    mesh_serve_check(tag, card, ranks, single)
+    mesh_data_check(tag, card, ranks, single, data_logits)
+    return {p: {k: ranks[0][key]["launches"].get(k, 0) for k in LAUNCHES}
+            for p, key in (("mesh", "serve"), ("mesh_data", "serve_data"))}
+
+
+def mesh_serve_check(tag, card, ranks, single):
+    """Part (b)'s readings against the single-device run: tokens (traced
+    run and untraced rerun), model steps and launches equal, launches and
+    collectives a model step exact; logs ms a model step and the
+    collectives' share of rank 0's trace."""
     for r, out in enumerate(ranks):
         sv = out["serve"]
-        steps, cfg_layers = sv["steps"], sv["layers"]
-        contractions = cfg_layers * 9 + 1
-        want = {"split_fused": steps * (cfg_layers * 11 + 1),
-                "group_gemm": steps * contractions * 4,
-                "group_gemm_skinny": steps * contractions * 4,
-                "scale_accum": steps * contractions}
+        steps = sv["steps"]
+        want = dense_serve_launches(steps, sv["layers"])
         want_coll = {"pmax_scales": want["split_fused"],
-                     "psum_exact_int32": steps * contractions,
+                     "psum_exact_int32": want["scale_accum"],
                      "psum_df32": 0, "psum_compensated": 0}
         got = {k: sv["launches"].get(k, 0) for k in want}
         log(f"[{tag}] rank {r}: {steps} model steps, launches {got}, "
@@ -4521,7 +4614,71 @@ def phase_mesh(dev, card):
             f"{name[len('ozimmu/mesh/'):]} {n} calls {ms:.1f} ms "
             f"({1e3 * ms / n:.0f} us a call)"
             for name, (n, ms) in sorted(sv["ranges"].items())))
-    return {k: ranks[0]["serve"]["launches"].get(k, 0) for k in LAUNCHES}
+
+
+def dense_serve_launches(steps: int, layers: int) -> dict:
+    """The launches of ``steps`` model steps of the dense internlm2 serve
+    at ``layers`` layers and 2 slots: a split per operand (11 a layer and
+    the LM head's), four skinny group GEMMs and one df32 epilogue per
+    contraction (9 a layer and the LM head)."""
+    contractions = layers * 9 + 1
+    return {"split_fused": steps * (layers * 11 + 1),
+            "group_gemm": steps * contractions * 4,
+            "group_gemm_skinny": steps * contractions * 4,
+            "scale_accum": steps * contractions}
+
+
+def mesh_data_check(tag, card, ranks, single, data_logits):
+    """Part (c)'s readings against the single-device run: tokens, launches
+    a model step and steps equal, no contraction collective, one gather a
+    model call; the first prefill logits bitwise or within 1e-3 of
+    max|logit| of the single-device run's rows of the rank's slots."""
+    import statistics
+    per = len(single["tokens"]) // MESH_WORLD    # slots a rank
+    bad, reading = [], []
+    for r, out in enumerate(ranks):
+        sd = out["serve_data"]
+        steps = sd["steps"]
+        want = dense_serve_launches(steps, out["serve"]["layers"])
+        got = {k: sd["launches"].get(k, 0) for k in want}
+        want_data = {"pmean": 0, "all_gather_cat": 0, "all_to_all": 0,
+                     "all_gather_rows": sd["calls"]}
+        coll = {k: v for k, v in sd["collectives"].items() if v}
+        log(f"[{tag}] (c) rank {r}: {steps} model steps in {sd['calls']} "
+            f"model calls, launches {got} (expected {want}), data-axis "
+            f"collectives {sd['data']}, contraction collectives {coll}")
+        if got != want or sd["launches"] != single["launches"] or \
+                steps != single["steps"] or sd["data"] != want_data or coll:
+            bad.append(f"rank {r}'s launches or collectives are off")
+        if sd["tokens"] != single["tokens"]:
+            bad.append(f"rank {r}'s tokens {sd['tokens']} differ from the "
+                       f"single-device run's {single['tokens']}")
+        mine = single["logits"][r * per:(r + 1) * per]
+        got_l = data_logits[r]
+        bitwise = same(got_l, mine)
+        err = float((got_l - mine).abs().max() / mine.abs().max())
+        reading.append((bitwise, err))
+        if not bitwise and not err <= 1e-3:
+            bad.append(f"rank {r}'s prefill logits off the single-device "
+                       f"run's by {err:.3e} of max|logit|")
+    if bad:
+        raise AssertionError(f"{tag} (c): " + "; ".join(bad))
+    log(f"[{tag}] (c) {card}: --mesh data={MESH_WORLD} under {MODEL_SPEC}: "
+        f"tokens of both ranks equal the single-device run's; launches a "
+        f"model step equal its; one gather of the greedy tokens a model "
+        f"call; first prefill logits against the single-device run's rows: "
+        + "; ".join(f"rank {r} {'bitwise' if b else 'not bitwise'}, "
+                    f"max|diff| / max|logit| {e:.3e}"
+                    for r, (b, e) in enumerate(reading)))
+    for r, out in enumerate(ranks):
+        sd = out["serve_data"]
+        g = sd["gather_ms"]
+        log(f"[{tag}] (c) {card}: rank {r}: {sd['ms_step']:.1f} ms a model "
+            f"step (single device {single['ms_step']:.1f}, the model=2 "
+            f"mesh {out['serve']['ms_step']:.1f}); peak "
+            f"{sd['peak_gb']:.2f} GB; {len(g)} gathers, host ms a gather "
+            f"median {statistics.median(g):.3f}, mean "
+            f"{sum(g) / len(g):.3f}, max {max(g):.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -4541,20 +4698,35 @@ TRAIN_MESH_FLAGS = ["--arch", "internlm2_1_8b", "--full", "--mesh",
 # (the stacked layer leaves at their first and last layer)
 TRAIN_MESH_LEAVES = ("embed", "layers/attn/wq", "layers/mlp/w_down",
                      "lm_head")
+# part (b): deepseek-moe-16b at its published widths (64 routed experts of
+# 2048 x 1408, top-6, 2 shared), its experts' tokens exchanged by
+# all-to-all over data (``moe_dispatch="a2a"``), 2 steps
+TRAIN_MESH_MOE_STEPS = 2
+TRAIN_MESH_MOE_FLAGS = ["--arch", "deepseek_moe_16b", "--full", "--mesh",
+                        f"data={MESH_WORLD}", "--engine", MODEL_SPEC,
+                        "--batch", str(TRAIN["batch"]), "--seq",
+                        str(TRAIN["seq"]), "--steps",
+                        str(TRAIN_MESH_MOE_STEPS), "--log-every", "1",
+                        "--device", MESH_DEVICE]
+TRAIN_MESH_MOE_LEAVES = ("layers/attn/wq", "layers/moe/router",
+                         "layers/moe/w_gate", "layers/moe/w_down",
+                         "layers/moe/shared/w_down", "lm_head")
 
 
-def _mesh_grads(grads) -> dict:
-    """The named gradients of :data:`TRAIN_MESH_LEAVES`, stacked layer
-    leaves split into their first and last layer."""
+def _mesh_grads(grads, leaves) -> dict:
+    """The named gradients of ``leaves``, stacked layer leaves split into
+    their first and last layer."""
     from repro_torch import tree
     named = dict(zip(_leaf_paths(grads), tree.leaves(grads)))
     out = {}
-    for name in TRAIN_MESH_LEAVES:
+    for name in leaves:
         g = named[name]
-        if name.startswith("layers/"):
-            out[f"{name}[0]"], out[f"{name}[-1]"] = g[0], g[-1]
-        else:
+        if not name.startswith("layers/"):
             out[name] = g
+        else:
+            out[f"{name}[0]"] = g[0]
+            if g.shape[0] > 1:
+                out[f"{name}[-1]"] = g[-1]
     return out
 
 
@@ -4570,13 +4742,37 @@ def _bit_sums(tensors) -> list:
     return out
 
 
-def _train_mesh_rank(rank: int, tmp: str, layers: int, remat: int) -> None:
+def _routing_recorder(n_layers: int):
+    """``(install, uninstall, sels)``: while installed, ``moe._route``
+    keeps the (T, K) expert selections of its first ``n_layers`` calls
+    (a forward's, not the remat recompute's)."""
+    from repro_torch.models import moe
+    route, sels = moe._route, []
+
+    def recording(gates, topk, cap):
+        out = route(gates, topk, cap)
+        if len(sels) < n_layers:
+            sels.append(out[1].cpu())
+        return out
+
+    def install():
+        moe._route = recording
+
+    def uninstall():
+        moe._route = route
+    return install, uninstall, sels
+
+
+def _train_mesh_rank(rank: int, tmp: str, flags, overrides: dict,
+                     leaves) -> None:
     """One rank of the train_mesh phase: the gloo group from the file
-    store, ``launch.train.main(TRAIN_MESH_FLAGS)`` with the config registry
-    patched to ``layers`` layers in remat blocks of ``remat``, each step
-    recorded (ms, launches, collectives, the gradient mean's and the
-    gathers' host ms, the parameters' bit sums), rank 0's averaged step-0
-    gradients of :data:`TRAIN_MESH_LEAVES` saved; the record to
+    store, ``launch.train.main(flags)`` with the config registry patched
+    by ``overrides`` (the cut depth and its remat blocks; the activation
+    dtype), each step recorded
+    (ms, launches, collectives, the gradient mean's and the gathers' host
+    ms, each all-to-all's bytes and host ms, the parameters' bit sums),
+    rank 0's averaged step-0 gradients of ``leaves`` saved, and this
+    rank's step-0 expert selections when the arch routes; the record to
     ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
@@ -4592,10 +4788,12 @@ def _train_mesh_rank(rank: int, tmp: str, layers: int, remat: int) -> None:
                                     rank=rank, world_size=MESH_WORLD)
     get, make = configs.get_config, S.make_train_step
     mean, gather = S.batch_mean, collectives.all_gather_cat
+    exchange = collectives._exchange
     steps, cur = [], {}
+    install, uninstall, sels = _routing_recorder(overrides["n_layers"])
 
     def cut(*args, **kw):
-        return get(*args, **kw).with_(n_layers=layers, remat_block=remat)
+        return get(*args, **kw).with_(**overrides)
 
     def sync_ms(fn, key):
         def timed(*args, **kw):
@@ -4609,10 +4807,20 @@ def _train_mesh_rank(rank: int, tmp: str, layers: int, remat: int) -> None:
 
     timed_mean = sync_ms(mean, "mean_ms")
 
+    def timed_exchange(x, axis):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exchange(x, axis)
+        torch.cuda.synchronize()
+        cur.setdefault("a2a", []).append(
+            [x.numel() * x.element_size(), (time.perf_counter() - t0) * 1e3])
+        return out
+
     def mean_recorded(loss, grads):
         loss, grads = timed_mean(loss, grads)
         if not steps:
-            named = _mesh_grads(grads)
+            uninstall()
+            named = _mesh_grads(grads, leaves)
             cur["grad_sums"] = _bit_sums(named.values())
             if rank == 0:
                 torch.save({k: g.cpu() for k, g in named.items()},
@@ -4631,7 +4839,7 @@ def _train_mesh_rank(rank: int, tmp: str, layers: int, remat: int) -> None:
             state, metrics = step(state, batch)
             loss = float(metrics["loss"])
             torch.cuda.synchronize()
-            leaves = tree.leaves(state.params)
+            leaves_ = tree.leaves(state.params)
             steps.append(dict(
                 cur, ms=(time.perf_counter() - t0) * 1e3, loss=loss,
                 rows=int(batch["tokens"].shape[0]),
@@ -4641,117 +4849,49 @@ def _train_mesh_rank(rank: int, tmp: str, layers: int, remat: int) -> None:
                              for k in counts0},
                 data={k: collectives.DATA_COUNTS[k] - data0[k]
                       for k in data0},
-                devices=sorted({str(p.device) for p in leaves} |
+                devices=sorted({str(p.device) for p in leaves_} |
                                {str(batch["tokens"].device)}),
-                param_sums=_bit_sums(leaves)))
+                param_sums=_bit_sums(leaves_)))
             return state, metrics
         return recorded
 
     configs.get_config = cut
     S.make_train_step, S.batch_mean = recording, mean_recorded
     collectives.all_gather_cat = sync_ms(gather, "gather_ms")
+    collectives._exchange = timed_exchange
+    install()
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         collectives.reset_counts()
-        losses = train.main(TRAIN_MESH_FLAGS)
+        losses = train.main(flags)
         torch.cuda.synchronize()
+        torch.save(sels, Path(tmp, f"sels{rank}.pt"))
         out = dict(device=str(dev), backend=dist.get_backend(),
                    losses=losses, steps=steps,
                    launches={k: v for k, v in LAUNCHES.items()},
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
     finally:
+        uninstall()
         configs.get_config, S.make_train_step = get, make
         S.batch_mean, collectives.all_gather_cat = mean, gather
+        collectives._exchange = exchange
         dist.destroy_process_group()
 
 
-def phase_train_mesh(dev, card):
-    """Phase 13 (``train_mesh``): the data axis of training.  internlm2-1.8b
-    at its published width, cut in depth so that two ranks fit the card
-    (:func:`train_depth` with ``ranks=2``: half the free memory a rank,
-    ZeRO-1 sparing half of AdamW's moments and their new copies), under
-    ``MODEL_SPEC``, random weights from the seed, the synthetic pipeline
-    at global batch 8 x seq 256.
-
-    1. The witness, in this process: the single-device step on the whole
-       batch of 8 at the same depth from the same seed (its loss and
-       gradients, then two steps of ``make_train_step``, the second
-       timed); freed before the ranks start.
-    2. Two ranks, one process each, on ``cuda:0`` over gloo:
-       ``launch.train.main`` with ``--mesh data=2`` for
-       :data:`TRAIN_MESH_STEPS` steps (4 rows a rank).  Held: step 0's
-       loss on both ranks within 1e-5 of the witness's; the averaged
-       gradients of :data:`TRAIN_MESH_LEAVES` within 1e-3 of the
-       witness's max|g| (not bitwise: a weight cotangent contracts over
-       the tokens, and its split scales follow the rows a rank holds),
-       bitwise equal on both ranks; the parameters bitwise equal on both
-       ranks after every step (two checksums of the bit patterns a leaf);
-       a rank's launches a step exactly :func:`train_step_launches` at 4
-       rows; its collectives a step exactly one f32 SUM a gradient leaf
-       and one for the loss and one ``all_gather`` a ZeRO-1 leaf, no
-       contraction collective; finite losses, equal on both ranks; every
-       parameter and batch on ``cuda:0``.  Logged: ms a step against the
-       witness's, the gradient mean's and the gathers' host ms a step,
-       the peak device memory a rank.  Returns rank 0's launches."""
-    import gc
+def _train_mesh_spawn(tag, flags, cfg, leaves):
+    """The two ranks of :func:`_train_mesh_rank` on ``flags`` at ``cfg``'s
+    depth and activation dtype: ``(their records, rank 0's step-0
+    gradients, their step-0 expert selections)``."""
     import tempfile
     import torch
-    from repro_torch import configs, optim
-    from repro_torch.data import Pipeline
-    from repro_torch.launch import steps as S
-    from repro_torch.launch.train import data_config, device_batch
-    from repro_torch.models import api
-    tag = "train_mesh"
-    B, L, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN_MESH_STEPS
-    rows = B // MESH_WORLD
-    gc.collect()
-    torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info()[0]
-    full = configs.get_config("internlm2_1_8b", engine_spec=MODEL_SPEC)
-    cfg, predicted, why = train_depth(full, free, ranks=MESH_WORLD)
-    per_step, n_contr = train_step_launches(cfg, rows, L)
-    log(f"[{tag}] {card}: {cfg.name}: {why}; {cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, vocab {cfg.vocab}, remat blocks of "
-        f"{cfg.remat_block}; global batch {B} x seq {L}, {rows} rows a "
-        f"rank on {MESH_WORLD} ranks; predicted peak "
-        f"{predicted / 1e9:.1f} GB a rank; {n_contr} emulated "
-        f"contractions a rank a step")
-
-    # 1. the witness on one device
-    opt_cfg = optim.OptConfig(lr=3e-3,            # the launcher's rule
-                              warmup_steps=min(20, n_steps // 5 + 1),
-                              total_steps=n_steps)
-    state = S.init_state(cfg, opt_cfg,
-                         torch.Generator(device=dev).manual_seed(SEED), dev)
-    pipe = Pipeline(data_config(cfg, seq_len=L, global_batch=B, seed=SEED))
-    batch = device_batch(pipe.batch_at(0), dev)
-    loss, grads = S.loss_and_grads(cfg, state.params, batch)
-    w_loss = float(loss)
-    witness = {k: g.cpu() for k, g in _mesh_grads(grads).items()}
-    del loss, grads
-    step_fn = S.make_train_step(cfg, opt_cfg)
-    state, _ = step_fn(state, batch)
-    batch = device_batch(pipe.batch_at(1), dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, metrics = step_fn(state, batch)
-    float(metrics["loss"])
-    torch.cuda.synchronize()
-    w_ms = (time.perf_counter() - t0) * 1e3
-    del state, metrics, batch, step_fn
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[{tag}] witness (one device, batch {B}): step-0 loss "
-        f"{w_loss:.6f}; a step {w_ms:.1f} ms (step 1); this process keeps "
-        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
-
-    # 2. the ranks
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ctx = torch.multiprocessing.start_processes(
-            _train_mesh_rank, args=(tmp, cfg.n_layers, cfg.remat_block),
+            _train_mesh_rank, args=(tmp, flags, dict(
+                n_layers=cfg.n_layers, remat_block=cfg.remat_block,
+                dtype=cfg.dtype), leaves),
             nprocs=MESH_WORLD, join=False, start_method="spawn")
         deadline = time.monotonic() + MESH_TIMEOUT_S
         while not ctx.join(timeout=5):
@@ -4763,14 +4903,23 @@ def phase_train_mesh(dev, card):
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(MESH_WORLD)]
         mine = torch.load(Path(tmp, "grads0.pt"))
+        sels = [torch.load(Path(tmp, f"sels{r}.pt"))
+                for r in range(MESH_WORLD)]
     log(f"[{tag}] {MESH_WORLD} ranks on {ranks[0]['device']} over "
         f"{ranks[0]['backend']}, {time.perf_counter() - t0:.1f} s with "
         f"their start")
+    return ranks, mine, sels
 
-    dims = optim.zero_axes(api.get_model(cfg).init(
-        cfg, generator=torch.Generator(), device="meta"), MESH_WORLD)
-    want_data = {"pmean": len(dims) + 1,
-                 "all_gather_cat": sum(d is not None for d in dims)}
+
+def _train_mesh_check(tag, card, dev, ranks, mine, witness, w_loss, w_ms,
+                      n_steps, rows, per_step, want_data, predicted):
+    """The ranks' records against the witness and each other: step 0's
+    loss within 1e-5 and the named gradients within 1e-3 of max|g|,
+    bitwise equal on both ranks; the parameters bitwise equal after every
+    step; launches and data-axis collectives a step exact, no contraction
+    collective; finite losses; every parameter and batch on the card.
+    Logs the readings and each rank's ms a step, mean and gathers."""
+    import torch
     want_dev = "cuda:0" if MESH_DEVICE == "cuda" else MESH_DEVICE
     bad = []
     for r, out in enumerate(ranks):
@@ -4811,7 +4960,7 @@ def phase_train_mesh(dev, card):
         if not per_leaf[name] <= 1e-3:
             bad.append(f"gradient {name} off the witness's by "
                        f"{per_leaf[name]:.3e} of its max|g|")
-    del mine, witness
+    torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"{tag}: " + "; ".join(bad))
     log(f"[{tag}] both ranks: losses {ranks[0]['losses']} (step 0 within "
@@ -4834,6 +4983,226 @@ def phase_train_mesh(dev, card):
             f"gathers {[round(s_['gather_ms'], 1) for s_ in st]} ms a "
             f"step; peak device memory {out['peak_gb']:.2f} GB "
             f"(predicted {predicted / 1e9:.1f})")
+
+
+def phase_train_mesh(dev, card):
+    """Phase 13 (``train_mesh``): the data axis of training, two ranks,
+    one process each, on ``cuda:0`` over gloo, each part's depth cut so
+    that two ranks fit the card (:func:`train_depth` with ``ranks=2``:
+    half the free memory a rank, ZeRO-1 sparing half of AdamW's moments
+    and their new copies), under ``MODEL_SPEC``, random weights from the
+    seed, the synthetic pipeline at global batch 8 x seq 256 (4 rows a
+    rank).
+
+    (a) internlm2-1.8b at its published width.  The witness, in this
+        process: the single-device step on the whole batch of 8 at the
+        same depth from the same seed (its loss and gradients, then two
+        steps of ``make_train_step``, the second timed); freed before the
+        ranks start.  Then ``launch.train.main`` with ``--mesh data=2``
+        for :data:`TRAIN_MESH_STEPS` steps.  Held: step 0's loss on both
+        ranks within 1e-5 of the witness's; the averaged gradients of
+        :data:`TRAIN_MESH_LEAVES` within 1e-3 of the witness's max|g|
+        (not bitwise: a weight cotangent contracts over the tokens, and
+        its split scales follow the rows a rank holds), bitwise equal on
+        both ranks; the parameters bitwise equal on both ranks after every
+        step (two checksums of the bit patterns a leaf); a rank's launches
+        a step exactly :func:`train_step_launches` at 4 rows; its
+        collectives a step exactly one f32 SUM a gradient leaf and one for
+        the loss and one ``all_gather`` a ZeRO-1 leaf, no contraction
+        collective; finite losses, equal on both ranks; every parameter
+        and batch on ``cuda:0``.
+    (b) deepseek-moe-16b at its published widths (:func:`part_moe`), its
+        experts' tokens exchanged by all-to-all over ``data``.
+
+    Logged: ms a step against the witness's, the gradient mean's and the
+    gathers' host ms a step, the peak device memory a rank.  Returns rank
+    0's launches of (a) and of (b), as paths ``train_mesh`` and
+    ``train_mesh_moe``."""
+    import gc
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.data import Pipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import data_config, device_batch
+    from repro_torch.models import api
+    tag = "train_mesh"
+    B, L, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN_MESH_STEPS
+    rows = B // MESH_WORLD
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    full = configs.get_config("internlm2_1_8b", engine_spec=MODEL_SPEC)
+    cfg, predicted, why = train_depth(full, free, ranks=MESH_WORLD)
+    per_step, n_contr = train_step_launches(cfg, rows, L)
+    log(f"[{tag}] {card}: {cfg.name}: {why}; {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, remat blocks of "
+        f"{cfg.remat_block}; global batch {B} x seq {L}, {rows} rows a "
+        f"rank on {MESH_WORLD} ranks; predicted peak "
+        f"{predicted / 1e9:.1f} GB a rank; {n_contr} emulated "
+        f"contractions a rank a step")
+
+    # 1. the witness on one device
+    opt_cfg = optim.OptConfig(lr=3e-3,            # the launcher's rule
+                              warmup_steps=min(20, n_steps // 5 + 1),
+                              total_steps=n_steps)
+    state = S.init_state(cfg, opt_cfg,
+                         torch.Generator(device=dev).manual_seed(SEED), dev)
+    pipe = Pipeline(data_config(cfg, seq_len=L, global_batch=B, seed=SEED))
+    batch = device_batch(pipe.batch_at(0), dev)
+    loss, grads = S.loss_and_grads(cfg, state.params, batch)
+    w_loss = float(loss)
+    witness = {k: g.cpu() for k, g in
+               _mesh_grads(grads, TRAIN_MESH_LEAVES).items()}
+    del loss, grads
+    step_fn = S.make_train_step(cfg, opt_cfg)
+    state, _ = step_fn(state, batch)
+    batch = device_batch(pipe.batch_at(1), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    w_ms = (time.perf_counter() - t0) * 1e3
+    del state, metrics, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] witness (one device, batch {B}): step-0 loss "
+        f"{w_loss:.6f}; a step {w_ms:.1f} ms (step 1); this process keeps "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+    # 2. the ranks
+    ranks, mine, _ = _train_mesh_spawn(tag, TRAIN_MESH_FLAGS, cfg,
+                                       TRAIN_MESH_LEAVES)
+    dims = optim.zero_axes(api.get_model(cfg).init(
+        cfg, generator=torch.Generator(), device="meta"), MESH_WORLD)
+    want_data = {"pmean": len(dims) + 1,
+                 "all_gather_cat": sum(d is not None for d in dims),
+                 "all_to_all": 0, "all_gather_rows": 0}
+    _train_mesh_check(tag, card, dev, ranks, mine, witness, w_loss, w_ms,
+                      n_steps, rows, per_step, want_data, predicted)
+    del mine, witness
+    return {"train_mesh": dict(ranks[0]["launches"]),
+            "train_mesh_moe": part_moe(dev, card)}
+
+
+def part_moe(dev, card):
+    """Phase 13 (b): ``launch.train.main --arch deepseek_moe_16b --full
+    --mesh data=2`` at the published widths, cut in depth by
+    :func:`train_depth` with ``ranks=2``, in f32 activations (in bf16 an
+    expert's weight cotangent is rounded to bf16: summed over both ranks'
+    tokens in one contraction and then rounded, against the witness's two
+    roundings, it parts from it by up to a bf16 ulp, ~4e-3 of max|g|), for
+    :data:`TRAIN_MESH_MOE_STEPS` steps; every layer's expert products run
+    on the rank's 32 resident experts over both ranks' dispatched tokens
+    (two all-to-alls a layer in the forward, two in the remat recompute,
+    two in the backward).
+
+    The witness, in this process before the ranks start: the one-device
+    step 0 on each rank's rows (the pipeline's host slice) with the
+    scatter path (no mesh), the two losses and gradients averaged: the
+    per-rank capacity as the ranks have it.  Held: both ranks' step-0
+    loss within 1e-5 of the witness's; the averaged gradients of
+    :data:`TRAIN_MESH_MOE_LEAVES` within 1e-3 of its max|g|, bitwise equal
+    on both ranks; no expert flips (each row's expert selection the
+    witness's); the parameters bitwise equal on both ranks after each
+    step; launches a step exactly :func:`train_step_launches` with the
+    expert products over both ranks' capacity rows; data-axis
+    collectives a step exact (``6 x layers`` all-to-alls, one f32 SUM a
+    gradient leaf and one for the loss, one ZeRO-1 gather a split leaf).
+    Logged: each all-to-all's bytes and host ms, ms a step, the mean's
+    and the gathers' host ms, the peak a rank.  Returns rank 0's
+    launches."""
+    import gc
+    import torch
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import Pipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import data_config, device_batch
+    from repro_torch.models import api
+    tag = "train_mesh (b)"
+    B, L, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN_MESH_MOE_STEPS
+    rows = B // MESH_WORLD
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    full = configs.get_config("deepseek_moe_16b", engine_spec=MODEL_SPEC,
+                              dtype="float32")
+    cfg, predicted, why = train_depth(full, free, ranks=MESH_WORLD)
+    per_step, n_contr = train_step_launches(cfg, rows, L,
+                                            expert_ranks=MESH_WORLD)
+    log(f"[{tag}] {card}: {cfg.name}: {why}; {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_experts} experts of "
+        f"{cfg.d_model}x{cfg.d_ff_expert} (top-{cfg.topk}, "
+        f"{cfg.n_shared_experts} shared), vocab {cfg.vocab}, remat blocks "
+        f"of {cfg.remat_block}, dispatch {cfg.moe_dispatch}, "
+        f"{cfg.dtype} activations; global batch "
+        f"{B} x seq {L}, {rows} rows a rank; predicted peak "
+        f"{predicted / 1e9:.1f} GB a rank; {n_contr} emulated contractions "
+        f"a rank a step")
+
+    # the witness: each rank's rows on one device, scatter path, averaged
+    params = api.get_model(cfg).init(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    losses, w_sels, witness = [], [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(MESH_WORLD):
+        pipe = Pipeline(data_config(cfg, seq_len=L, global_batch=B,
+                                    seed=SEED), host_id=r,
+                        num_hosts=MESH_WORLD)
+        install, uninstall, sels = _routing_recorder(cfg.n_layers)
+        install()
+        try:
+            loss, grads = S.loss_and_grads(
+                cfg, params, device_batch(pipe.batch_at(0), dev))
+        finally:
+            uninstall()
+        losses.append(float(loss))
+        w_sels.append(sels)
+        for k, g in _mesh_grads(grads, TRAIN_MESH_MOE_LEAVES).items():
+            g = g.cpu() / MESH_WORLD
+            witness[k] = g if k not in witness else witness[k] + g
+        del loss, grads
+    torch.cuda.synchronize()
+    w_ms = (time.perf_counter() - t0) * 1e3 / MESH_WORLD
+    w_loss = sum(losses) / MESH_WORLD
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] witness (one device, each rank's {rows} rows, scatter "
+        f"path, averaged): step-0 losses {losses}, mean {w_loss:.6f}; "
+        f"{w_ms:.1f} ms a rank's forward + backward; {n_params / 1e9:.3f} "
+        f"B parameters; this process keeps "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+    ranks, mine, sels = _train_mesh_spawn(tag, TRAIN_MESH_MOE_FLAGS, cfg,
+                                          TRAIN_MESH_MOE_LEAVES)
+    flips = [expert_flips(a, b, cfg.n_experts)
+             for a, b in zip(sels, w_sels)]
+    n_flip = sum(f for per in flips for f, _ in per)
+    log(f"[{tag}] expert selections of step 0's forward against the "
+        f"witness's, by rank and layer: flipped (token, choice) pairs "
+        f"{[[f for f, _ in per] for per in flips]} of {rows * L * cfg.topk}"
+        f" a layer")
+    if n_flip or any(len(a) != cfg.n_layers for a in sels):
+        raise AssertionError(f"{tag}: expert flips against the witness: "
+                             f"{flips}")
+    dims = optim.zero_axes(api.get_model(cfg).init(
+        cfg, generator=torch.Generator(), device="meta"), MESH_WORLD)
+    want_data = {"pmean": len(dims) + 1,
+                 "all_gather_cat": sum(d is not None for d in dims),
+                 "all_to_all": 6 * cfg.n_layers, "all_gather_rows": 0}
+    _train_mesh_check(tag, card, dev, ranks, mine, witness, w_loss, w_ms,
+                      n_steps, rows, per_step, want_data, predicted)
+    for r, out in enumerate(ranks):
+        for i, s_ in enumerate(out["steps"]):
+            a2a = s_["a2a"]
+            log(f"[{tag}] {card}: rank {r} step {i}: {len(a2a)} "
+                f"all-to-alls, MB / host ms each: " + ", ".join(
+                    f"{b / 1e6:.1f} / {ms:.1f}" for b, ms in a2a)
+                + f"; {sum(ms for _, ms in a2a):.1f} ms in all")
     return {k: v for k, v in ranks[0]["launches"].items()}
 
 
@@ -4933,9 +5302,9 @@ def main() -> int:
         paths[tag], _, extra = phase_serve_ctx(dev, arch, card)
         paths.update(extra)
     lap("serve_ssm, serve_hybrid, serve_encdec, serve_vlm")
-    paths["mesh"] = phase_mesh(dev, card)
+    paths.update(phase_mesh(dev, card))
     lap("mesh")
-    paths["train_mesh"] = phase_train_mesh(dev, card)
+    paths.update(phase_train_mesh(dev, card))
     lap("train_mesh")
 
     records = []

@@ -5,8 +5,9 @@ d_ff=1408 vocab=102400; 2 shared + 64 routed experts, top-6, fine-grained.
 The reference's mesh keys (``RULES_OVERRIDES``: experts on the data axis,
 the expert MLP on the model axis) ride along for
 ``launch.mesh.mesh_rules``.  ``moe_dispatch="a2a"`` without a data axis
-takes the reference's own no-mesh branch, the scatter dispatch; the
-all-to-all over a data axis is the second distributed slice (2b)."""
+takes the reference's own no-mesh branch, the scatter dispatch; under
+a data axis that divides the 64 experts the tokens are exchanged by
+all-to-all (``models.moe.moe_ffn_a2a``)."""
 from repro_torch.models.common import ModelConfig
 
 RULES_OVERRIDES = {"experts": ("data",), "expert_mlp": "model",

@@ -12,8 +12,9 @@ The reference's mesh keys (``RULES_OVERRIDES``: experts on the data axis,
 the expert MLP, the latent and the rope key on the model axis) ride along
 for ``launch.mesh.mesh_rules``; its benchmark's ``SKIP_SHAPES`` come with
 the port's benchmark.  ``moe_dispatch="a2a"`` without a data axis takes
-the reference's own no-mesh branch, the scatter dispatch; the all-to-all
-over a data axis is the second distributed slice (2b)."""
+the reference's own no-mesh branch, the scatter dispatch; under a data
+axis that divides the 160 experts the tokens are exchanged by all-to-all
+(``models.moe.moe_ffn_a2a``)."""
 from repro_torch.models.common import ModelConfig
 
 RULES_OVERRIDES = {"experts": ("data",), "expert_mlp": "model",

@@ -128,6 +128,13 @@ class MatmulEngine:
         return torch.float64 if self.ozimmu_config.accum_dtype == "f64" \
             else torch.float32
 
+    def local(self) -> "MatmulEngine":
+        """This engine without the ``@mesh_axis`` suffix: single-device
+        semantics, for a body that already owns its rank's share of the
+        mesh (the MoE all-to-all's resident experts)."""
+        return MatmulEngine(self.spec.split("@")[0]) if "@" in self.spec \
+            else self
+
     def dot_general(self, lhs: torch.Tensor, rhs, dimension_numbers,
                     out_dtype=None) -> torch.Tensor:
         """Contract ``lhs`` with ``rhs`` under lax dimension numbers;

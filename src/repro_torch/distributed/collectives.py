@@ -25,12 +25,20 @@ The data axis of training adds two more:
   * :func:`all_gather_cat` — the ZeRO-1 update's parameter slices,
     gathered and concatenated back into whole parameters.
 
+The data axis of serving and the MoE expert exchange add two:
+
+  * :func:`all_to_all` — equal blocks exchanged over one axis (the MoE
+    dispatch and its return), differentiable: its backward is the reverse
+    exchange of the cotangent.
+  * :func:`all_gather_rows` — every batch rank's rows (the serving
+    runtime's greedy tokens), concatenated in rank order.
+
 Each takes the axis name(s) of the installed mesh
 (:func:`repro_torch.distributed.compat.set_mesh`) and runs one collective
 on each axis's process group, under a ``ozimmu/mesh/<name>`` phase scope;
 :data:`COUNTS` counts the contraction collectives by function and
-:data:`DATA_COUNTS` the data axis's.  On a gloo group a CUDA
-tensor is staged through pinned host memory by gloo itself; a failed
+:data:`DATA_COUNTS` the data axis's.  On a gloo group a CUDA tensor is
+staged through host memory by gloo itself, its all-to-all's too; a failed
 collective raises.
 """
 from __future__ import annotations
@@ -46,12 +54,13 @@ from repro_torch.distributed import compat
 from repro_torch.obs import tracing as _tracing
 
 __all__ = ["psum_exact_int32", "psum_df32", "psum_compensated",
-           "pmax_scales", "pmean", "all_gather_cat", "COUNTS",
-           "DATA_COUNTS", "reset_counts"]
+           "pmax_scales", "pmean", "all_gather_cat", "all_to_all",
+           "all_gather_rows", "COUNTS", "DATA_COUNTS", "reset_counts"]
 
 COUNTS: Dict[str, int] = {"pmax_scales": 0, "psum_exact_int32": 0,
                           "psum_df32": 0, "psum_compensated": 0}
-DATA_COUNTS: Dict[str, int] = {"pmean": 0, "all_gather_cat": 0}
+DATA_COUNTS: Dict[str, int] = {"pmean": 0, "all_gather_cat": 0,
+                               "all_to_all": 0, "all_gather_rows": 0}
 
 
 def reset_counts() -> None:
@@ -183,3 +192,66 @@ def all_gather_cat(x: torch.Tensor, dim: int,
         parts = _all_gather(x, axis, "all_gather_cat")
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
     return x
+
+
+def _exchange(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """One ``all_to_all_single`` of ``x``'s equal leading blocks over the
+    axis: block j of this rank goes to rank j, and block i of the result
+    came from rank i."""
+    group = _group(axis)[0]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with _tracing.phase_scope("mesh/all_to_all"):
+        _count("all_to_all")
+        dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange of equal blocks; the cotangent takes the same
+    exchange back (the block permutation is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _exchange(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.axis), None
+
+
+def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Exchange ``x``'s leading dim, split into one equal block a rank of
+    ``axis``: rank r sends its block j to rank j and receives rank i's
+    block r as its block i (``lax.all_to_all(..., split_axis=0,
+    concat_axis=0, tiled=False)`` on a ``(size, ...)`` array).
+    Differentiable; one collective a call, forward or backward."""
+    size = _group(axis)[1]
+    if x.shape[0] % size:
+        raise ValueError(f"all_to_all over {axis!r} ({size} ranks) needs a "
+                         f"leading dim divisible by it, got {tuple(x.shape)}")
+    if size == 1:
+        return x
+    return _AllToAll.apply(x, axis)
+
+
+def all_gather_rows(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Every rank's int32 rows along ``axes`` (one or two batch axes, in
+    mesh order), concatenated on dim 0 in the ranks' row-major order over
+    ``axes``: the innermost axis is gathered first.  Counted once a
+    call."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"all_gather_rows gathers int32 rows, got {x.dtype}")
+    if not axes:
+        return x
+    out = x.contiguous()
+    with _tracing.phase_scope("mesh/all_gather_rows"):
+        _count("all_gather_rows")
+        for axis in reversed(tuple(axes)):
+            group, size = _group(axis)
+            if size > 1:
+                parts = [torch.empty_like(out) for _ in range(size)]
+                dist.all_gather(parts, out, group=group)
+                out = torch.cat(parts, 0)
+    return out

@@ -15,14 +15,17 @@ of one axis.
 :func:`set_mesh` installs a mesh for a ``with`` block and
 :func:`get_abstract_mesh` reads it: always an object with ``.empty`` /
 ``.axis_names`` / ``.shape`` (:data:`EMPTY_MESH` outside any mesh), so
-call sites never branch on ``None``.
+call sites never branch on ``None``.  The installed mesh is the
+process's, not a thread's: a rank is a process, and autograd runs a CUDA
+backward (and the remat recompute inside it) on a device thread of its
+own, which must see the mesh its forward ran under.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
 import math
-import threading
+import types
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch.distributed as dist
@@ -128,17 +131,18 @@ def _ravel(coord: Sequence[int], sizes: Sequence[int]) -> int:
     return flat
 
 
-_state = threading.local()
+_state = types.SimpleNamespace(mesh=EMPTY_MESH)
 
 
 def get_abstract_mesh():
     """The mesh installed by :func:`set_mesh`, else :data:`EMPTY_MESH`."""
-    return getattr(_state, "mesh", EMPTY_MESH)
+    return _state.mesh
 
 
 @contextlib.contextmanager
 def set_mesh(mesh: Mesh):
-    """Install ``mesh`` for the enclosed block (this thread)."""
+    """Install ``mesh`` for the enclosed block (this process: every
+    thread sees it, autograd's device threads too)."""
     if mesh.coord is None:
         raise ValueError(f"rank {mesh.rank} lies outside the mesh "
                          f"{mesh.shape}")

@@ -14,12 +14,14 @@ hints (``models/layers.py``), and its mesh shards the emulated
 contractions (``@axis`` engine specs), every rank holding whole operands,
 and the training data axis.  :func:`rule_axes` reads which mesh axes a
 rule spans on the live mesh: ``batch`` the ranks a training batch is split
-over, ``zero`` those the ZeRO-1 optimizer state is split over.
+over, ``zero`` those the ZeRO-1 optimizer state is split over.  The
+active rules are the process's, as the installed mesh is
+(:mod:`repro_torch.distributed.compat`).
 """
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 from typing import Optional, Sequence, Tuple
 
 __all__ = ["SINGLE_POD_RULES", "MULTI_POD_RULES", "use_rules", "get_rules",
@@ -58,11 +60,11 @@ MULTI_POD_RULES.update({
     "zero": ("pod", "data"),
 })
 
-_state = threading.local()
+_state = types.SimpleNamespace(rules=None)
 
 
 def get_rules() -> Optional[Rules]:
-    return getattr(_state, "rules", None)
+    return _state.rules
 
 
 @contextlib.contextmanager

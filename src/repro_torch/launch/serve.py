@@ -29,9 +29,19 @@ repro_torch.launch.serve ...``) or is already initialized by the caller
 share one card or run on the CPU, NCCL when each rank has a card of its
 own (that route has not yet run on any host; the one-card runs use
 gloo).  Every
-rank holds the whole model; rank 0 prints.  A ``data`` or ``pod`` axis of
-more than one rank (the batch split) is the second distributed slice and
-raises ``NotImplementedError``.
+rank holds the whole model; rank 0 prints.
+
+``--mesh data=N`` (or ``pod=N``, or both) splits the slots over the N
+batch ranks: each rank's cache holds its S/N slots and every rank runs
+every model call on its own rows, its greedy tokens gathered so that the
+replicated schedulers agree (:class:`~repro_torch.serving.ServingRuntime`);
+the MoE archs exchange their experts' tokens over ``data`` by
+all-to-all.  ``--mesh data=2,model=2`` composes both: the ``@model``
+groups lie within a data line.  Every rank serves the same requests, and
+the summary rank 0 prints is the global schedule's.  The paged pool and
+the prefix cache under a batch axis of more than one rank raise
+``NotImplementedError``: a prefix hit would need blocks that live on the
+rank that wrote them.
 """
 from __future__ import annotations
 
@@ -133,8 +143,9 @@ def main(argv=None):
                     help="matmul engine spec, e.g. bf16, f32 or "
                          "ozimmu_h-4:df32:fused")
     ap.add_argument("--mesh", default=None,
-                    help="mesh spec, e.g. 'model=2': shards the contractions "
-                         "of an '@model' engine over that many ranks "
+                    help="mesh spec, e.g. 'data=2' (the slots split over "
+                         "the ranks) or 'model=2' (the contractions of an "
+                         "'@model' engine sharded over them), or both "
                          "(torchrun); default no mesh (single device)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the unified metrics document (registry "
@@ -155,15 +166,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     n_requests = args.requests if args.requests is not None else args.slots
-    if args.mesh:
-        other = [a for a, n in mesh_lib.spec_axes(args.mesh).items()
-                 if a != "model" and n > 1]
-        if other:
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: the {'/'.join(other)} split of the "
-                f"batch comes with the second distributed slice of the "
-                f"port (2b); this one shards contractions over 'model' "
-                f"only")
+    batch = [a for a, n in (mesh_lib.spec_axes(args.mesh) if args.mesh
+                            else {}).items() if a != "model" and n > 1]
+    if batch and (args.page_block is not None or args.prefix_cache):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the paged pool and the prefix cache are "
+            f"not split over the {'/'.join(batch)} batch ranks yet (a "
+            f"prefix hit would need blocks that live on the rank that "
+            f"wrote them); serve without --page-block there")
     with mesh_lib.process_group(args.mesh, args.device) as device:
         mesh = mesh_lib.parse_mesh_spec(args.mesh)
         if mesh is not None and mesh.rank == 0:

@@ -21,8 +21,12 @@ gradient are averaged over those axes (:func:`collectives.pmean`: an f32
 SUM, then a division by their size), and AdamW updates the ZeRO-1 slices
 of its state (``opt_axes``) and gathers the parameters whole.  Ranks of
 one ``model`` line take the same rows: an ``@model`` engine shards their
-contractions.  The reference's ``compress_pod_grads`` (int8 gradient
-compression across the ``pod`` axis) raises.  The serve steps live in
+contractions.  A MoE arch with ``moe_dispatch="a2a"`` exchanges its
+experts' tokens over ``data`` inside the loss; its gradient reaches the
+rank that owns each expert, and the mean gives every rank the whole
+batch's.  The reference's ``compress_pod_grads`` (int8 gradient
+compression across the ``pod`` axis) raises: the reference declares it,
+but its step never reads it.  The serve steps live in
 :mod:`repro_torch.serving`.
 """
 from __future__ import annotations
@@ -125,9 +129,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,
     the reference declares it, but its step never reads it."""
     if tcfg.compress_pod_grads:
         raise NotImplementedError("compress_pod_grads (int8 gradient "
-                                  "compression across the pod axis) comes "
-                                  "with the second distributed slice of the "
-                                  "port (2b)")
+                                  "compression across the pod axis): the "
+                                  "reference declares the flag, but its "
+                                  "step never reads it")
     acc_dt = _DTYPES[tcfg.accum_dtype]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):

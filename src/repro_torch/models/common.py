@@ -43,8 +43,9 @@ class ModelConfig:
     topk: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
-    moe_dispatch: str = "scatter"     # scatter | a2a (no data axis:
-                                      # scatter)
+    moe_dispatch: str = "scatter"     # scatter | a2a (all-to-all over
+                                      # a data axis dividing n_experts;
+                                      # else scatter)
     # MLA (deepseek-v2)
     kv_lora: int = 0
     q_lora: int = 0                   # carried, unused (a full Q projection)

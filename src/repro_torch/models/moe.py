@@ -24,11 +24,18 @@ the expert choice and the capacity drops are discrete, as in the
 reference.  :func:`aux_load_balance_loss` is the reference's Switch-style
 auxiliary loss; like the reference, no training loss adds it.
 
-Left for the second distributed slice (2b), and raising until then: the
-expert-parallel all-to-all body of ``moe_ffn_a2a`` over a ``data`` mesh
-axis.  Without one the reference's ``a2a`` dispatch is its scatter path,
-and so it is here (an ``@model`` engine still shards each expert
-contraction over ``model``).
+``moe_ffn_a2a`` is the expert-parallel dispatch over a ``data`` mesh
+axis whose size divides the experts: each rank routes its own tokens into
+an ``(E, cap, d)`` buffer (the capacity from its own token count), one
+all-to-all over ``data`` hands every rank the blocks of its resident
+experts, it runs them as views of the whole stacks under the engine
+without its ``@axis`` suffix, and a second all-to-all brings the outputs
+back to combine.  The ``pod`` axis is pure data parallelism: experts are
+exchanged over ``data`` only.  Without such an axis it is the scatter
+path, as the reference's fallback is.  Through the differentiable
+all-to-all the rank owning expert e holds the sum over ranks of their
+losses' gradients in W_e and the other ranks zero, so the training step's
+mean over the batch axes gives the whole batch's gradient on every rank.
 """
 from __future__ import annotations
 
@@ -153,18 +160,78 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, d)
 
 
+def _local_dispatch(xt: torch.Tensor, e_idx, slot, keep, E: int, cap: int):
+    """This rank's dense dispatch of the routed pairs (:func:`_route`):
+    (T, d) tokens -> an (E, cap, d) buffer, and each pair's row in it.  A
+    dropped pair adds a zero into its expert's last row, so the buffer
+    needs no pad row."""
+    K = e_idx.shape[0] // xt.shape[0]
+    slot = torch.where(keep, slot, torch.full_like(slot, cap - 1))
+    src = xt.repeat_interleave(K, dim=0) * keep[:, None].to(xt.dtype)
+    buf = torch.zeros((E, cap, xt.shape[1]), dtype=xt.dtype,
+                      device=xt.device)
+    return buf.index_put((e_idx, slot), src, accumulate=True), slot
+
+
+def _local_combine(out_e, e_idx, slot, w, keep, T_: int, K: int, d: int,
+                   dtype):
+    """The inverse of :func:`_local_dispatch`: each pair's expert output,
+    weighted (a dropped pair by zero), summed over its token's K."""
+    gathered = out_e[e_idx, slot]
+    wk = (w.reshape(T_ * K, 1) * keep[:, None]).to(dtype)
+    return (gathered * wk).reshape(T_, K, d).sum(dim=1)
+
+
 def moe_ffn_a2a(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The expert-parallel dispatch.  Without a ``data`` mesh axis whose
-    size divides the experts this is the reference's fallback, the
-    scatter path; with one, the all-to-all raises (slice 2b)."""
-    from repro_torch.distributed import compat
+    """The expert-parallel MoE FFN: this rank's tokens (B, S, d) routed
+    locally, their per-expert blocks exchanged over the ``data`` axis by
+    one all-to-all each way, the rank's ``E / data`` resident experts run
+    on every rank's blocks.  Without a ``data`` axis whose size divides
+    the experts this is :func:`moe_ffn`, the reference's fallback.
+
+    Each rank's output is :func:`moe_ffn` on its own rows bit for bit:
+    the routing and the capacity are the rank's, and an emulated row of
+    an expert product depends on that row and the expert's weights
+    only."""
+    from repro_torch.distributed import collectives, compat
     mesh = compat.get_abstract_mesh()
-    data = mesh.shape.get("data", 1)
-    if data > 1 and cfg.n_experts % data == 0:
-        raise NotImplementedError(
-            "the MoE all-to-all over the data axis comes with the second "
-            "distributed slice of the port (2b)")
-    return moe_ffn(p, cfg, x)
+    if "data" not in mesh.axis_names or \
+            cfg.n_experts % mesh.shape["data"] != 0:
+        return moe_ffn(p, cfg, x)
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.topk
+    dp = mesh.shape["data"]
+    E_loc = E // dp
+    mine = slice(mesh.index("data") * E_loc, (mesh.index("data") + 1) * E_loc)
+    # the rank owns its share of the mesh: single-device contractions
+    eng = cfg.engine.local()
+    T_ = B * S
+    xt = x.reshape(T_, d)
+
+    # the scatter path's router math, so both dispatches route alike
+    gates = torch.softmax(_router_gates(xt, p["router"]), dim=-1)
+    cap = _capacity(cfg, T_)
+    w, _, e_idx, slot, keep = _route(gates, K, cap)
+    buf, slot = _local_dispatch(xt, e_idx, slot, keep, E, cap)
+
+    # block j (experts [j E_loc, (j+1) E_loc)) to rank j; recv[i] holds
+    # rank i's tokens for this rank's experts
+    recv = collectives.all_to_all(buf.reshape(dp, E_loc, cap, d), "data")
+    recv = recv.transpose(0, 1).reshape(E_loc, dp * cap, d)
+    h = eng.dot_general(recv, p["w_gate"][mine].to(x.dtype), _EXPERT_DNUMS)
+    u = eng.dot_general(recv, p["w_up"][mine].to(x.dtype), _EXPERT_DNUMS)
+    h = F.silu(h) * u
+    out_e = eng.dot_general(h, p["w_down"][mine].to(x.dtype), _EXPERT_DNUMS)
+    back = collectives.all_to_all(
+        out_e.reshape(E_loc, dp, cap, d).transpose(0, 1), "data")
+    out = _local_combine(back.reshape(E, cap, d), e_idx, slot, w, keep, T_,
+                         K, d, x.dtype)
+
+    if cfg.n_shared_experts:
+        sp = p["shared"]
+        out = out + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"],
+                             cfg.engine).reshape(T_, d)
+    return out.reshape(B, S, d)
 
 
 def moe_ffn_dispatch(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,18 @@ a later request whose prompt starts with a published prefix adopts it at
 admission and prefills only its suffix.  Under pool pressure LRU entries
 are released before any slot is preempted.
 
+Under a mesh whose ``cache_batch`` rule spans axes of more than one rank
+(``data``; ``pod`` and ``data`` on a multi-pod mesh) the slots are split
+over those N batch ranks: rank i owns slots ``[i S/N, (i+1) S/N)``, and
+its cache (and the vlm / encdec context) holds only those.  The scheduler
+and the per-slot host state stay whole on every rank, and every rank runs
+every model call on its own rows (a rank whose slots are all idle too:
+the ``@model`` contraction collectives and the MoE all-to-all are
+collective); the greedy tokens of all ranks are gathered into the (S,)
+vector after each call (one ``collectives.all_gather_rows``), so every
+rank's scheduler takes the same decisions.
+The paged pool and the prefix cache are not split yet and raise there.
+
 ``decode_observed`` (None until set): the emulation counters of the first
 decode step run while the obs layer is enabled — contractions, int8 GEMMs
 (and those on presplit weights), high-precision adds.  The port records
@@ -77,6 +89,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import plan
 from repro_torch.core.engine import presplit_trace_counts
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import rule_axes
 from repro_torch.models import api
 from repro_torch.obs import registry as _obs
 from repro_torch.serving import presplit as presplit_mod
@@ -128,6 +142,11 @@ class ServingRuntime:
       prefix_cache: True (or a :class:`PrefixCache` bound to this
         runtime's pool) serves shared prompt prefixes by block aliasing;
         requires ``page_block``.
+
+    Under an installed mesh and rules whose ``cache_batch`` axes have N >
+    1 ranks, ``slots`` must divide by N and this rank serves its S/N
+    slots (module docstring); ``page_block`` and ``prefix_cache`` raise
+    there.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 128,
@@ -142,6 +161,20 @@ class ServingRuntime:
         self.device = resolve_device(device)
         self.cfg, self.model = cfg, api.get_model(cfg)
         self.n_slots, self.max_len = slots, max_len
+        # the batch ranks' split of the slots: this rank's rows
+        self._batch_axes, n_ranks, rank = rule_axes("cache_batch")
+        if slots % n_ranks:
+            raise ValueError(f"{slots} slots do not split over the "
+                             f"{n_ranks} ranks of {self._batch_axes}")
+        if n_ranks > 1 and (page_block is not None or isinstance(
+                prefix_cache, PrefixCache) or prefix_cache):
+            raise NotImplementedError(
+                f"the paged pool and the prefix cache under a batch axis "
+                f"of {n_ranks} ranks ({'/'.join(self._batch_axes)}): a "
+                f"prefix hit would need blocks that live on the rank that "
+                f"wrote them; serve monolithic (no page_block) there")
+        local = slots // n_ranks
+        self._rows = slice(rank * local, (rank + 1) * local)
         self.prefill_chunk = prefill_chunk
         engine = cfg.engine
         params = _to_device(params, self.device)
@@ -185,8 +218,8 @@ class ServingRuntime:
                                      device=self.device)
             else:
                 self.cache = self.model.init_cache(
-                    cfg, slots, max_len, params=self.params,
-                    ctx=None if ctx is None else torch.cat([ctx] * slots),
+                    cfg, local, max_len, params=self.params,
+                    ctx=None if ctx is None else torch.cat([ctx] * local),
                     device=self.device)
         self.prefix: Optional[PrefixCache] = None
         # NOT a truthiness test: an empty PrefixCache has len() == 0
@@ -219,9 +252,18 @@ class ServingRuntime:
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _local(self, x: np.ndarray) -> torch.Tensor:
+        """This rank's slot rows of an (S, ...) host array, on the
+        device."""
+        return self._tensor(x[self._rows])
+
     def _argmax(self, logits: torch.Tensor) -> np.ndarray:
-        return torch.argmax(logits[:, -1, :self.cfg.vocab],
-                            dim=-1).to(torch.int32).cpu().numpy()
+        """The (S,) greedy tokens: this rank's rows, gathered over the
+        batch ranks."""
+        toks = torch.argmax(logits[:, -1, :self.cfg.vocab],
+                            dim=-1).to(torch.int32)
+        return collectives.all_gather_rows(
+            toks, self._batch_axes).cpu().numpy()
 
     @torch.no_grad()
     def _decode(self, toks: np.ndarray, cur: np.ndarray,
@@ -230,9 +272,10 @@ class ServingRuntime:
         rows are not written; their other leaves are reset at admission);
         with ``_decode_select`` only the ``active`` slots take the step's
         cache.  Paged: the step runs on the pool's gathered view, and
-        writes back the appended rows and the active slots' state."""
-        cur_d = self._tensor(cur)
+        writes back the appended rows and the active slots' state.  Every
+        (S,) input is cut to this rank's rows."""
         if self.paged is not None:
+            cur_d = self._tensor(cur)
             tables = self.paged.device_tables()
             active_d = self._tensor(active)
             with plan.static_plan():
@@ -244,10 +287,11 @@ class ServingRuntime:
             return self._argmax(logits)
         with plan.static_plan():
             logits, cache = self.model.decode_step(
-                self.params, self.cfg, self.cache, self._tensor(toks), cur_d)
+                self.params, self.cfg, self.cache, self._local(toks),
+                self._local(cur))
         if self._decode_select:
             cache = self.ops.select_slots(cache, self.cache,
-                                          self._tensor(active))
+                                          self._local(active))
         self.cache = cache
         return self._argmax(logits)
 
@@ -257,14 +301,15 @@ class ServingRuntime:
         """The decode step over the bucket; each participating slot's chunk
         is right-aligned and resumes ``base`` tokens in.  Paged: the
         participating slots' view is gathered once (the rows past ``base``
-        zeroed), and each slot's span is written back after the loop."""
+        zeroed), and each slot's span is written back after the loop.
+        Every (S,) input is cut to this rank's rows."""
         Lb = toks.shape[1]
         # every position's (slots,) cur vector, copied to the device once
         curs = np.stack([np.where(newmask & (i >= start),
                                   base + i - start + 1, 0)
                          for i in range(Lb)]).astype(np.int32)
-        toks_d, curs_d = self._tensor(toks), self._tensor(curs)
-        mask_d = self._tensor(newmask)
+        toks_d, mask_d = self._local(toks), self._local(newmask)
+        curs_d = self._tensor(curs[:, self._rows])
         if self.paged is not None:
             before = self.paged.gather(
                 self.paged.device_tables(),
@@ -372,8 +417,9 @@ class ServingRuntime:
         """Per-slot cache preparation at admission: the template reset, or
         a prefix-cache adoption that starts the slot mid-prefill."""
         if self.paged is None:
-            self.cache = self.ops.reset_slot(self.cache, slot,
-                                             self._template)
+            if self._rows.start <= slot < self._rows.stop:
+                self.cache = self.ops.reset_slot(
+                    self.cache, slot - self._rows.start, self._template)
             return
         entry = None if self.prefix is None else \
             self.prefix.lookup(req.prefill_tokens())

@@ -4,19 +4,28 @@
   every arch, ``logical_to_pspec`` / ``spec_tree`` and the mesh half of
   the split-cache and prefix-cache keys, held to the reference's (a mesh
   of one device on each side);
-* on 2 gloo ranks on the CPU (one spawn for the file;
+* on 2 gloo ranks on the CPU (one spawn;
   ``tests/torch_mesh_worker.py`` runs the ranks): ``serve.main([...,
   "--mesh", "model=2", "--device", "cpu"])`` at the smoke config under an
   ``@model`` engine gives the single-device run's tokens on both ranks,
   and the paged + chunked + prefix-cached runtime under the mesh gives the
   monolithic mesh runtime's over a cold and a hit wave (the reference's
-  ``test_serving_prefix_chunked_paged_mesh_bitwise``);
-* what stays for the second half of the second distributed slice raises,
-  naming it: a ``data`` axis under ``serve --mesh``, the MoE all-to-all
-  over a data axis and ``compress_pod_grads``; ``train --mesh`` in one
-  process fails as the reference's does (the sharded trainer is
+  ``test_serving_prefix_chunked_paged_mesh_bitwise``); the batch split,
+  ``--mesh data=2`` and ``--mesh pod=2``, and the MoE arch under
+  ``data=2`` (its experts' tokens exchanged by all-to-all inside every
+  model call) give the single-device tokens on both ranks, with one
+  gather of the greedy tokens a model call; the paged pool under
+  ``data=2`` raises, naming what is left;
+* on 4 gloo ranks (one spawn): ``--mesh data=2,model=2`` under an
+  ``@model`` engine gives the single-device tokens on every rank (the
+  reference's ``test_serving_runtime_mesh_smoke`` shape);
+* ``compress_pod_grads`` raises, saying that the reference declares it and
+  never reads it; ``train --mesh`` in one process fails as the
+  reference's does (the sharded trainer is
   ``tests/test_torch_train_mesh.py``'s).
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -39,12 +48,20 @@ from repro_torch.launch import mesh as P_mesh
 from repro_torch.launch import steps as P_steps
 from repro_torch.launch import train as P_train
 from repro_torch.serving import prefix_cache as P_prefix
-from tests.torch_mesh_worker import spawn
+from tests.torch_mesh_worker import served_run, start
 
 SPEC = "ozimmu_h-4:df32:fused@model"
+DATA_SPEC = "ozimmu_h-4:df32:fused"
 ARGV = ["--arch", "internlm2_1_8b", "--slots", "2", "--requests", "3",
         "--prompt-len", "8", "--gen", "4", "--max-len", "32", "--engine",
         SPEC, "--device", "cpu"]
+DATA_ARGV = ARGV[:-3] + [DATA_SPEC, "--device", "cpu"]
+MOE_ARGV = ["--arch", "deepseek_moe_16b"] + DATA_ARGV[2:]
+# the reference's test_serving_runtime_mesh_smoke shape: 2 requests of 3
+# tokens
+DM_ARGV = ARGV[:2] + ["--slots", "2", "--requests", "2", "--prompt-len",
+                      "6", "--gen", "3", "--max-len", "32", "--engine",
+                      SPEC, "--device", "cpu"]
 
 
 # ---------------------------------------------------------------------------
@@ -152,18 +169,47 @@ def test_cache_keys_mesh_half_matches_reference():
     assert P_compat.get_abstract_mesh() is P_compat.EMPTY_MESH
 
 
+def test_runtime_slot_split_over_the_batch_ranks():
+    """Under multi-pod rules ``cache_batch`` spans pod and data: on a mesh
+    of pod=2 x data=2 the rank at pod 1, data 0 is batch rank 2 of 4 and
+    serves slot 2 of 4 (a cache of one slot); slots that do not divide
+    over the 4 ranks, and the paged pool or the prefix cache, raise.  A
+    stand-in mesh of one process: the constructor runs no collective."""
+    from repro_torch.models import api as P_api
+    from repro_torch.serving import ServingRuntime
+    coord = {"pod": 1, "data": 0}
+    mesh = types.SimpleNamespace(
+        empty=False, axis_names=("pod", "data"), shape={"pod": 2, "data": 2},
+        coord=coord, rank=2, index=coord.__getitem__)
+    cfg = P_configs.get_config("internlm2_1_8b", smoke=True)
+    params = P_api.get_model(cfg).init(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    with P_compat.set_mesh(mesh), \
+            P_sharding.use_rules(P_sharding.MULTI_POD_RULES):
+        rt = ServingRuntime(cfg, params, slots=4, max_len=16, device="cpu")
+        assert rt._rows == slice(2, 3)
+        assert len(rt.sched.slots) == 4
+        with pytest.raises(ValueError, match="do not split"):
+            ServingRuntime(cfg, params, slots=6, max_len=16, device="cpu")
+        for kw in ({"page_block": 4}, {"page_block": 4, "prefix_cache": True}):
+            with pytest.raises(NotImplementedError,
+                               match="paged pool and the prefix cache"):
+                ServingRuntime(cfg, params, slots=4, max_len=16,
+                               device="cpu", **kw)
+
+
 def test_second_slice_raises_naming_it():
     """``train --mesh`` runs now: in one process ``train(mesh="model=2")``
     fails as the reference's ``train`` does, on a mesh larger than the
-    world, with the same text.  ``compress_pod_grads`` stays with the
-    second half of slice 2b."""
+    world, with the same text.  ``compress_pod_grads`` raises: the
+    reference declares it and its step never reads it."""
     with pytest.raises(ValueError) as r_err:
         R_train.main(["--mesh", "model=2"])
     with pytest.raises(ValueError) as p_err:
         P_train.train("internlm2_1_8b", mesh="model=2", device="cpu")
     assert str(p_err.value) == str(r_err.value)
     cfg = P_configs.get_config("internlm2_1_8b", smoke=True)
-    with pytest.raises(NotImplementedError, match="2b"):
+    with pytest.raises(NotImplementedError, match="never reads it"):
         P_steps.make_train_step(cfg, None, P_steps.TrainConfig(
             compress_pod_grads=True))
 
@@ -173,9 +219,23 @@ def test_second_slice_raises_naming_it():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def served(tmp_path_factory):
-    return spawn("serving", 2, tmp_path_factory.mktemp("mesh_serve"),
-                 {"argv": ARGV, "spec": SPEC})
+def spawned(tmp_path_factory):
+    """Both spawns, started together: 2 ranks of the ``serving`` job and 4
+    of ``--mesh data=2,model=2``; while they run, the single-device runs
+    of the MoE arch and of the 4-rank requests in this process."""
+    wait2 = start("serving", 2, tmp_path_factory.mktemp("mesh_serve"),
+                  {"argv": ARGV, "spec": SPEC, "data_argv": DATA_ARGV,
+                   "moe_argv": MOE_ARGV})
+    wait4 = start("serving_data_model", 4,
+                  tmp_path_factory.mktemp("mesh_serve4"), {"argv": DM_ARGV})
+    moe_single, dm_single = served_run(MOE_ARGV), served_run(DM_ARGV)
+    return {"served": wait2(), "moe_single": moe_single,
+            "data_model": (wait4(), dm_single)}
+
+
+@pytest.fixture(scope="module")
+def served(spawned):
+    return spawned["served"]
 
 
 def test_serve_mesh_gives_single_device_tokens(served):
@@ -205,6 +265,63 @@ def test_serve_mesh_paged_chunked_prefix_equals_monolithic(served):
 
 
 def test_serve_mesh_other_axes_raise_naming_slice_2b(served):
+    """What the batch split does not serve yet raises on every rank,
+    naming it: the paged pool (and the prefix cache over it) under
+    ``--mesh data=2``."""
     for out in served:
-        assert "2b" in out["data_axis"] and "data" in out["data_axis"]
-        assert "2b" in out["moe_a2a"]
+        msg = out["paged_data"]
+        assert "paged pool" in msg and "prefix cache" in msg
+        assert "data" in msg
+
+
+@pytest.mark.parametrize("axis", ["data", "pod"])
+def test_serve_batch_axis_gives_single_device_tokens(served, axis):
+    """``serve.main`` with ``--mesh data=2`` (single-pod rules) and
+    ``--mesh pod=2`` (multi-pod rules: ``cache_batch`` spans pod and
+    data) under ``ozimmu_h-4:df32:fused``: one slot a rank, every
+    request's tokens equal to the single-device run's (under the same
+    spec with an ``@model`` suffix and no mesh, which contracts alike) on
+    both ranks; one gather of the greedy tokens a model call and no
+    all-to-all."""
+    for out in served:
+        run = out[axis]
+        assert run["finished"] == 3
+        assert run["tokens"] == out["single"]
+        assert run["data_counts"] == {
+            "pmean": 0, "all_gather_cat": 0, "all_to_all": 0,
+            "all_gather_rows": run["model_calls"]}
+        assert run["model_calls"] > 0
+
+
+def test_serve_moe_data_axis_runs_the_all_to_all(served, spawned):
+    """deepseek-moe-16b's smoke config (2 layers of 8 experts,
+    ``moe_dispatch="a2a"``) under ``--mesh data=2``: the single-device
+    tokens on both ranks; two all-to-alls a layer in every model step
+    (each rank runs every step, its slot idle or not) and one gather of
+    the tokens a model call."""
+    single = spawned["moe_single"]
+    assert single["finished"] == 3
+    for out in served:
+        run = out["moe"]
+        assert run["tokens"] == single["tokens"]
+        assert run["model_steps"] == single["model_steps"]
+        assert run["data_counts"] == {
+            "pmean": 0, "all_gather_cat": 0,
+            "all_to_all": 2 * 2 * run["model_steps"],
+            "all_gather_rows": run["model_calls"]}
+        assert single["data_counts"]["all_to_all"] == 0
+
+
+def test_serve_data_and_model_axes_give_single_device_tokens(spawned):
+    """``--mesh data=2,model=2`` under ``ozimmu_h-4:df32:fused@model``:
+    2 requests of 3 tokens, equal to the single-device run's on all 4
+    ranks; the contractions summed over ``model`` within each data line,
+    one gather of the tokens a model call."""
+    ranks, single = spawned["data_model"]
+    assert len(single["tokens"]) == 2
+    assert all(len(t) == 3 for t in single["tokens"])
+    for out in ranks:
+        assert out["finished"] == 2
+        assert out["tokens"] == single["tokens"]
+        assert out["data_counts"]["all_gather_rows"] == out["model_calls"]
+        assert out["counts"]["psum_exact_int32"] > 0

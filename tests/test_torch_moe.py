@@ -194,10 +194,12 @@ def test_moe_ffn_matches_reference(ref_params, case):
 def test_a2a_without_a_mesh_is_the_scatter_path(ref_params):
     """``full()`` sets ``moe_dispatch="a2a"``: with no mesh it is
     ``moe_ffn`` (the reference's own branch), under a mesh-native spec
-    too; a mesh with a data axis (the all-to-all, the second distributed
-    slice) raises, and so do an unknown family (``get_model`` looks it up as the
-    reference's ``_FAMILY_MODULES[cfg.family]`` does) and a family that is
-    not a MoE one."""
+    too; under a data axis that does not divide the 8 experts (3 ranks)
+    it is ``moe_ffn`` too, the reference's fallback (the all-to-all over a
+    dividing axis is ``tests/test_torch_moe_a2a.py``'s); an unknown family
+    (``get_model`` looks it up as the reference's
+    ``_FAMILY_MODULES[cfg.family]`` does) and a family that is not a MoE
+    one raise."""
     _, nparams, _ = ref_params
     pcfg = P_configs.get_config(ARCH, smoke=True, dtype="float32",
                                 engine_spec=FUSED)
@@ -210,14 +212,14 @@ def test_a2a_without_a_mesh_is_the_scatter_path(ref_params):
     mcfg = pcfg.with_(engine_spec="ozimmu_h-4:df32@model")
     assert torch.equal(P_moe.moe_ffn_dispatch(lp, mcfg, x),
                        P_moe.moe_ffn(lp, mcfg, x))
-    # the mesh surface moe_ffn_a2a reads, for a data axis of 2 ranks (a
-    # real one needs 2 processes: tests/test_torch_mesh.py)
+    # the mesh surface moe_ffn_a2a reads, for a data axis of 3 ranks (a
+    # real one needs 3 processes); 8 % 3 != 0, so no collective runs
     data_mesh = types.SimpleNamespace(empty=False, axis_names=("data",),
-                                      shape={"data": 2}, coord={"data": 0},
+                                      shape={"data": 3}, coord={"data": 0},
                                       rank=0)
-    with P_compat.set_mesh(data_mesh), \
-            pytest.raises(NotImplementedError, match="distributed slice"):
-        P_moe.moe_ffn_dispatch(lp, mcfg, x)
+    with P_compat.set_mesh(data_mesh):
+        assert torch.equal(P_moe.moe_ffn_dispatch(lp, pcfg, x),
+                           P_moe.moe_ffn(lp, pcfg, x))
     with pytest.raises(KeyError, match="audio"):
         P_api.get_model(pcfg.with_(family="audio"))
     with pytest.raises(ValueError, match="not a MoE family"):

@@ -367,9 +367,10 @@ def test_dense_paged_runtime_matches_reference_paged_runtime():
 def test_prefix_cache_raises_naming_its_slice():
     """The prefix cache is ported (``--prefix-cache`` serves, see
     ``test_launcher_serves_paged``) and raises only without a pool; the
-    launcher's ``--mesh`` over a data axis (the second distributed slice;
-    ``--mesh model=N`` serves, ``tests/test_torch_mesh.py``) raises,
-    naming its slice, before any process group or model is built.  ``--metrics-json`` and
+    launcher's paged pool and prefix cache under a ``--mesh`` data axis
+    (the batch split serves monolithic, ``tests/test_torch_mesh.py``)
+    raise, naming what is left, before any process group or model is
+    built.  ``--metrics-json`` and
     ``--profile-dir`` serve (``tests/test_torch_obs_serving.py``)."""
     from repro_torch.launch import serve
     from repro_torch.serving import ServingRuntime
@@ -380,7 +381,8 @@ def test_prefix_cache_raises_naming_its_slice():
         ServingRuntime(cfg, params, slots=2, max_len=16, prefix_cache=True,
                        device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="comes with the second distributed slice"):
+                       match="paged pool and the prefix cache are not "
+                             "split over the data batch ranks"):
         serve.main(["--page-block", "8", "--prefix-cache", "--mesh",
                     "data=2", "--device", "cpu"])
 

@@ -399,13 +399,13 @@ def test_train_step_runs_for_every_arch(arch):
 
 
 def test_train_step_refuses_what_later_slices_bring():
-    """``compress_pod_grads`` raises, naming the distributed slice that
-    brings the ``pod`` axis.  ``--mesh data=2`` trains now: in one process
+    """``compress_pod_grads`` raises, saying that the reference declares
+    the flag and its step never reads it.  ``--mesh data=2`` trains now: in one process
     it fails as the reference's launcher does (the mesh needs two
     devices), with the same text."""
     from repro.launch import train as r_train
     cfg = P_configs.get_config(ARCH, smoke=True)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(NotImplementedError, match="never reads it"):
         P_steps.make_train_step(cfg, P_optim.OptConfig(),
                                 P_steps.TrainConfig(compress_pod_grads=True))
     argv = ["--steps", "2", "--batch", "2", "--seq", "16", "--mesh",

@@ -26,7 +26,20 @@ config under ``ozimmu_h-4:df32``:
   shards;
 * ``model=2``: ``train.main`` under ``ozimmu_h-4:df32@model`` gives the
   one-process losses under ``ozimmu_h-4:df32`` bitwise on both ranks
-  (the ``@model`` contractions' contract).
+  (the ``@model`` contractions' contract);
+* the MoE all-to-all: deepseek-moe-16b's smoke config at
+  ``capacity_factor=4.0`` (nothing drops, on a rank or in the whole
+  batch) on ``data=2``, its experts' tokens exchanged by all-to-all
+  (``moe_dispatch="a2a"``), seeded parameters of the port's ``init``:
+  step 0's averaged loss under ``ozimmu_h-4:df32`` within 1e-5 and every
+  gradient leaf within ``1e-3 * max|g|`` of the reference's whole-batch
+  ``jax.value_and_grad`` under its native ``f32`` engine (f32
+  activations; one MoE layer is held to the reference under the same
+  emulated spec in ``tests/test_torch_moe_a2a.py``), the ranks' averaged
+  gradients bitwise equal, the all-to-alls of a rank's step exact (two a
+  layer in the forward, in the remat recompute and in the backward), and
+  ``train.main --mesh data=2`` on the arch keeping the ranks' parameters
+  bitwise equal after each step.
 """
 import numpy as np
 import pytest
@@ -55,6 +68,11 @@ torch.set_num_threads(1)
 ARCH = "internlm2_1_8b"
 SPEC = "ozimmu_h-4:df32"
 N_LEAVES = 12                    # the smoke model's parameter leaves
+MOE = "deepseek_moe_16b"
+MOE_CF = 4.0
+# the MoE model's whole-batch reference runs its native f32 engine: under
+# SPEC its jit takes ~35 s on the CPU, under f32 ~3 s
+MOE_REF_SPEC = "f32"
 
 
 def _np(tree_):
@@ -73,11 +91,11 @@ def _shards(seed=4):
     return out
 
 
-def _reference(params, toks):
-    """The reference's whole-batch loss and gradients under ``SPEC`` (f32
+def _reference(params, toks, arch=ARCH, spec=SPEC, **overrides):
+    """The reference's whole-batch loss and gradients under ``spec`` (f32
     activations), jitted."""
-    cfg = R_configs.get_config(ARCH, smoke=True, engine_spec=SPEC,
-                               dtype="float32")
+    cfg = R_configs.get_config(arch, smoke=True, engine_spec=spec,
+                               dtype="float32", **overrides)
     model = R_api.get_model(cfg)
 
     def loss_fn(p):
@@ -116,15 +134,26 @@ def run(tmp_path_factory):
                                              dtype=np.int32)
     one = _one_process_checkpoint(params, torch.from_numpy(toks),
                                   str(tmp / "one_ckpt"))
+    moe_cfg = P_configs.get_config(MOE, smoke=True)
+    moe_params = P_api.get_model(moe_cfg).init(
+        moe_cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    moe_toks = np.random.default_rng(10).integers(0, 256, (4, 16),
+                                                  dtype=np.int32)
     wait = start("training", 2, tmp, {
+        "moe": {"spec": SPEC, "cf": MOE_CF,
+                "params": moe_params,
+                "tokens": torch.from_numpy(moe_toks)},
         "spec": SPEC, "params": params, "tokens": torch.from_numpy(toks),
         "one_ckpt": str(tmp / "one_ckpt"),
         "mesh_ckpt": str(tmp / "mesh_ckpt"),
         "shards": [{k: torch.from_numpy(v) for k, v in s.items()}
                    for s in _shards()]})
     loss, grads = _reference(r_params, toks)
+    moe = _reference(P_tree.tree_map(lambda t: t.numpy(), moe_params),
+                     moe_toks, MOE, spec=MOE_REF_SPEC,
+                     capacity_factor=MOE_CF)
     return dict(ranks=wait(), loss=loss, grads=grads, one_ckpt=one,
-                mesh_ckpt=str(tmp / "mesh_ckpt"))
+                mesh_ckpt=str(tmp / "mesh_ckpt"), moe=moe)
 
 
 def _rel(out, ref_):
@@ -156,7 +185,8 @@ def test_data_split_step0_matches_reference_whole_batch(run):
     assert out[0]["loss"] == out[1]["loss"]
     assert _equal(out[0]["grads"], out[1]["grads"])
     assert out[0]["mean_counts"] == {"pmean": N_LEAVES + 1,
-                                     "all_gather_cat": 0}
+                                     "all_gather_cat": 0, "all_to_all": 0,
+                                     "all_gather_rows": 0}
 
 
 def test_data_split_train_keeps_ranks_bitwise_equal(run):
@@ -192,7 +222,8 @@ def test_zero1_update_bitwise_unsharded(run):
         assert _equal([t.contiguous() for t in whole_slices], slices)
         assert all(d is not None for d in r["zero_axes"])
         assert r["zero_counts"] == {"pmean": 0,
-                                    "all_gather_cat": N_LEAVES}
+                                    "all_gather_cat": N_LEAVES,
+                                    "all_to_all": 0, "all_gather_rows": 0}
     # the ranks hold different halves of the same state
     assert not _equal(out[0]["zero"]["state"][1], out[1]["zero"]["state"][1])
 
@@ -325,3 +356,46 @@ def test_train_model_axis_gives_single_device_losses(run):
     assert len(out[0]["single"]) == 3
     for r in out:
         assert r["model"] == out[0]["single"]
+
+
+# ---------------------------------------------------------------------------
+# the MoE all-to-all
+# ---------------------------------------------------------------------------
+
+def test_moe_a2a_step0_matches_reference_whole_batch(run):
+    """deepseek-moe-16b (2 layers of 8 experts, top 2) at capacity factor
+    4.0 on 2 x 2 rows, the experts' tokens exchanged by all-to-all,
+    averaged over ``data``, under ``ozimmu_h-4:df32``: the loss within
+    1e-5 and each of the 16 gradient leaves within 1e-3 of its max|g| of
+    the reference's step on the 4 rows under its native f32 engine; the
+    ranks agree bit for bit; two all-to-alls a layer in
+    the forward, two in its remat recompute, two in the backward."""
+    out = run["ranks"]
+    loss, grads = run["moe"]
+    for r in out:
+        m = r["moe"]
+        assert abs(m["loss"] - loss) <= 1e-5
+        assert len(m["grads"]) == len(grads) == 16
+        for p, g in zip(m["grads"], grads):
+            assert tuple(p.shape) == g.shape
+            assert _rel(p.numpy(), g) <= 1e-3
+        assert m["counts"] == {"pmean": 0, "all_gather_cat": 0,
+                               "all_to_all": 3 * 2 * 2,
+                               "all_gather_rows": 0}
+    assert out[0]["moe"]["loss"] == out[1]["moe"]["loss"]
+    assert _equal(out[0]["moe"]["grads"], out[1]["moe"]["grads"])
+
+
+def test_moe_a2a_train_keeps_ranks_bitwise_equal(run):
+    """``train.main --arch deepseek_moe_16b --mesh data=2`` (capacity
+    factor 4.0): both ranks' parameters equal bit for bit after each of 2
+    steps, finite losses equal on both."""
+    out = run["ranks"]
+    a, b = out[0]["moe"]["train_params"], out[1]["moe"]["train_params"]
+    assert len(a) == len(b) == 2
+    for pa, pb in zip(a, b):
+        assert _equal(pa, pb)
+    assert not _equal(a[0], a[1])
+    losses = out[0]["moe"]["train"]
+    assert losses == out[1]["moe"]["train"] and len(losses) == 2
+    assert np.isfinite(losses).all()

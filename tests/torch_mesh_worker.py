@@ -12,12 +12,14 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import configs, tree
 from repro_torch.core import ozimmu, split_cache
@@ -145,13 +147,20 @@ def contractions(rank: int, x):
 
 
 def _capture_serve(argv):
-    """``serve.main(argv)`` and the runtime it served with."""
+    """``serve.main(argv)`` and the runtime it served with; the runtime's
+    ``fed`` lists the positions each prefill call fed."""
     seen = {}
     make = serve.make_runtime
 
     def captured(*args, **kw):
-        seen["rt"] = make(*args, **kw)
-        return seen["rt"]
+        rt = seen["rt"] = make(*args, **kw)
+        rt.fed, prefill = [], rt._prefill
+
+        def counted(toks, *rest):
+            rt.fed.append(toks.shape[1])
+            return prefill(toks, *rest)
+        rt._prefill = counted
+        return rt
     serve.make_runtime = captured
     try:
         s = serve.main(argv)
@@ -160,25 +169,47 @@ def _capture_serve(argv):
     return s, seen["rt"]
 
 
+def _tokens(rt):
+    return [list(r.generated) for r in
+            sorted(rt.sched.finished, key=lambda r: r.rid)]
+
+
+def served_run(argv):
+    """``serve.main(argv)``: its tokens, its model calls (prefill calls
+    and decode steps) and model steps (a position a prefill call feeds, or
+    a decode step), its data-axis collectives."""
+    collectives.reset_counts()
+    s, rt = _capture_serve(argv)
+    return {"tokens": _tokens(rt), "finished": s["requests"]["finished"],
+            "model_calls": s["prefill_calls"] + s["decode_steps"],
+            "model_steps": sum(rt.fed) + s["decode_steps"],
+            "data_counts": dict(collectives.DATA_COUNTS)}
+
+
 def serving(rank: int, x):
     """``serve.main`` single-device and with ``--mesh model=2``; the
     paged + chunked + prefix-cached runtime against the monolithic one
-    under the mesh; and what the mesh does not serve yet (an axis other
-    than ``model``, the MoE all-to-all over a data axis)."""
+    under the mesh; the batch split: ``--mesh data=2`` and ``pod=2`` on
+    ``x["data_argv"]``, the MoE arch under ``data=2`` (its experts'
+    tokens exchanged by all-to-all), and what the batch split does not
+    serve yet (the paged pool)."""
     out = {}
-    toks = lambda rt: [list(r.generated) for r in
-                       sorted(rt.sched.finished, key=lambda r: r.rid)]
     s, rt = _capture_serve(x["argv"])
-    out["single"] = toks(rt)
+    out["single"] = _tokens(rt)
     s, rt = _capture_serve(x["argv"] + ["--mesh", "model=2"])
-    out["mesh"] = toks(rt)
+    out["mesh"] = _tokens(rt)
     out["mesh_summary"] = {"finished": s["requests"]["finished"],
                            "hit_rate":
                            s["split_cache"]["weight_split_hit_rate"]}
+    data_argv = x["data_argv"]
+    for axis in ("data", "pod"):
+        out[axis] = served_run(data_argv + ["--mesh", f"{axis}=2"])
+    moe_argv = x["moe_argv"]
+    out["moe"] = served_run(moe_argv + ["--mesh", "data=2"])
     try:
-        serve.main(x["argv"] + ["--mesh", "data=2"])
+        serve.main(data_argv + ["--page-block", "4", "--mesh", "data=2"])
     except NotImplementedError as e:
-        out["data_axis"] = str(e)
+        out["paged_data"] = str(e)
 
     arch, spec = "internlm2_1_8b", x["spec"]
     cfg = configs.get_config(arch, smoke=True, engine_spec=spec)
@@ -206,15 +237,90 @@ def serving(rank: int, x):
                          "hit_tokens": rt.prefix.stats.hit_tokens,
                          "key_mesh": rt.prefix.key0[-1]}
         out["split_key_mesh"] = split_cache._mesh_key()
+    return out
 
-    moe = configs.get_config("deepseek_moe_16b", smoke=True,
-                             engine_spec=spec)
+
+def serving_data_model(rank: int, x):
+    """``serve.main`` with ``--mesh data=2,model=2`` under an ``@model``
+    engine: the slots split over ``data``, each line's contractions
+    sharded over ``model``."""
+    return served_run(x["argv"] + ["--mesh", "data=2,model=2"]) | {
+        "counts": dict(collectives.COUNTS)}
+
+
+def moe_a2a(rank: int, x):
+    """``moe_ffn_a2a`` on a ``data=2`` mesh, this rank's rows of each
+    case (``x["cases"]``: a name -> arch, capacity factor, layer
+    parameters, the ranks' inputs): the output and the all-to-alls of the
+    forward; for ``x["grad_case"]`` the loss ``sum(y ** 2)`` of this
+    rank's rows, its gradients averaged by ``steps.batch_mean`` (and
+    before), the all-to-alls of the forward and of the backward, and the
+    same loss under non-reentrant ``torch.utils.checkpoint`` with its
+    backward (the recompute inside it) on a thread of its own, as
+    autograd runs a CUDA backward on a device thread (the CPU's runs on
+    the caller's); ``x["fallback"]``'s case with experts the axis does
+    not divide, against ``moe_ffn``."""
+    from repro_torch.launch import steps as S
     from repro_torch.models import moe as moe_mod
-    with compat.set_mesh(mesh_lib.parse_mesh_spec("data=2")):
-        try:
-            moe_mod.moe_ffn_a2a({}, moe, torch.zeros(1, 2, moe.d_model))
-        except NotImplementedError as e:
-            out["moe_a2a"] = str(e)
+    mesh = mesh_lib.parse_mesh_spec("data=2")
+    out = {}
+
+    def cfg_of(case):
+        return configs.get_config(case["arch"], smoke=True,
+                                  engine_spec=x["spec"], dtype="float32",
+                                  capacity_factor=case["cf"],
+                                  **case.get("with", {}))
+    with compat.set_mesh(mesh), use_rules(mesh_lib.mesh_rules(
+            mesh, "deepseek_moe_16b")):
+        for name, case in x["cases"].items():
+            collectives.reset_counts()
+            y = moe_mod.moe_ffn_a2a(case["params"], cfg_of(case),
+                                    case["x"][rank])
+            out[name] = (y, dict(collectives.DATA_COUNTS))
+        case = x["cases"][x["grad_case"]]
+        params = tree.tree_map(lambda t: t.clone().requires_grad_(),
+                               case["params"])
+        # x is an activation: its cotangent takes the dispatch back too
+        xr = case["x"][rank].clone().requires_grad_()
+        collectives.reset_counts()
+        loss = (moe_mod.moe_ffn_a2a(params, cfg_of(case), xr) ** 2).sum()
+        fwd = dict(collectives.DATA_COUNTS)
+        collectives.reset_counts()
+        loss.backward()
+        bwd = dict(collectives.DATA_COUNTS)
+        own = tree.tree_map(lambda t: t.grad.clone(), params)
+        # the mean overwrites the f32 gradients in place
+        loss, grads = S.batch_mean(loss.detach(), tree.tree_map(
+            lambda t: t.grad, params))
+        out["grad"] = {"loss": loss, "grads": grads, "own": own,
+                       "fwd": fwd, "bwd": bwd}
+        params = tree.tree_map(lambda t: t.clone().requires_grad_(),
+                               case["params"])
+        collectives.reset_counts()
+        loss = (checkpoint(moe_mod.moe_ffn_a2a, params, cfg_of(case),
+                           case["x"][rank].clone().requires_grad_(),
+                           use_reentrant=False) ** 2).sum()
+        raised = []
+
+        def backward():
+            try:
+                loss.backward()
+            except Exception as e:      # reported through the result
+                raised.append(f"{type(e).__name__}: {e}")
+        thread = threading.Thread(target=backward)
+        thread.start()
+        thread.join(TIMEOUT_S)
+        out["remat_thread"] = {
+            "raised": raised, "counts": dict(collectives.DATA_COUNTS),
+            "grads": None if raised else tree.tree_map(lambda t: t.grad,
+                                                       params)}
+        case = x["fallback"]
+        cfg = cfg_of(case)
+        collectives.reset_counts()
+        y = moe_mod.moe_ffn_a2a(case["params"], cfg, case["x"][rank])
+        out["fallback"] = (torch.equal(y, moe_mod.moe_ffn(
+            case["params"], cfg, case["x"][rank])),
+            dict(collectives.DATA_COUNTS))
     return out
 
 
@@ -250,7 +356,8 @@ def training(rank: int, x):
     checkpoint written), the one-process checkpoint restored onto the
     mesh, ``compressed_psum`` on this rank's shards; then ``train.main``
     with ``--mesh model=2`` under an ``@model`` engine, and on rank 0 the
-    same runs without a mesh."""
+    same runs without a mesh; last the MoE arch on ``data=2``
+    (:func:`_moe_training`)."""
     from repro_torch import optim
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.launch import steps as S
@@ -321,8 +428,45 @@ def training(rank: int, x):
                                            "3", "--mesh", "model=2"])
     if rank == 0:
         out["single"] = train.main(argv + ["--steps", "3"])
+    out["moe"] = _moe_training(rank, x["moe"])
+    return out
+
+
+def _moe_training(rank: int, x):
+    """deepseek-moe-16b's smoke config at ``x["cf"]`` on ``data=2``, its
+    experts' tokens exchanged by all-to-all: step 0's averaged loss and
+    gradients (f32 activations, this rank's rows) and the all-to-alls of
+    the rank's loss and gradients; then ``train.main --mesh data=2`` at
+    the same capacity factor, every step's parameters recorded."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    arch = "deepseek_moe_16b"
+    out = {}
+    mesh = mesh_lib.parse_mesh_spec("data=2")
+    cfg = configs.get_config(arch, smoke=True, engine_spec=x["spec"],
+                             dtype="float32", capacity_factor=x["cf"])
+    rows = len(x["tokens"]) // 2
+    mine = {"tokens": x["tokens"][rank * rows:(rank + 1) * rows]}
+    with compat.set_mesh(mesh), use_rules(mesh_lib.mesh_rules(mesh, arch)):
+        collectives.reset_counts()
+        loss, grads = S.loss_and_grads(cfg, x["params"], mine)
+        out["counts"] = dict(collectives.DATA_COUNTS)
+        loss, grads = S.batch_mean(loss, grads)
+    out["loss"], out["grads"] = float(loss), tree.leaves(grads)
+    get = configs.get_config
+    configs.get_config = lambda *a, **kw: get(*a, **kw).with_(
+        capacity_factor=x["cf"])
+    try:
+        out["train"], out["train_params"], _ = _steps_recorded(
+            lambda: train.main(["--arch", arch, "--device", "cpu", "--batch",
+                                "4", "--seq", "16", "--log-every", "0",
+                                "--engine", x["spec"], "--steps", "2",
+                                "--mesh", "data=2"]))
+    finally:
+        configs.get_config = get
     return out
 
 
 JOBS = {"contractions": contractions, "serving": serving,
-        "training": training}
+        "serving_data_model": serving_data_model, "training": training,
+        "moe_a2a": moe_a2a}
